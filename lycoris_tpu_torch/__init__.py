@@ -1,0 +1,30 @@
+"""lycoris_tpu_torch -- the PyTorch/CUDA port of lycoris_tpu.
+
+The first slice is the serving path: the SD1.5/SDXL UNet
+(:mod:`.models.unet`), LoKr and LoHa adapters (:mod:`.modules`) targeted
+and applied by :class:`LycorisNetwork`, and DDIM sampling with CFG
+(:mod:`.sampler`). Flash attention, LayerNorm and the LoHa delta weight run
+hand-written CUDA kernels on the card (:mod:`.ops`); on the CPU each runs
+its plain PyTorch version. The package never imports JAX.
+"""
+
+__version__ = "0.1.0"
+
+from . import functional, modules
+from .graph import ModelGraph
+from .logging import logger
+from .modules.loha import LohaModule
+from .modules.lokr import LokrModule
+from .wrapper import LycorisNetwork, create_lycoris, create_lycoris_from_weights
+
+__all__ = [
+    "functional",
+    "modules",
+    "logger",
+    "ModelGraph",
+    "LycorisNetwork",
+    "create_lycoris",
+    "create_lycoris_from_weights",
+    "LohaModule",
+    "LokrModule",
+]

@@ -1,0 +1,127 @@
+"""LoHa adapter module (counterpart of ``lycoris_tpu/modules/loha.py``).
+
+Keys ``hada_w1_a/b, hada_w2_a/b, hada_t1/t2, alpha``; non-tucker factors
+``w1_a (O, r)`` / ``w1_b (r, I*prod(k))``. dW = (alpha / r) *
+(w1a @ w1b) * (w2a @ w2b) * scalar, formed by the LoHa kernel
+(``functional/loha.py`` -> ``ops/hada.py``). DoRA waits for a later slice.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..functional import loha as F_loha
+from .base import LayerInfo, LycorisBaseModule, as_float, to_tensor
+
+
+class LohaModule(LycorisBaseModule):
+    name = "loha"
+    support_module = frozenset({"linear", "conv1d", "conv2d", "conv3d"})
+    weight_list = ["hada_w1_a", "hada_w1_b", "hada_w2_a", "hada_w2_b", "hada_t1", "hada_t2",
+                   "alpha", "dora_scale"]
+    weight_list_det = ["hada_w1_a"]
+
+    def __init__(self, lora_name, layer: LayerInfo, multiplier=1.0, lora_dim=4, alpha=1,
+                 dropout=0.0, rank_dropout=0.0, module_dropout=0.0, use_tucker=False,
+                 use_scalar=False, rank_dropout_scale=False, weight_decompose=False,
+                 wd_on_out=True, bypass_mode=None, rs_lora=False, generator=None,
+                 device=None, dtype=torch.float32, **kwargs):
+        super().__init__(lora_name, layer, multiplier, dropout, rank_dropout, module_dropout,
+                         rank_dropout_scale, bypass_mode)
+        if self.not_supported:
+            raise ValueError(f"{self.module_type} is not supported in LoHa algo.")
+        if weight_decompose:
+            raise NotImplementedError("LoHa weight_decompose (DoRA) is not ported yet")
+        self.lora_dim = lora_dim
+        self.rs_lora = rs_lora
+        self.use_scalar = use_scalar
+
+        out_dim, in_dim, *k_size = self.shape
+        self.tucker = self.layer.is_conv and use_tucker and any(i != 1 for i in k_size)
+        if self.layer.is_conv and not self.tucker:
+            w_shape = (out_dim, in_dim * math.prod(k_size))
+        else:
+            w_shape = (out_dim, in_dim)
+
+        def normal(shape, std):
+            return torch.randn(shape, dtype=dtype, device=device, generator=generator) * std
+
+        def zeros(shape):
+            return torch.zeros(shape, dtype=dtype, device=device)
+
+        self.trainable |= {"hada_w1_a", "hada_w1_b", "hada_w2_a", "hada_w2_b"}
+        if self.tucker:
+            self.trainable |= {"hada_t1", "hada_t2"}
+            self._set("hada_t1", normal((lora_dim, lora_dim, *k_size), 0.1))
+            self._set("hada_t2", normal((lora_dim, lora_dim, *k_size), 0.1))
+            self._set("hada_w1_a", normal((lora_dim, w_shape[0]), 0.1))
+            self._set("hada_w1_b", normal((lora_dim, w_shape[1]), 1.0))
+            self._set("hada_w2_a", normal((lora_dim, w_shape[0]), 0.1) if use_scalar
+                      else zeros((lora_dim, w_shape[0])))
+            self._set("hada_w2_b", normal((lora_dim, w_shape[1]), 1.0))
+        else:
+            self._set("hada_w1_a", normal((w_shape[0], lora_dim), 0.1))
+            self._set("hada_w1_b", normal((lora_dim, w_shape[1]), 1.0))
+            self._set("hada_w2_a", normal((w_shape[0], lora_dim), 0.1) if use_scalar
+                      else zeros((w_shape[0], lora_dim)))
+            self._set("hada_w2_b", normal((lora_dim, w_shape[1]), 1.0))
+
+        alpha = as_float(alpha)
+        alpha = lora_dim if alpha == 0.0 else alpha
+        r_factor = math.sqrt(lora_dim) if rs_lora else lora_dim
+        self.scale = alpha / r_factor
+        self._set("alpha", torch.tensor(alpha * (lora_dim / r_factor), dtype=torch.float32,
+                                        device=device), trainable=False)
+        if use_scalar:
+            self.trainable.add("scalar")
+        self._set("scalar", torch.tensor(0.0 if use_scalar else 1.0, dtype=dtype, device=device))
+
+    @classmethod
+    def make_module_from_state_dict(cls, lora_name, layer, w1a, w1b, w2a, w2b, t1, t2, alpha,
+                                    dora_scale):
+        module = cls(lora_name, layer, 1, w1b.shape[0], alpha, use_tucker=t1 is not None,
+                     weight_decompose=dora_scale is not None)
+        for key, val in [("hada_w1_a", w1a), ("hada_w1_b", w1b), ("hada_w2_a", w2a),
+                         ("hada_w2_b", w2b), ("hada_t1", t1), ("hada_t2", t2)]:
+            if val is not None:
+                module._set(key, to_tensor(val).clone())
+        return module
+
+    # -- weight reconstruction ------------------------------------------------
+    def get_weight(self):
+        t1 = self._p("hada_t1") if self.tucker else None
+        t2 = self._p("hada_t2") if self.tucker else None
+        # make_weight's order is (w1d, w1u, w2d, w2u): the b factors are "down"
+        weight = F_loha.diff_weight(
+            self._p("hada_w1_b"), self._p("hada_w1_a"),
+            self._p("hada_w2_b"), self._p("hada_w2_a"),
+            t1, t2, gamma=self.scale,
+        )
+        return weight.reshape(self.shape)
+
+    def get_diff_weight(self, multiplier=1.0):
+        return self.get_weight() * self._p("scalar") * multiplier, None
+
+    def get_merged_weight(self, org_weight, org_bias=None, multiplier=1.0):
+        diff = self.get_diff_weight(1.0)[0].reshape(org_weight.shape)
+        return org_weight + diff * multiplier, org_bias
+
+    def custom_state_dict(self):
+        src = self.params
+        dest = {
+            "alpha": src["alpha"],
+            "hada_w1_a": src["hada_w1_a"] * src["scalar"],
+            "hada_w1_b": src["hada_w1_b"],
+            "hada_w2_a": src["hada_w2_a"],
+            "hada_w2_b": src["hada_w2_b"],
+        }
+        if self.tucker:
+            dest["hada_t1"] = src["hada_t1"]
+            dest["hada_t2"] = src["hada_t2"]
+        return {k: v.detach() for k, v in dest.items()}
+
+    def bypass_forward_diff(self, x, scale=1.0):
+        diff_weight = self.get_weight() * self._p("scalar") * scale
+        return self.op(x, diff_weight.to(x.dtype))

@@ -1,0 +1,240 @@
+"""LoKr (Kronecker) adapter module (counterpart of ``lycoris_tpu/modules/lokr.py``).
+
+Same keys, factorization branches, init table and checkpoint shape
+re-inference as the JAX module (reference lokr.py:31-342). dW is
+(alpha / r) * (w1 kron w2) * scalar; the bypass path is the grouped-matmul
+Kronecker product scaled the same way (the JAX package's documented
+deviations from the reference). DoRA (``weight_decompose``) waits for a
+later slice.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..functional.general import factorization, kaiming_uniform, rebuild_tucker
+from ..functional.lokr import bypass_diff_with_scale, make_kron
+from .base import LayerInfo, LycorisBaseModule, as_float, to_tensor
+
+
+class LokrModule(LycorisBaseModule):
+    name = "kron"
+    support_module = frozenset({"linear", "conv1d", "conv2d", "conv3d"})
+    weight_list = [
+        "lokr_w1", "lokr_w1_a", "lokr_w1_b", "lokr_w2", "lokr_w2_a", "lokr_w2_b",
+        "lokr_t1", "lokr_t2", "alpha", "dora_scale",
+    ]
+    weight_list_det = ["lokr_w1", "lokr_w1_a"]
+
+    def __init__(self, lora_name, layer: LayerInfo, multiplier=1.0, lora_dim=4, alpha=1,
+                 dropout=0.0, rank_dropout=0.0, module_dropout=0.0, use_tucker=False,
+                 use_scalar=False, decompose_both=False, factor: int = -1,
+                 rank_dropout_scale=False, weight_decompose=False, wd_on_out=True,
+                 full_matrix=False, bypass_mode=None, rs_lora=False,
+                 unbalanced_factorization=False, generator=None, device=None,
+                 dtype=torch.float32, **kwargs):
+        super().__init__(lora_name, layer, multiplier, dropout, rank_dropout, module_dropout,
+                         rank_dropout_scale, bypass_mode)
+        if self.not_supported:
+            raise ValueError(f"{self.module_type} is not supported in LoKr algo.")
+        if weight_decompose:
+            raise NotImplementedError("LoKr weight_decompose (DoRA) is not ported yet")
+
+        factor = int(factor)
+        self.lora_dim = lora_dim
+        self.tucker = False
+        self.use_w1 = False
+        self.use_w2 = False
+        self.full_matrix = full_matrix
+        self.rs_lora = rs_lora
+        self.use_scalar = use_scalar
+
+        out_dim, in_dim, *k_size = self.shape
+        in_m, in_n = factorization(in_dim, factor)
+        out_l, out_k = factorization(out_dim, factor)
+        if unbalanced_factorization:
+            out_l, out_k = out_k, out_l
+        shape = ((out_l, out_k), (in_m, in_n))
+        self.kron_shape = shape
+
+        if self.layer.is_conv:
+            self.tucker = use_tucker and any(i != 1 for i in k_size)
+            if decompose_both and lora_dim < max(shape[0][0], shape[1][0]) / 2 and not full_matrix:
+                w1a_shape, w1b_shape = (shape[0][0], lora_dim), (lora_dim, shape[1][0])
+            else:
+                self.use_w1 = True
+                w1_shape = (shape[0][0], shape[1][0])
+            if lora_dim >= max(shape[0][1], shape[1][1]) / 2 or full_matrix:
+                self.use_w2 = True
+                w2_shape = (shape[0][1], shape[1][1], *k_size)
+            elif self.tucker:
+                t2_shape = (lora_dim, lora_dim, *k_size)
+                w2a_shape = (lora_dim, shape[0][1])
+                w2b_shape = (lora_dim, shape[1][1])
+            else:
+                w2a_shape = (shape[0][1], lora_dim)
+                w2b_shape = (lora_dim, shape[1][1] * math.prod(k_size))
+        else:
+            if decompose_both and lora_dim < max(shape[0][0], shape[1][0]) / 2 and not full_matrix:
+                w1a_shape, w1b_shape = (shape[0][0], lora_dim), (lora_dim, shape[1][0])
+            else:
+                self.use_w1 = True
+                w1_shape = (shape[0][0], shape[1][0])
+            if lora_dim < max(shape[0][1], shape[1][1]) / 2 and not full_matrix:
+                w2a_shape = (shape[0][1], lora_dim)
+                w2b_shape = (lora_dim, shape[1][1])
+            else:
+                self.use_w2 = True
+                w2_shape = (shape[0][1], shape[1][1])
+
+        kw = dict(dtype=dtype, generator=generator, device=device)
+        zeros = lambda s: torch.zeros(s, dtype=dtype, device=device)  # noqa: E731
+        for k in ("lokr_w1", "lokr_w1_a", "lokr_w1_b", "lokr_w2", "lokr_w2_a", "lokr_w2_b",
+                  "lokr_t2"):
+            self.trainable.add(k)
+        if self.use_w2:
+            self._set("lokr_w2", kaiming_uniform(w2_shape, **kw) if use_scalar else zeros(w2_shape))
+        else:
+            if self.tucker:
+                self._set("lokr_t2", kaiming_uniform(t2_shape, **kw))
+            self._set("lokr_w2_a", kaiming_uniform(w2a_shape, **kw))
+            self._set("lokr_w2_b", kaiming_uniform(w2b_shape, **kw) if use_scalar else zeros(w2b_shape))
+        if self.use_w1:
+            self._set("lokr_w1", kaiming_uniform(w1_shape, **kw))
+        else:
+            self._set("lokr_w1_a", kaiming_uniform(w1a_shape, **kw))
+            self._set("lokr_w1_b", kaiming_uniform(w1b_shape, **kw))
+        self.trainable = {k for k in self.trainable if self._p(k) is not None}
+
+        alpha = as_float(alpha)
+        alpha = lora_dim if alpha == 0.0 else alpha
+        if self.use_w1 and self.use_w2:
+            alpha = lora_dim  # scale = 1 (reference lokr.py:209-211)
+        r_factor = math.sqrt(lora_dim) if rs_lora else lora_dim
+        self.scale = alpha / r_factor
+        self._set("alpha", torch.tensor(alpha * (lora_dim / r_factor), dtype=torch.float32,
+                                        device=device), trainable=False)
+        if use_scalar:
+            self.trainable.add("scalar")
+        self._set("scalar", torch.tensor(0.0 if use_scalar else 1.0, dtype=dtype, device=device))
+
+    # -- checkpoint re-inference (reference lokr.py:246-342) -------------------
+    @classmethod
+    def make_module_from_state_dict(cls, lora_name, layer, w1, w1a, w1b, w2, w2a, w2b, _t1,
+                                    t2, alpha, dora_scale):
+        full_matrix = False
+        tucker = t2 is not None
+        if w1a is not None:
+            lora_dim = w1a.shape[1]
+        elif w2a is not None:
+            lora_dim = w2a.shape[0] if tucker else w2a.shape[1]
+        else:
+            full_matrix = True
+            lora_dim = 1
+
+        if w1 is None:
+            out_dim, in_dim = w1a.shape[0], w1b.shape[1]
+        else:
+            out_dim, in_dim = w1.shape
+        shape_s = [out_dim, in_dim]
+        if w2 is None:
+            out_dim *= w2a.shape[1] if tucker else w2a.shape[0]
+            in_dim *= w2b.shape[1]
+        else:
+            out_dim *= w2.shape[0]
+            in_dim *= w2.shape[1]
+
+        if shape_s[0] == factorization(out_dim, -1)[0] and shape_s[1] == factorization(in_dim, -1)[0]:
+            factor = -1
+        else:
+            w1_shape = tuple(w1.shape) if w1 is not None else (w1a.shape[0], w1b.shape[1])
+            if w2 is not None:
+                w2_shape = tuple(w2.shape[:2])
+            elif tucker:
+                w2_shape = (w2a.shape[1], w2b.shape[1])
+            else:
+                w2_shape = (w2a.shape[0], w2b.shape[1])
+            shape_group_1 = (w1_shape[0], w2_shape[0])
+            shape_group_2 = (w1_shape[1], w2_shape[1])
+            w_shape = (w1_shape[0] * w2_shape[0], w1_shape[1] * w2_shape[1])
+            factor1 = max(w1_shape) if w1 is not None else max(w1a.shape[0], w1b.shape[1])
+            factor2 = max(w2_shape)
+            if (w_shape[0] % factor1 == 0 and w_shape[1] % factor1 == 0
+                    and factor1 in shape_group_1 and factor1 in shape_group_2):
+                factor = factor1
+            elif (w_shape[0] % factor2 == 0 and w_shape[1] % factor2 == 0
+                    and factor2 in shape_group_1 and factor2 in shape_group_2):
+                factor = factor2
+            else:
+                factor = min(factor1, factor2)
+
+        module = cls(lora_name, layer, 1, lora_dim, alpha, use_tucker=t2 is not None,
+                     decompose_both=w1 is None and w2 is None, factor=factor,
+                     weight_decompose=dora_scale is not None, full_matrix=full_matrix)
+        for key, val in [("lokr_w1", w1), ("lokr_w1_a", w1a), ("lokr_w1_b", w1b),
+                         ("lokr_w2", w2), ("lokr_w2_a", w2a), ("lokr_w2_b", w2b),
+                         ("lokr_t2", t2)]:
+            if val is not None:
+                v = to_tensor(val)
+                cur = module._p(key)
+                if cur is not None and tuple(cur.shape) != tuple(v.shape):
+                    v = v.reshape(cur.shape)
+                module._set(key, v.clone())
+        return module
+
+    # -- weight reconstruction ------------------------------------------------
+    def _rebuild_w1(self):
+        if self.use_w1:
+            return self._p("lokr_w1")
+        return self._p("lokr_w1_a") @ self._p("lokr_w1_b")
+
+    def _rebuild_w2(self):
+        if self.use_w2:
+            return self._p("lokr_w2")
+        a, b = self._p("lokr_w2_a"), self._p("lokr_w2_b")
+        if self.tucker:
+            return rebuild_tucker(self._p("lokr_t2"), a, b)
+        return a @ b
+
+    def get_weight(self):
+        return make_kron(self._rebuild_w1(), self._rebuild_w2(), self.scale).reshape(self.shape)
+
+    def get_diff_weight(self, multiplier=1.0):
+        return self.get_weight() * self._p("scalar") * multiplier, None
+
+    def get_merged_weight(self, org_weight, org_bias=None, multiplier=1.0):
+        diff = self.get_diff_weight(1.0)[0].reshape(org_weight.shape)
+        return org_weight + diff * multiplier, org_bias
+
+    def custom_state_dict(self):
+        src = self.params
+        dest = {"alpha": src["alpha"]}
+        if self.use_w1:
+            dest["lokr_w1"] = src["lokr_w1"] * src["scalar"]
+        else:
+            dest["lokr_w1_a"] = src["lokr_w1_a"] * src["scalar"]
+            dest["lokr_w1_b"] = src["lokr_w1_b"]
+        if self.use_w2:
+            dest["lokr_w2"] = src["lokr_w2"]
+        else:
+            dest["lokr_w2_a"] = src["lokr_w2_a"]
+            dest["lokr_w2_b"] = src["lokr_w2_b"]
+            if self.tucker:
+                dest["lokr_t2"] = src["lokr_t2"]
+        return {k: v.detach() for k, v in dest.items()}
+
+    # -- forward paths -----------------------------------------------------------
+    def _functional_weights(self):
+        w2b = self._p("lokr_w2_b")
+        if w2b is not None and self.layer.is_conv and not self.tucker:
+            w2b = w2b.reshape(w2b.shape[0], self.kron_shape[1][1], *self.shape[2:])
+        return (self._p("lokr_w1"), self._p("lokr_w1_a"), self._p("lokr_w1_b"),
+                self._p("lokr_w2"), self._p("lokr_w2_a"), w2b, self._p("lokr_t2"))
+
+    def bypass_forward_diff(self, x, scale=1.0):
+        return bypass_diff_with_scale(
+            x, *self._functional_weights(), scale=self.scale * self._p("scalar") * scale,
+            extra_args=self.layer.kw if self.layer.is_conv else {},
+        )

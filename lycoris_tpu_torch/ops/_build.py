@@ -1,0 +1,134 @@
+"""Build and load the port's CUDA kernels (``csrc/*.cu``) on first use.
+
+The sources are compiled by ``nvcc`` for ``sm_90a`` into one shared library
+with a plain C interface, loaded with :mod:`ctypes`. No PyTorch headers are
+included, so a build takes seconds. The library lands in ``build/kernels/``
+at the repository root under a name that carries the hash of the sources
+and flags: editing a source rebuilds it, an unchanged tree reuses it.
+
+Nothing here runs at import time; :func:`lib` builds on the first call.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "kernels"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+_LIB = None
+build_log = ""  # compiler output of the last build (ptxas register/spill report)
+
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+_SIGNATURES = {
+    "lyc_ln_fwd": [_P, _P, _P, _P, _I, _I, _F, _I, _P],
+    "lyc_hada_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
+    "lyc_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.POINTER(_L), _F, _I, _P],
+}
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME:
+        cand = os.path.join(CUDA_HOME, "bin", "nvcc")
+        if os.path.exists(cand):
+            return cand
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+    return found
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile the kernels if this tree's library is not built yet; return its path."""
+    global build_log
+    out = BUILD_DIR / f"liblycoris_kernels_{_digest()}.so"
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *[str(s) for s in sources()]]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    build_log = res.stdout + res.stderr
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{build_log}")
+    os.replace(tmp, out)
+    (BUILD_DIR / "build.log").write_text(build_log)
+    return out
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    global _LIB
+    if _LIB is None:
+        handle = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(handle, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _LIB = handle
+    return _LIB
+
+
+def check(rc: int, name: str) -> None:
+    """Raise if a C entry returned a CUDA error (a refused or failed launch)."""
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA error {rc}")
+
+
+def stream_ptr(t) -> int:
+    import torch
+
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+DTYPE_CODES = {"torch.float32": 0, "torch.bfloat16": 1}
+
+
+def dtype_code(t) -> int:
+    code = DTYPE_CODES.get(str(t.dtype))
+    if code is None:
+        raise TypeError(f"kernel takes float32 or bfloat16, got {t.dtype}")
+    return code
+
+
+def check_cuda_inputs(name: str, *tensors) -> None:
+    """Shared wrapper checks: one CUDA device, one dtype, and no tensor that
+    autograd would record (grad enabled and requires_grad): the kernels are
+    forward-only, so training through them must fail loudly."""
+    import torch
+
+    dev = tensors[0].device
+    grad_on = torch.is_grad_enabled()
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"{name}: tensors on {t.device} and {dev}")
+        if t.dtype != tensors[0].dtype:
+            raise TypeError(f"{name}: mixed dtypes {t.dtype} and {tensors[0].dtype}")
+        if grad_on and t.requires_grad:
+            raise RuntimeError(
+                f"{name}: forward-only kernel was given a tensor that requires grad"
+            )

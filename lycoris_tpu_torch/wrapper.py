@@ -1,0 +1,502 @@
+"""LycorisNetwork -- targeting and lifecycle over a whole model (counterpart
+of ``lycoris_tpu/wrapper.py``; reference lycoris/wrapper.py:64-648).
+
+Targeting is the JAX package's: TARGET_REPLACE_MODULE class matching with
+recursion, TARGET_REPLACE_NAME / NAME_ALGO_MAP regex-or-fnmatch matching,
+MODULE_ALGO_MAP per-class overrides, exclusion first, the same
+``lora_name`` for every layer.
+
+Lifecycle follows the reference LyCORIS: :meth:`LycorisNetwork.apply_to`
+puts an adapted forward in place of each targeted layer's ``forward`` and
+:meth:`~LycorisNetwork.restore` puts the layer's own back. With
+``merged_forward=True`` the adapted forward runs the layer once with
+``W + dW`` (the JAX interceptor's merged path, wrapper.py:646-718);
+otherwise, and always for bypass modules, it is delta over base.
+:meth:`~LycorisNetwork.merge_to` folds the adapters into the layers'
+weights in place. State dicts use the reference key grammar; file I/O
+(safetensors) is not ported yet, so they pass in memory.
+"""
+
+from __future__ import annotations
+
+import fnmatch
+import re
+import zlib
+from typing import Any
+
+import torch
+from torch import nn
+
+from .config import PRESET
+from .graph import ModelGraph
+from .logging import logger
+from .modules import get_module, make_module
+from .modules.loha import LohaModule
+from .modules.lokr import LokrModule
+from .utils import str_bool
+from .utils.preset import read_preset
+
+VALID_PRESET_KEYS = [
+    "enable_conv",
+    "target_module",
+    "target_name",
+    "module_algo_map",
+    "name_algo_map",
+    "lora_prefix",
+    "use_fnmatch",
+    "unet_target_module",
+    "unet_target_name",
+    "text_encoder_target_module",
+    "text_encoder_target_name",
+    "exclude_name",
+]
+
+network_module_dict = {
+    "loha": LohaModule,
+    "lokr": LokrModule,
+}
+# algorithms of the JAX package that the port does not have yet
+UNPORTED_ALGOS = ("lora", "locon", "dylora", "glora", "full", "ia3", "diag-oft", "boft")
+
+deprecated_arg_dict = {
+    "disable_conv_cp": "use_tucker",
+    "use_cp": "use_tucker",
+    "use_conv_cp": "use_tucker",
+    "constrain": "constraint",
+}
+
+
+def _module_class(algo: str):
+    cls = network_module_dict.get(algo)
+    if cls is None:
+        if algo in UNPORTED_ALGOS:
+            raise NotImplementedError(f"algorithm {algo!r} is not ported to lycoris_tpu_torch yet")
+        raise ValueError(f"unknown algorithm {algo!r}")
+    return cls
+
+
+def _as_graph(model_or_graph) -> ModelGraph:
+    if isinstance(model_or_graph, ModelGraph):
+        return model_or_graph
+    if isinstance(model_or_graph, nn.Module):
+        return ModelGraph.from_torch(model_or_graph)
+    raise TypeError("expected a torch nn.Module or a ModelGraph")
+
+
+def create_lycoris(module, multiplier=1.0, linear_dim=4, linear_alpha=1, **kwargs):
+    """kwargs parsing of reference wrapper.py:64-145. ``device``/``dtype``
+    place the adapter tensors; ``seed`` seeds their init."""
+    for key, value in list(kwargs.items()):
+        if key in deprecated_arg_dict:
+            logger.warning(f"{key} is deprecated. Please use {deprecated_arg_dict[key]} instead.")
+            kwargs[deprecated_arg_dict[key]] = value
+    if linear_dim is None:
+        linear_dim = 4
+    conv_dim = int(kwargs.get("conv_dim", linear_dim) or linear_dim)
+    conv_alpha = float(kwargs.get("conv_alpha", linear_alpha) or linear_alpha)
+    algo = (kwargs.get("algo", "lora") or "lora").lower()
+    use_tucker = str_bool(
+        not kwargs.get("disable_conv_cp", True)
+        or kwargs.get("use_conv_cp", False)
+        or kwargs.get("use_cp", False)
+        or kwargs.get("use_tucker", False)
+    )
+    preset = kwargs.get("preset", "full")
+    if preset not in PRESET:
+        preset = read_preset(preset)
+    else:
+        preset = PRESET[preset]
+    assert preset is not None
+    LycorisNetwork.apply_preset(preset)
+    logger.info(f"Using rank adaptation algo: {algo}")
+    return LycorisNetwork(
+        module,
+        multiplier=multiplier,
+        lora_dim=linear_dim,
+        conv_lora_dim=conv_dim,
+        alpha=linear_alpha,
+        conv_alpha=conv_alpha,
+        dropout=float(kwargs.get("dropout", 0.0) or 0.0),
+        rank_dropout=float(kwargs.get("rank_dropout", 0.0) or 0.0),
+        module_dropout=float(kwargs.get("module_dropout", 0.0) or 0.0),
+        use_tucker=use_tucker,
+        use_scalar=str_bool(kwargs.get("use_scalar", False)),
+        network_module=algo,
+        train_norm=str_bool(kwargs.get("train_norm", False)),
+        decompose_both=kwargs.get("decompose_both", False),
+        factor=kwargs.get("factor", -1),
+        weight_decompose=str_bool(kwargs.get("dora_wd", False)),
+        wd_on_out=str_bool(kwargs.get("wd_on_output", True)),
+        full_matrix=str_bool(kwargs.get("full_matrix", False)),
+        bypass_mode=str_bool(kwargs.get("bypass_mode", False)),
+        unbalanced_factorization=str_bool(kwargs.get("unbalanced_factorization", False)),
+        seed=int(kwargs.get("seed", 0)),
+        device=kwargs.get("device"),
+        dtype=kwargs.get("dtype", torch.float32),
+    )
+
+
+def create_lycoris_from_weights(multiplier, file, module, weights_sd=None, **kwargs):
+    """Build a network from a state dict in the reference key grammar, the
+    algorithm of each layer detected from its keys (reference wrapper.py:148-194).
+    Returns ``(network, weights_sd)``."""
+    if weights_sd is None:
+        raise NotImplementedError(
+            "loading adapter files is not ported yet; pass the state dict as weights_sd="
+        )
+    graph = _as_graph(module)
+    prefixes: dict[str, Any] = {}
+    for key in weights_sd:
+        if "." in key:
+            prefixes[key.split(".")[0]] = None
+    for name, node in graph.named_modules():
+        lora_name = f"{LycorisNetwork.LORA_PREFIX}_{name}".replace(".", "_")
+        if lora_name in prefixes:
+            prefixes[lora_name] = node
+
+    network = LycorisNetwork(graph, init_only=True)
+    network.multiplier = multiplier
+    loras = []
+    for lora_name, node in prefixes.items():
+        if node is None or not node.is_leaf:
+            continue
+        lyco_type, params = get_module(weights_sd, lora_name)
+        if lyco_type is None:
+            continue
+        mod = make_module(lyco_type, params, lora_name, node.layer_info)
+        mod.multiplier = multiplier
+        loras.append(mod)
+        network.lora_map[lora_name] = mod
+        network.node_map[lora_name] = node
+        name = mod.__class__.__name__
+        network.algo_table[name] = network.algo_table.get(name, 0) + 1
+    network.loras = nn.ModuleList(loras)
+    logger.info(f"{len(network.loras)} Modules Loaded")
+    return network, weights_sd
+
+
+class LycorisNetwork(nn.Module):
+    ENABLE_CONV = True
+    TARGET_REPLACE_MODULE = [
+        "Linear", "Conv1d", "Conv2d", "Conv3d", "GroupNorm", "LayerNorm", "RMSNorm",
+        "Dense", "Conv", "Int8Linear", "QuantLinear", "Linear8bitLt", "LinearFP4", "LinearNF4",
+    ]
+    TARGET_REPLACE_NAME = []
+    LORA_PREFIX = "lycoris"
+    MODULE_ALGO_MAP = {}
+    NAME_ALGO_MAP = {}
+    USE_FNMATCH = False
+    TARGET_EXCLUDE_NAME = []
+
+    _DEFAULTS = None  # snapshot for reset_preset
+
+    @classmethod
+    def apply_preset(cls, preset):
+        """Mutates class attributes like the reference (wrapper.py:214-238);
+        :meth:`reset_preset` restores the defaults."""
+        if cls._DEFAULTS is None:
+            cls._DEFAULTS = {
+                "ENABLE_CONV": cls.ENABLE_CONV,
+                "TARGET_REPLACE_MODULE": list(cls.TARGET_REPLACE_MODULE),
+                "TARGET_REPLACE_NAME": list(cls.TARGET_REPLACE_NAME),
+                "LORA_PREFIX": cls.LORA_PREFIX,
+                "MODULE_ALGO_MAP": dict(cls.MODULE_ALGO_MAP),
+                "NAME_ALGO_MAP": dict(cls.NAME_ALGO_MAP),
+                "USE_FNMATCH": cls.USE_FNMATCH,
+                "TARGET_EXCLUDE_NAME": list(cls.TARGET_EXCLUDE_NAME),
+            }
+        for preset_key in preset.keys():
+            if preset_key not in VALID_PRESET_KEYS:
+                raise KeyError(f'Unknown preset key "{preset_key}". Valid keys: {VALID_PRESET_KEYS}')
+        attrs = {
+            "enable_conv": "ENABLE_CONV", "target_module": "TARGET_REPLACE_MODULE",
+            "target_name": "TARGET_REPLACE_NAME", "module_algo_map": "MODULE_ALGO_MAP",
+            "name_algo_map": "NAME_ALGO_MAP", "lora_prefix": "LORA_PREFIX",
+            "use_fnmatch": "USE_FNMATCH", "exclude_name": "TARGET_EXCLUDE_NAME",
+        }
+        for key, attr in attrs.items():
+            if key in preset:
+                setattr(cls, attr, preset[key])
+        return cls
+
+    @classmethod
+    def reset_preset(cls):
+        if cls._DEFAULTS is not None:
+            for k, v in cls._DEFAULTS.items():
+                setattr(cls, k, v)
+
+    def __init__(self, module, multiplier=1.0, lora_dim=4, conv_lora_dim=4, alpha=1,
+                 conv_alpha=1, use_tucker=False, dropout=0, rank_dropout=0, module_dropout=0,
+                 network_module: str = "locon", train_norm=False, init_only=False, seed: int = 0,
+                 device=None, dtype=torch.float32, **kwargs):
+        super().__init__()
+        root_kwargs = kwargs
+        self.loras = nn.ModuleList()
+        self.lora_map: dict[str, Any] = {}
+        self.node_map: dict[str, Any] = {}
+        self.algo_table: dict[str, int] = {}
+        self.merged_forward = False
+        self._patched: dict[str, Any] = {}
+        cls = type(self)
+        self.enable_conv = cls.ENABLE_CONV
+        self.target_replace_module = list(cls.TARGET_REPLACE_MODULE)
+        self.target_replace_name = list(cls.TARGET_REPLACE_NAME)
+        self.lora_prefix = cls.LORA_PREFIX
+        self.module_algo_map = dict(cls.MODULE_ALGO_MAP)
+        self.name_algo_map = dict(cls.NAME_ALGO_MAP)
+        self.use_fnmatch = cls.USE_FNMATCH
+        self.target_exclude_name = list(cls.TARGET_EXCLUDE_NAME)
+        self.graph = _as_graph(module)
+        self.multiplier = multiplier if not init_only else 1
+        if init_only:
+            self.lora_dim = 0
+            return
+
+        self.lora_dim = lora_dim
+        if not self.enable_conv:
+            conv_lora_dim = 0
+        self.conv_lora_dim = int(conv_lora_dim)
+        self.alpha = alpha
+        self.conv_alpha = float(conv_alpha)
+        self.dropout = dropout
+        self.rank_dropout = rank_dropout
+        self.module_dropout = module_dropout
+        self.use_tucker = use_tucker
+        gen_device = torch.device(device) if device is not None else torch.device("cpu")
+
+        def module_generator(lora_name):
+            g = torch.Generator(device=gen_device)
+            return g.manual_seed(seed * 1_000_003 + zlib.crc32(lora_name.encode()))
+
+        def create_single_module(lora_name, node, algo_name, dim=None, alpha_=None,
+                                 use_tucker_=None, **cfg):
+            """dim/alpha by layer kind, then algorithm dispatch (wrapper.py:301-354)."""
+            for k, v in root_kwargs.items():
+                if k not in cfg:
+                    cfg[k] = v
+            cfg.pop("algo", None)
+            alpha_ = cfg.pop("alpha", alpha_)
+            dim = cfg.pop("dim", dim)
+            if use_tucker_ is None:
+                use_tucker_ = cfg.pop("use_tucker", self.use_tucker)
+            li = node.layer_info
+            if li is None:
+                return None
+            if train_norm and "Norm" in node.class_name:
+                raise NotImplementedError("train_norm (the Norm algorithm) is not ported yet")
+            if li.is_norm:
+                return None
+            if li.module_type == "linear" and lora_dim > 0:
+                dim = dim or lora_dim
+                alpha_ = alpha_ or self.alpha
+            elif li.is_conv:
+                k_size = li.shape[2] if len(li.shape) > 2 else 1
+                if k_size == 1 and lora_dim > 0:
+                    dim = dim or lora_dim
+                    alpha_ = alpha_ or self.alpha
+                elif self.conv_lora_dim > 0 or dim:
+                    dim = dim or self.conv_lora_dim
+                    alpha_ = alpha_ or self.conv_alpha
+                else:
+                    return None
+            else:
+                return None
+            return _module_class(algo_name)(
+                lora_name, li, self.multiplier, dim, alpha_, self.dropout, self.rank_dropout,
+                self.module_dropout, use_tucker=use_tucker_,
+                generator=module_generator(lora_name), device=device, dtype=dtype, **cfg,
+            )
+
+        def create_modules_(prefix, root_name, algo, current_lora_map, configs={}):
+            """Recursive class-scope walk (wrapper.py:356-405)."""
+            loras_ = current_lora_map
+            lora_names = []
+            for name, node in self.graph.named_modules(root_name):
+                if node.class_name in self.module_algo_map and name != "":
+                    next_config = dict(self.module_algo_map[node.class_name])
+                    next_algo = next_config.get("algo", algo)
+                    full_name = f"{root_name}.{name}" if root_name else name
+                    new_loras, new_names, new_map = create_modules_(
+                        f"{prefix}_{name}" if name else prefix, full_name, next_algo, loras_,
+                        configs=next_config,
+                    )
+                    loras_ = {**loras_, **new_map}
+                    for ln, lora in zip(new_names, new_loras):
+                        if ln not in loras_ and ln not in current_lora_map:
+                            loras_[ln] = lora
+                        if ln not in lora_names:
+                            lora_names.append(ln)
+                    continue
+                lora_name = prefix + "." + name if name else prefix
+                if f"{self.lora_prefix}_." in lora_name:
+                    lora_name = lora_name.replace(f"{self.lora_prefix}_.", f"{self.lora_prefix}.")
+                lora_name = lora_name.replace(".", "_")
+                if lora_name in loras_:
+                    continue
+                lora = create_single_module(lora_name, node, algo, **configs)
+                if lora is not None:
+                    loras_[lora_name] = lora
+                    lora_names.append(lora_name)
+                    self.node_map[lora_name] = node
+            return [loras_[ln] for ln in lora_names], lora_names, loras_
+
+        def create_modules(prefix, target_replace_modules, target_replace_names=[],
+                           target_exclude_names=[]):
+            """Top-level walk (wrapper.py:408-468)."""
+            loras_ = []
+            lora_map = {}
+            next_config = {}
+            for name, node in self.graph.named_modules():
+                if name == "":
+                    continue
+                if name in target_exclude_names or any(
+                    self.match_fn(t, name) for t in target_exclude_names
+                ):
+                    continue
+                module_name = node.class_name
+                if module_name in target_replace_modules and not any(
+                    self.match_fn(t, name) for t in target_replace_names
+                ):
+                    if module_name in self.module_algo_map:
+                        next_config = dict(self.module_algo_map[module_name])
+                        algo = next_config.get("algo", network_module)
+                    else:
+                        algo = network_module
+                    lora_lst, _, _map = create_modules_(
+                        f"{prefix}_{name}", name, algo, lora_map, configs=next_config
+                    )
+                    lora_map = {**lora_map, **_map}
+                    loras_.extend(lora_lst)
+                    next_config = {}
+                elif name in target_replace_names or any(
+                    self.match_fn(t, name) for t in target_replace_names
+                ):
+                    conf = self.find_conf_for_name(name)
+                    if conf is not None:
+                        next_config = dict(conf)
+                        algo = next_config.get("algo", network_module)
+                    elif module_name in self.module_algo_map:
+                        next_config = dict(self.module_algo_map[module_name])
+                        algo = next_config.get("algo", network_module)
+                    else:
+                        algo = network_module
+                    lora_name = (prefix + "." + name).replace(".", "_")
+                    if lora_name in lora_map:
+                        continue
+                    lora = create_single_module(lora_name, node, algo, **next_config)
+                    next_config = {}
+                    if lora is not None:
+                        lora_map[lora_name] = lora
+                        loras_.append(lora)
+                        self.node_map[lora_name] = node
+            return loras_, lora_map
+
+        loras, self.lora_map = create_modules(
+            self.lora_prefix,
+            list(set([*self.target_replace_module, *self.module_algo_map.keys()])),
+            list(set([*self.target_replace_name, *self.name_algo_map.keys()])),
+            target_exclude_names=self.target_exclude_name,
+        )
+        self.loras = nn.ModuleList(loras)
+        logger.info(f"create LyCORIS: {len(self.loras)} modules.")
+        for lora in self.loras:
+            name = lora.__class__.__name__
+            self.algo_table[name] = self.algo_table.get(name, 0) + 1
+        names = set()
+        for lora in self.loras:
+            assert lora.lora_name not in names, f"duplicated lora name: {lora.lora_name}"
+            names.add(lora.lora_name)
+
+    # -- targeting helpers ----------------------------------------------------
+    def match_fn(self, pattern: str, name: str) -> bool:
+        if self.use_fnmatch:
+            return fnmatch.fnmatch(name, pattern)
+        return bool(re.match(pattern, name))
+
+    def find_conf_for_name(self, name: str):
+        if name in self.name_algo_map:
+            return self.name_algo_map[name]
+        for key, value in self.name_algo_map.items():
+            if self.match_fn(key, name):
+                return value
+        return None
+
+    # -- lifecycle ------------------------------------------------------------
+    def _adapted_forward(self, lora_name):
+        lyco = self.lora_map[lora_name]
+        node = self.node_map[lora_name]
+        org_forward = node.module.forward
+
+        def forward(x, *args, **kwargs):
+            w, b = node.weights()
+            mult = self.multiplier
+            if self.merged_forward and not lyco.bypass_mode and not lyco.not_supported:
+                # one op with W + dW, in the layer's own output layout
+                w_m, b_m = lyco.get_merged_weight(w, b, multiplier=mult)
+                return node.apply(x, w_m.to(x.dtype), None if b_m is None else b_m.to(x.dtype))
+            out = lyco.forward(
+                x, org_weight=w, org_bias=b, multiplier=mult,
+                org_forward=lambda z: node.from_native(org_forward(z, *args, **kwargs)),
+            )
+            return node.to_native(out)
+
+        return forward
+
+    def apply_to(self, merged_forward: bool | None = None):
+        """Put each adapter's forward in place of its layer's ``forward``."""
+        if merged_forward is not None:
+            self.merged_forward = merged_forward
+        for lora_name in self.lora_map:
+            if lora_name in self._patched:
+                continue
+            mod = self.node_map[lora_name].module
+            self._patched[lora_name] = mod.__dict__.get("forward")
+            mod.forward = self._adapted_forward(lora_name)
+        return self
+
+    def restore(self):
+        """Give every patched layer its own forward back."""
+        for lora_name, prev in self._patched.items():
+            mod = self.node_map[lora_name].module
+            del mod.forward
+            if prev is not None:
+                mod.forward = prev
+        self._patched = {}
+        return self
+
+    @torch.no_grad()
+    def merge_to(self, weight=1.0):
+        """Fold every adapter into its layer's weight, in place (reference
+        ``merge_to``). The network must not be applied at the same time."""
+        if self._patched:
+            raise RuntimeError("merge_to on an applied network: call restore() first")
+        for lora_name, lyco in self.lora_map.items():
+            if lyco.not_supported:
+                continue
+            mod = self.node_map[lora_name].module
+            w, b = self.node_map[lora_name].weights()
+            w_m, b_m = lyco.get_merged_weight(w, b, multiplier=weight)
+            w.copy_(w_m.to(w.dtype))
+            if b is not None and b_m is not None:
+                b.copy_(b_m.to(b.dtype))
+        return self
+
+    # -- checkpoint I/O ---------------------------------------------------------
+    def state_dict(self, *args, **kwargs) -> dict:
+        """Flat ``{lora_name}.{key}`` tensors in the reference key grammar."""
+        return {f"{lyco.lora_name}.{k}": v
+                for lyco in self.loras for k, v in lyco.custom_state_dict().items()}
+
+    def load_state_dict(self, sd: dict, strict: bool = False):
+        missing, loaded = [], 0
+        for lyco in self.loras:
+            prefix = f"{lyco.lora_name}."
+            local = {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
+            if not local:
+                missing.append(lyco.lora_name)
+                continue
+            lyco.load_state_dict(local)
+            loaded += 1
+        if strict and missing:
+            raise KeyError(f"missing adapters in state dict: {missing}")
+        return {"loaded": loaded, "missing": missing}
