@@ -1,11 +1,13 @@
 """lycoris_tpu_torch -- the PyTorch/CUDA port of lycoris_tpu.
 
-The first slice is the serving path: the SD1.5/SDXL UNet
-(:mod:`.models.unet`), LoKr and LoHa adapters (:mod:`.modules`) targeted
-and applied by :class:`LycorisNetwork`, and DDIM sampling with CFG
-(:mod:`.sampler`). Flash attention, LayerNorm and the LoHa delta weight run
-hand-written CUDA kernels on the card (:mod:`.ops`); on the CPU each runs
-its plain PyTorch version. The package never imports JAX.
+The port so far: the SD1.5/SDXL UNet (:mod:`.models.unet`), LoKr and LoHa
+adapters (:mod:`.modules`) targeted and applied by :class:`LycorisNetwork`,
+DDIM sampling with CFG (:mod:`.sampler`), and adapter training by
+:class:`DiffusionTrainer` (:mod:`.trainer`) with the factored merged
+backward (:mod:`.functional.merged`). Flash attention, LayerNorm and the
+LoHa delta weight run hand-written CUDA kernels on the card, forward and
+backward (:mod:`.ops`); on the CPU each runs its plain PyTorch version. The
+package never imports JAX.
 """
 
 __version__ = "0.1.0"
@@ -15,6 +17,7 @@ from .graph import ModelGraph
 from .logging import logger
 from .modules.loha import LohaModule
 from .modules.lokr import LokrModule
+from .trainer import DiffusionTrainer
 from .wrapper import LycorisNetwork, create_lycoris, create_lycoris_from_weights
 
 __all__ = [
@@ -25,6 +28,7 @@ __all__ = [
     "LycorisNetwork",
     "create_lycoris",
     "create_lycoris_from_weights",
+    "DiffusionTrainer",
     "LohaModule",
     "LokrModule",
 ]

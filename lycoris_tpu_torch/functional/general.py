@@ -135,7 +135,8 @@ def convnd(x, weight, bias=None, stride=1, padding=0, dilation=1, groups: int = 
 
 def layer_norm(x, normalized_shape, weight=None, bias=None, eps: float = 1e-5):
     """torch F.layer_norm semantics over the trailing dims. The affine
-    single-trailing-dim case goes to the LayerNorm kernel (ops/layer_norm.py)."""
+    single-trailing-dim case goes to the LayerNorm kernels, forward and
+    backward (ops/layer_norm.py)."""
     if isinstance(normalized_shape, int):
         normalized_shape = (normalized_shape,)
     if len(normalized_shape) == 1 and weight is not None and weight.ndim == 1:

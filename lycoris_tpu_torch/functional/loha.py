@@ -1,9 +1,12 @@
-"""LoHa (Hadamard product of two low-rank factors) functional API, forward
+"""LoHa (Hadamard product of two low-rank factors) functional API
 (counterpart of ``lycoris_tpu/functional/loha.py``).
 
 dW = (w1u @ w1d) * (w2u @ w2d) * gamma. ``make_weight`` sends it to the
-LoHa kernel (``ops/hada.py``) wherever the JAX package sends it to its
-Pallas kernel (O >= 8, I >= 128); the backward waits for the training slice.
+LoHa kernels (``ops/hada.py``) wherever the JAX package sends it to its
+Pallas kernel (O >= 8, I >= 128). :func:`hada_weight` and
+:func:`hada_weight_tucker` are the JAX package's ``custom_vjp``s (the
+reference's ``HadaWeight``/``HadaWeightTucker``) as autograd Functions:
+they save only the factors and recompute the partner product in backward.
 """
 
 from __future__ import annotations
@@ -11,14 +14,64 @@ from __future__ import annotations
 import torch
 
 
+class HadaWeight(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, w1d, w1u, w2d, w2u, scale):
+        ctx.save_for_backward(w1d, w1u, w2d, w2u)
+        ctx.scale = scale
+        return (w1u @ w1d) * (w2u @ w2d) * scale
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        w1d, w1u, w2d, w2u = ctx.saved_tensors
+        grad_out = grad_out * ctx.scale
+        temp = grad_out * (w2u @ w2d)
+        grad_w1u = temp @ w1d.T
+        grad_w1d = w1u.T @ temp
+        temp = grad_out * (w1u @ w1d)
+        grad_w2u = temp @ w2d.T
+        grad_w2d = w2u.T @ temp
+        return grad_w1d, grad_w1u, grad_w2d, grad_w2u, None
+
+
+class HadaWeightTucker(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t1, w1d, w1u, t2, w2d, w2u, scale):
+        ctx.save_for_backward(t1, w1d, w1u, t2, w2d, w2u)
+        ctx.scale = scale
+        rebuild1 = torch.einsum("ij...,jr,ip->pr...", t1, w1d, w1u)
+        rebuild2 = torch.einsum("ij...,jr,ip->pr...", t2, w2d, w2u)
+        return rebuild1 * rebuild2 * scale
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        t1, w1d, w1u, t2, w2d, w2u = ctx.saved_tensors
+        grad_out = grad_out * ctx.scale
+
+        temp = torch.einsum("ij...,jr->ir...", t2, w2d)
+        rebuild = torch.einsum("ij...,ir->rj...", temp, w2u)
+        grad_w = rebuild * grad_out
+        grad_w1u = torch.einsum("rj...,ij...->ri", temp, grad_w)
+        grad_temp = torch.einsum("ij...,ir->rj...", grad_w, w1u.T)
+        grad_w1d = torch.einsum("ir...,ij...->rj", t1, grad_temp)
+        grad_t1 = torch.einsum("ij...,jr->ir...", grad_temp, w1d.T)
+
+        temp = torch.einsum("ij...,jr->ir...", t1, w1d)
+        rebuild = torch.einsum("ij...,ir->rj...", temp, w1u)
+        grad_w = rebuild * grad_out
+        grad_w2u = torch.einsum("rj...,ij...->ri", temp, grad_w)
+        grad_temp = torch.einsum("ij...,ir->rj...", grad_w, w2u.T)
+        grad_w2d = torch.einsum("ir...,ij...->rj", t2, grad_temp)
+        grad_t2 = torch.einsum("ij...,jr->ir...", grad_temp, w2d.T)
+        return grad_t1, grad_w1d, grad_w1u, grad_t2, grad_w2d, grad_w2u, None
+
+
 def hada_weight(w1d, w1u, w2d, w2u, scale=1.0):
-    return (w1u @ w1d) * (w2u @ w2d) * scale
+    return HadaWeight.apply(w1d, w1u, w2d, w2u, scale)
 
 
 def hada_weight_tucker(t1, w1d, w1u, t2, w2d, w2u, scale=1.0):
-    rebuild1 = torch.einsum("ij...,jr,ip->pr...", t1, w1d, w1u)
-    rebuild2 = torch.einsum("ij...,jr,ip->pr...", t2, w2d, w2u)
-    return rebuild1 * rebuild2 * scale
+    return HadaWeightTucker.apply(t1, w1d, w1u, t2, w2d, w2u, scale)
 
 
 def make_weight(w1d, w1u, w2d, w2u, scale):
@@ -50,4 +103,3 @@ def diff_weight(*weights, gamma=1.0):
             gamma,
         )
     return result.reshape(O, I, *k)
-

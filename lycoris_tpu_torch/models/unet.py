@@ -5,7 +5,7 @@ Submodules carry exactly the flax module names (``down_blocks_0_resnets_0``,
 :func:`state_dict_from_jax` is a dotted key join and every adapter
 ``lora_name`` matches the JAX one by construction. Class names mirror
 diffusers so presets target them unchanged. The remat tiers of the JAX
-model are not ported (serving runs under ``torch.no_grad``).
+model are not ported: SD1.5 trains at batch 8 without them.
 """
 
 from __future__ import annotations
@@ -216,9 +216,10 @@ class UNet2DConditionModel(nn.Module):
 
     ``forward(sample, timesteps, encoder_hidden_states, added_cond=None)``
     predicts eps. Parameters are drawn at construction from ``generator``
-    (kaiming-uniform linears/convs, unit norms) on ``device``."""
+    (kaiming-uniform linears/convs, unit norms) on ``device``, the card
+    unless the caller asks for another."""
 
-    def __init__(self, cfg: UNetConfig, device=None, param_dtype=None, generator=None):
+    def __init__(self, cfg: UNetConfig, device="cuda", param_dtype=None, generator=None):
         super().__init__()
         self.cfg = cfg
         kw = dict(device=device, dtype=param_dtype)

@@ -81,13 +81,15 @@ def get_module(lyco_state_dict, lora_name):
     return None, None
 
 
-def make_module(module_class, params, lora_name, layer: LayerInfo, dtype=torch.float32):
+def make_module(module_class, params, lora_name, layer: LayerInfo, dtype=torch.float32,
+                device=None):
     """Instantiate from extracted params, floating tensors cast to ``dtype``
-    (fp32 by default, as the reference upcasts fp16 files on load).
+    (fp32 by default, as the reference upcasts fp16 files on load), on
+    ``device`` (by default where the loaded tensors are).
     Raises ``NotImplementedError`` for an algorithm the port does not have."""
     module = module_class.make_module_from_state_dict(lora_name, layer, *params)
-    # the module lives where its loaded tensors do
-    device = next((p.device for p in params if isinstance(p, torch.Tensor)), None)
+    if device is None:
+        device = next((p.device for p in params if isinstance(p, torch.Tensor)), None)
     if device is not None:
         module.to(device)
     with torch.no_grad():

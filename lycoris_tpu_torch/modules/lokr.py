@@ -16,6 +16,7 @@ import torch
 
 from ..functional.general import factorization, kaiming_uniform, rebuild_tucker
 from ..functional.lokr import bypass_diff_with_scale, make_kron
+from ..functional.merged import lokr_dtheta
 from .base import LayerInfo, LycorisBaseModule, as_float, to_tensor
 
 
@@ -200,6 +201,53 @@ class LokrModule(LycorisBaseModule):
 
     def get_weight(self):
         return make_kron(self._rebuild_w1(), self._rebuild_w2(), self.scale).reshape(self.shape)
+
+    def factored_merged_fns(self, multiplier):
+        """(recon_fn, dtheta_fn) for the dense-dW-free merged backward
+        (functional/merged.py), or None where this configuration needs plain
+        autograd (conv kernels, tucker, rank dropout). ``theta`` is the
+        module's tensors by key (:attr:`params`)."""
+        if self.layer.is_conv or self.tucker or self.rank_dropout:
+            return None
+
+        def w1_of(theta):
+            if self.use_w1:
+                return theta["lokr_w1"]
+            return theta["lokr_w1_a"] @ theta["lokr_w1_b"]
+
+        def recon_fn(theta, out_dtype=None):
+            # scalar * multiplier folded into the small w1 factor, the cast
+            # to out_dtype before the reshape: no full-size fp32 dW pass
+            w1 = w1_of(theta) * (theta["scalar"] * multiplier)
+            w2 = theta["lokr_w2"] if self.use_w2 else theta["lokr_w2_a"] @ theta["lokr_w2_b"]
+            return make_kron(w1, w2, self.scale, out_dtype=out_dtype)
+
+        want_scalar = "scalar" in self.trainable
+
+        def dtheta_fn(x2d, dy2d, theta):
+            if self.use_w2:
+                w2f, w2ab = theta["lokr_w2"], None
+            else:
+                w2f, w2ab = None, (theta["lokr_w2_a"], theta["lokr_w2_b"])
+            dW1, dW2, d_s = lokr_dtheta(x2d, dy2d, w1_of(theta), w2f, w2_ab=w2ab,
+                                        want_scalar=want_scalar)
+            cc = self.scale * multiplier * theta["scalar"]
+            grads = {}
+            if self.use_w1:
+                grads["lokr_w1"] = dW1 * cc
+            else:
+                d = dW1 * cc
+                grads["lokr_w1_a"] = d @ theta["lokr_w1_b"].to(d.dtype).T
+                grads["lokr_w1_b"] = theta["lokr_w1_a"].to(d.dtype).T @ d
+            if self.use_w2:
+                grads["lokr_w2"] = dW2 * cc
+            else:
+                grads["lokr_w2_a"], grads["lokr_w2_b"] = dW2[0] * cc, dW2[1] * cc
+            if want_scalar:
+                grads["scalar"] = d_s * (self.scale * multiplier)
+            return grads
+
+        return recon_fn, dtheta_fn
 
     def get_diff_weight(self, multiplier=1.0):
         return self.get_weight() * self._p("scalar") * multiplier, None

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``) on first use.
 
-The sources are compiled by ``nvcc`` for ``sm_90a`` into one shared library
-with a plain C interface, loaded with :mod:`ctypes`. No PyTorch headers are
-included, so a build takes seconds. The library lands in ``build/kernels/``
+Each source is compiled by its own ``nvcc`` for ``sm_90a``, all started
+together, and the objects are linked into one shared library with a plain C
+interface, loaded with :mod:`ctypes`. No PyTorch headers are included, so a
+build takes seconds. The library lands in ``build/kernels/``
 at the repository root under a name that carries the hash of the sources
 and flags: editing a source rebuilds it, an unchanged tree reuses it.
 
@@ -23,7 +24,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _LIB = None
@@ -34,6 +35,9 @@ _SIGNATURES = {
     "lyc_ln_fwd": [_P, _P, _P, _P, _I, _I, _F, _I, _P],
     "lyc_hada_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
     "lyc_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.POINTER(_L), _F, _I, _P],
+    "lyc_ln_bwd": [_P] * 8 + [_I, _I, _I, _F, _I, _P],
+    "lyc_flash_bwd": [_P] * 9 + [_I] * 4 + [ctypes.POINTER(_L), _F, _I, _P],
+    "lyc_hada_bwd": [_P] * 13 + [_I, _I, _I, _I, _F, _I, _P],
 }
 
 
@@ -69,12 +73,29 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc, tag = _nvcc(), f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources()]
+    procs = [
+        subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for src, obj in zip(sources(), objs)
+    ]
+    logs, failed = [], []
+    for src, p in zip(sources(), procs):
+        text = p.communicate()[0]
+        logs.append(f"== {src.name}\n{text}")
+        if p.returncode != 0:
+            failed.append(src.name)
+    build_log = "".join(logs)
+    if failed:
+        raise RuntimeError(f"nvcc failed on {failed}:\n{build_log}")
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *[str(s) for s in sources()]]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = res.stdout + res.stderr
+    res = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                         capture_output=True, text=True)
     if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{build_log}")
+        raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{res.stdout}{res.stderr}")
+    for obj in objs:
+        obj.unlink()
     os.replace(tmp, out)
     (BUILD_DIR / "build.log").write_text(build_log)
     return out
@@ -116,19 +137,17 @@ def dtype_code(t) -> int:
 
 
 def check_cuda_inputs(name: str, *tensors) -> None:
-    """Shared wrapper checks: one CUDA device, one dtype, and no tensor that
-    autograd would record (grad enabled and requires_grad): the kernels are
-    forward-only, so training through them must fail loudly."""
-    import torch
-
+    """Shared wrapper checks: one CUDA device and one dtype. Autograd goes
+    through each kernel's ``torch.autograd.Function``, whose backward is a
+    kernel too."""
     dev = tensors[0].device
-    grad_on = torch.is_grad_enabled()
     for t in tensors:
         if t.device != dev:
             raise ValueError(f"{name}: tensors on {t.device} and {dev}")
         if t.dtype != tensors[0].dtype:
             raise TypeError(f"{name}: mixed dtypes {t.dtype} and {tensors[0].dtype}")
-        if grad_on and t.requires_grad:
-            raise RuntimeError(
-                f"{name}: forward-only kernel was given a tensor that requires grad"
-            )
+
+
+def ptr(t) -> int | None:
+    """A tensor's data pointer for a C entry, None (NULL) for None."""
+    return None if t is None else t.data_ptr()

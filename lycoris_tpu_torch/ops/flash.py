@@ -1,13 +1,19 @@
-"""Flash attention forward: the CUDA kernel ``csrc/flash_fwd.cu``.
+"""Flash attention: the CUDA kernels ``csrc/flash_fwd.cu`` and
+``csrc/flash_bwd.cu``.
 
-Counterpart of ``lycoris_tpu/ops/flash.py`` ``_fwd``/``_fwd_dt`` (forward
-only; the fused backward belongs to the training slice). The kernel reads
-q, k, v through their batch/head/token strides (head dim contiguous), so
-the head-split projections feed it without a copy, and writes O into a
-(B, T, H, D) buffer that the output projection reads as (B, T, C).
+Counterpart of ``lycoris_tpu/ops/flash.py`` (``_fwd``/``_fwd_dt`` and the
+fused backward ``_bwd_call``/``_bwd_dt_call``). The kernels read q, k, v
+(and dO) through their batch/head/token strides (head dim contiguous), so
+the head-split projections feed them without a copy, and write O, dq, dk
+and dv into (B, T, H, D) buffers that the projections read, or take the
+gradient of, as (B, T, C).
 
-:func:`flash_attention` takes the plain version :func:`flash_attention_plain`
-only for tensors on the CPU. For CUDA tensors it launches the kernel or
+:func:`flash_attention` is a :class:`FlashAttentionFunction`: its forward
+saves q, k, v, o and the fp32 logsumexp; its backward forms
+di = rowsum(dO * O) in plain torch (as the JAX package does outside its
+kernel) and runs the backward kernel. Each direction takes its plain
+version (:func:`flash_attention_plain`, :func:`flash_attention_bwd_plain`)
+only for tensors on the CPU; for CUDA tensors it launches the kernel or
 raises.
 """
 
@@ -19,7 +25,8 @@ import torch
 
 from . import _build
 
-launches = 0  # kernel launches since the last reset (chip_smoke counts these)
+launches = 0  # forward kernel launches since the last reset (chip_smoke counts these)
+bwd_launches = 0  # backward kernel launches, likewise
 
 
 def flash_attention_plain(q, k, v, sm_scale: float):
@@ -31,33 +38,112 @@ def flash_attention_plain(q, k, v, sm_scale: float):
     return o.to(q.dtype), lse
 
 
-def flash_attention(q, k, v, sm_scale: float):
-    """Non-causal attention of (B, H, T, D) q, k, v -> (o (B, H, T, D), lse (B, H, T))."""
+def flash_attention_bwd_plain(q, k, v, o, lse, do, sm_scale: float):
+    """(dq, dk, dv) in q's dtype: fp32 einsums of the backward kernel's
+    formulas, P recomputed from the saved lse."""
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    di = (dof * o.float()).sum(-1)
+    p = torch.exp(torch.einsum("bhqd,bhkd->bhqk", qf, kf) * sm_scale - lse[..., None])
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
+    ds = p * (torch.einsum("bhqd,bhkd->bhqk", dof, vf) - di[..., None]) * sm_scale
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf)
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf)
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+
+
+def _bthd_empty(like):
+    """A (B, H, T, D) view of a new (B, T, H, D) buffer."""
+    b, h, t, d = like.shape
+    return torch.empty((b, t, h, d), dtype=like.dtype, device=like.device).transpose(1, 2)
+
+
+def _check(name, q, k, v):
+    _build.check_cuda_inputs(name, q, k, v)
+    if q.ndim != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"{name}: q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
+    if not 1 <= q.shape[-1] <= 128:
+        raise ValueError(f"{name}: head_dim {q.shape[-1]} not in [1, 128]")
+    if any(x.stride(-1) != 1 for x in (q, k, v)):
+        raise ValueError(f"{name}: head dim must be contiguous")
+
+
+def flash_fwd(q, k, v, sm_scale: float):
+    """The forward kernel on CUDA tensors: (o (B, H, T, D), lse (B, H, T) fp32)."""
     global launches
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, sm_scale)
     if q.device.type != "cuda":
         raise RuntimeError(f"flash_attention: no kernel for device {q.device}")
-    _build.check_cuda_inputs("flash_attention", q, k, v)
-    if q.ndim != 4 or k.shape != q.shape or v.shape != q.shape:
-        raise ValueError(
-            f"flash_attention: q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}"
-        )
+    _check("flash_attention", q, k, v)
     b, h, t, d = q.shape
-    if not 1 <= d <= 128:
-        raise ValueError(f"flash_attention: head_dim {d} not in [1, 128]")
-    if any(x.stride(-1) != 1 for x in (q, k, v)):
-        raise ValueError("flash_attention: head dim must be contiguous")
-    o = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
+    o = _bthd_empty(q)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     strides = (ctypes.c_longlong * 12)(
         *[s for x in (q, k, v, o) for s in x.stride()[:3]]
     )
-    lib = _build.lib()
-    rc = lib.lyc_flash_fwd(
+    rc = _build.lib().lyc_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
         b, h, t, d, strides, float(sm_scale), _build.dtype_code(q), _build.stream_ptr(q),
     )
     _build.check(rc, "lyc_flash_fwd")
     launches += 1
     return o, lse
+
+
+def flash_bwd(q, k, v, o, lse, do, sm_scale: float):
+    """The backward kernel on CUDA tensors: (dq, dk, dv), each a (B, H, T, D)
+    view of a (B, T, H, D) buffer, in q's dtype."""
+    global bwd_launches
+    if q.device.type != "cuda":
+        raise RuntimeError(f"flash_attention_bwd: no kernel for device {q.device}")
+    if do.stride(-1) != 1:
+        do = do.contiguous()
+    _check("flash_attention_bwd", q, k, v)
+    _build.check_cuda_inputs("flash_attention_bwd", q, do)
+    if do.shape != q.shape or lse.shape != q.shape[:3]:
+        raise ValueError(f"flash_attention_bwd: dO {tuple(do.shape)} lse {tuple(lse.shape)}")
+    b, h, t, d = q.shape
+    di = (do.float() * o.float()).sum(-1).contiguous()
+    lse = lse.float().contiguous()
+    dq, dk, dv = _bthd_empty(q), _bthd_empty(q), _bthd_empty(q)
+    strides = (ctypes.c_longlong * 21)(
+        *[s for x in (q, k, v, do, dq, dk, dv) for s in x.stride()[:3]]
+    )
+    rc = _build.lib().lyc_flash_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        di.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, t, d, strides,
+        float(sm_scale), _build.dtype_code(q), _build.stream_ptr(q),
+    )
+    _build.check(rc, "lyc_flash_bwd")
+    bwd_launches += 1
+    return dq, dk, dv
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """Flash attention whose backward is the ``flash_bwd`` kernel on the card
+    (the plain backward on the CPU). Returns (o, lse); lse carries no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, sm_scale):
+        if q.device.type == "cpu":
+            o, lse = flash_attention_plain(q, k, v, sm_scale)
+        else:
+            o, lse = flash_fwd(q, k, v, sm_scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.sm_scale = sm_scale
+        ctx.mark_non_differentiable(lse)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        q, k, v, o, lse = ctx.saved_tensors
+        if q.device.type == "cpu":
+            dq, dk, dv = flash_attention_bwd_plain(q, k, v, o, lse, do, ctx.sm_scale)
+        else:
+            dq, dk, dv = flash_bwd(q, k, v, o, lse, do, ctx.sm_scale)
+        return dq, dk, dv, None
+
+
+def flash_attention(q, k, v, sm_scale: float):
+    """Non-causal attention of (B, H, T, D) q, k, v -> (o (B, H, T, D), lse
+    (B, H, T) fp32), differentiable in q, k and v."""
+    return FlashAttentionFunction.apply(q, k, v, float(sm_scale))

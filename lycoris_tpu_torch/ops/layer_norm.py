@@ -1,21 +1,29 @@
-"""LayerNorm forward over the last dim: the CUDA kernel ``csrc/ln_fwd.cu``.
+"""LayerNorm over the last dim: the CUDA kernels ``csrc/ln_fwd.cu`` and
+``csrc/ln_bwd.cu``.
 
-Counterpart of ``lycoris_tpu/ops/layer_norm.py`` (forward only; the
-backward kernel belongs to the training slice). The TPU gate
-``512 <= C <= 8192`` was a TPU measurement and is not carried over: on the
-card every affine single-dim LayerNorm runs the kernel.
+Counterpart of ``lycoris_tpu/ops/layer_norm.py`` (``_fwd_call`` and the
+``_vjp_bwd`` backward). The TPU gate ``512 <= C <= 8192`` was a TPU
+measurement and is not carried over: on the card every affine single-dim
+LayerNorm runs the kernels.
 
-:func:`layer_norm` takes the plain version :func:`layer_norm_plain` only
-for a tensor on the CPU. For a CUDA tensor it launches the kernel or raises.
+:func:`layer_norm` is a :class:`LayerNormFunction`: its forward saves x and
+w, its backward recomputes the row statistics. Each direction takes its
+plain version (:func:`layer_norm_plain`, :func:`layer_norm_bwd_plain`) only
+for tensors on the CPU; for CUDA tensors it launches the kernel or raises.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
 from . import _build
 
-launches = 0  # kernel launches since the last reset (chip_smoke counts these)
+launches = 0  # forward kernel launches since the last reset (chip_smoke counts these)
+bwd_launches = 0  # backward kernel launches, likewise
+
+_MAX_PARTS = 4 * 132  # dw/db partial rows: four blocks per SM of an H100
 
 
 def layer_norm_plain(x, weight, bias, eps: float):
@@ -30,28 +38,109 @@ def layer_norm_plain(x, weight, bias, eps: float):
     return y.to(x.dtype)
 
 
-def layer_norm(x, weight, bias, eps: float):
-    """LayerNorm of ``x`` (..., C) with ``weight``/``bias`` (C,) in x's dtype."""
-    global launches
-    if x.device.type == "cpu":
-        return layer_norm_plain(x, weight, bias, eps)
-    if x.device.type != "cuda":
-        raise RuntimeError(f"layer_norm: no kernel for device {x.device}")
+def layer_norm_bwd_plain(x, weight, dy, eps: float):
+    """(dx in x's dtype, dw fp32, db fp32) of :func:`layer_norm_plain` for
+    the cotangent ``dy``, with the statistics recomputed from x in fp32."""
     c = x.shape[-1]
-    if bias is None:
-        bias = torch.zeros_like(weight)
+    xf = x.reshape(-1, c).float()
+    g = dy.reshape(-1, c).float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    xc = xf - mean
+    rstd = torch.rsqrt((xc * xc).mean(dim=-1, keepdim=True) + eps)
+    xhat = xc * rstd
+    wdy = g * weight.float()
+    c1 = (wdy * xhat).mean(dim=-1, keepdim=True)
+    c2 = wdy.mean(dim=-1, keepdim=True)
+    dx = ((wdy - xhat * c1 - c2) * rstd).to(x.dtype).reshape(x.shape)
+    return dx, (g * xhat).sum(dim=0), g.sum(dim=0)
+
+
+def _check(x, weight, bias):
+    c = x.shape[-1]
     _build.check_cuda_inputs("layer_norm", x, weight, bias)
     if weight.shape != (c,) or bias.shape != (c,):
         raise ValueError(f"layer_norm: weight/bias {tuple(weight.shape)} for C={c}")
     if not (x.is_contiguous() and weight.is_contiguous() and bias.is_contiguous()):
         raise ValueError("layer_norm: kernel needs contiguous tensors")
+
+
+def layer_norm_fwd(x, weight, bias, eps: float):
+    """The forward kernel on CUDA tensors (x (..., C), weight/bias (C,))."""
+    global launches
+    if x.device.type != "cuda":
+        raise RuntimeError(f"layer_norm: no kernel for device {x.device}")
+    _check(x, weight, bias)
     y = torch.empty_like(x)
-    rows = x.numel() // c
-    lib = _build.lib()
-    rc = lib.lyc_ln_fwd(
+    c = x.shape[-1]
+    rc = _build.lib().lyc_ln_fwd(
         x.data_ptr(), weight.data_ptr(), bias.data_ptr(), y.data_ptr(),
-        rows, c, float(eps), _build.dtype_code(x), _build.stream_ptr(x),
+        x.numel() // c, c, float(eps), _build.dtype_code(x), _build.stream_ptr(x),
     )
     _build.check(rc, "lyc_ln_fwd")
     launches += 1
     return y
+
+
+def layer_norm_bwd(x, weight, dy, eps: float, want_wb: bool = True):
+    """The backward kernel on CUDA tensors: (dx, dw fp32, db fp32), or
+    (dx, None, None) when ``want_wb`` is False (frozen weight and bias)."""
+    global bwd_launches
+    if x.device.type != "cuda":
+        raise RuntimeError(f"layer_norm_bwd: no kernel for device {x.device}")
+    dy = dy.contiguous()
+    _build.check_cuda_inputs("layer_norm_bwd", x, weight, dy)
+    c = x.shape[-1]
+    if weight.shape != (c,) or dy.shape != x.shape or not x.is_contiguous():
+        raise ValueError(f"layer_norm_bwd: x {tuple(x.shape)} dy {tuple(dy.shape)} "
+                         f"w {tuple(weight.shape)}")
+    rows = x.numel() // c
+    nparts = max(1, min(_MAX_PARTS, math.ceil(rows / 16)))
+    dx = torch.empty_like(x)
+    dw = db = parts = None
+    if want_wb:
+        f32 = dict(dtype=torch.float32, device=x.device)
+        parts = torch.empty((2, nparts, c), **f32)
+        dw, db = torch.empty(c, **f32), torch.empty(c, **f32)
+    rc = _build.lib().lyc_ln_bwd(
+        x.data_ptr(), dy.data_ptr(), weight.data_ptr(), dx.data_ptr(),
+        _build.ptr(None if parts is None else parts[0]),
+        _build.ptr(None if parts is None else parts[1]),
+        _build.ptr(dw), _build.ptr(db), rows, c, nparts, float(eps),
+        _build.dtype_code(x), _build.stream_ptr(x),
+    )
+    _build.check(rc, "lyc_ln_bwd")
+    bwd_launches += 1
+    return dx, dw, db
+
+
+class LayerNormFunction(torch.autograd.Function):
+    """LayerNorm whose backward is the ``ln_bwd`` kernel on the card (the
+    plain backward on the CPU). Saves x and w; dw/db only where needed."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps):
+        ctx.save_for_backward(x, weight)
+        ctx.eps = eps
+        if x.device.type == "cpu":
+            return layer_norm_plain(x, weight, bias, eps)
+        return layer_norm_fwd(x, weight, bias, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight = ctx.saved_tensors
+        want_wb = ctx.needs_input_grad[1] or ctx.needs_input_grad[2]
+        if x.device.type == "cpu":
+            dx, dw, db = layer_norm_bwd_plain(x, weight, dy, ctx.eps)
+        else:
+            dx, dw, db = layer_norm_bwd(x, weight, dy, ctx.eps, want_wb)
+        dw = dw.to(weight.dtype) if ctx.needs_input_grad[1] else None
+        db = db.to(weight.dtype) if ctx.needs_input_grad[2] else None
+        return dx, dw, db, None
+
+
+def layer_norm(x, weight, bias, eps: float):
+    """LayerNorm of ``x`` (..., C) with ``weight``/``bias`` (C,) in x's
+    dtype, differentiable in all three."""
+    if bias is None:
+        bias = torch.zeros_like(weight)
+    return LayerNormFunction.apply(x, weight, bias, float(eps))

@@ -11,7 +11,12 @@ puts an adapted forward in place of each targeted layer's ``forward`` and
 :meth:`~LycorisNetwork.restore` puts the layer's own back. With
 ``merged_forward=True`` the adapted forward runs the layer once with
 ``W + dW`` (the JAX interceptor's merged path, wrapper.py:646-718);
-otherwise, and always for bypass modules, it is delta over base.
+otherwise, and always for bypass modules, it is delta over base. With
+grad enabled, a linear layer whose adapter has a factored cotangent
+(LoKr) and whose harmonic dimension passes ``worth_factoring`` trains
+through the factored backward of ``functional/merged.py``, which never
+forms the dense weight gradient; every other layer trains by autograd
+through ``W + dW``.
 :meth:`~LycorisNetwork.merge_to` folds the adapters into the layers'
 weights in place. State dicts use the reference key grammar; file I/O
 (safetensors) is not ported yet, so they pass in memory.
@@ -28,6 +33,7 @@ import torch
 from torch import nn
 
 from .config import PRESET
+from .functional import merged as fm
 from .graph import ModelGraph
 from .logging import logger
 from .modules import get_module, make_module
@@ -83,9 +89,19 @@ def _as_graph(model_or_graph) -> ModelGraph:
     raise TypeError("expected a torch nn.Module or a ModelGraph")
 
 
+def _model_device(graph: ModelGraph) -> torch.device:
+    """The device of the wrapped model's layer weights (the CPU if none)."""
+    for node in graph.nodes:
+        w = getattr(node.module, "weight", None) if node.is_leaf else None
+        if isinstance(w, torch.Tensor):
+            return w.device
+    return torch.device("cpu")
+
+
 def create_lycoris(module, multiplier=1.0, linear_dim=4, linear_alpha=1, **kwargs):
     """kwargs parsing of reference wrapper.py:64-145. ``device``/``dtype``
-    place the adapter tensors; ``seed`` seeds their init."""
+    place the adapter tensors (by default on the device of the model's
+    weights); ``seed`` seeds their init."""
     for key, value in list(kwargs.items()):
         if key in deprecated_arg_dict:
             logger.warning(f"{key} is deprecated. Please use {deprecated_arg_dict[key]} instead.")
@@ -139,6 +155,7 @@ def create_lycoris(module, multiplier=1.0, linear_dim=4, linear_alpha=1, **kwarg
 def create_lycoris_from_weights(multiplier, file, module, weights_sd=None, **kwargs):
     """Build a network from a state dict in the reference key grammar, the
     algorithm of each layer detected from its keys (reference wrapper.py:148-194).
+    Each adapter goes to ``device`` if given, else to its layer's device.
     Returns ``(network, weights_sd)``."""
     if weights_sd is None:
         raise NotImplementedError(
@@ -163,7 +180,8 @@ def create_lycoris_from_weights(multiplier, file, module, weights_sd=None, **kwa
         lyco_type, params = get_module(weights_sd, lora_name)
         if lyco_type is None:
             continue
-        mod = make_module(lyco_type, params, lora_name, node.layer_info)
+        device = kwargs.get("device") or node.module.weight.device
+        mod = make_module(lyco_type, params, lora_name, node.layer_info, device=device)
         mod.multiplier = multiplier
         loras.append(mod)
         network.lora_map[lora_name] = mod
@@ -262,10 +280,10 @@ class LycorisNetwork(nn.Module):
         self.rank_dropout = rank_dropout
         self.module_dropout = module_dropout
         self.use_tucker = use_tucker
-        gen_device = torch.device(device) if device is not None else torch.device("cpu")
+        device = torch.device(device) if device is not None else _model_device(self.graph)
 
         def module_generator(lora_name):
-            g = torch.Generator(device=gen_device)
+            g = torch.Generator(device=device)
             return g.manual_seed(seed * 1_000_003 + zlib.crc32(lora_name.encode()))
 
         def create_single_module(lora_name, node, algo_name, dim=None, alpha_=None,
@@ -421,7 +439,35 @@ class LycorisNetwork(nn.Module):
                 return value
         return None
 
+    def trainable_params(self) -> dict:
+        """The adapters' trainable parameters, ``{lora_name: {key: Parameter}}``."""
+        return {lyco.lora_name: dict(lyco.named_parameters()) for lyco in self.loras}
+
     # -- lifecycle ------------------------------------------------------------
+    def _factored_apply(self, lyco, node, x, w, b, mult):
+        """The layer through ``factored_merged_apply`` (dense-dW-free
+        backward), or None where that path does not apply: no grad wanted,
+        not a linear layer, below the ``worth_factoring`` threshold, or an
+        adapter without a factored cotangent."""
+        out_dim, in_dim = lyco.shape[0], lyco.shape[1]
+        fns_of = getattr(lyco, "factored_merged_fns", None)
+        if (fns_of is None or not torch.is_grad_enabled() or lyco.module_type != "linear"
+                or not any(p.requires_grad for p in lyco.parameters())
+                or not fm.worth_factoring(out_dim, in_dim, fm.FACTORED_MIN)):
+            return None
+        fns = fns_of(mult)
+        if fns is None:
+            return None
+        recon_fn, dtheta_fn = fns
+        return fm.factored_merged_apply(
+            x, w, None if b is None else b.to(x.dtype), dict(lyco.params),
+            recon_fn=recon_fn, dtheta_fn=dtheta_fn,
+            apply_fn=lambda xx, ww, bb: node.apply(xx, ww.to(xx.dtype), bb),
+            # the layer's output layout -> (..., T, out): dx = g W, dy2d = g
+            dx_fn=lambda g, ww: node.from_native(g) @ ww.to(g.dtype),
+            dy2d_fn=lambda g: node.from_native(g).reshape(-1, out_dim),
+        )
+
     def _adapted_forward(self, lora_name):
         lyco = self.lora_map[lora_name]
         node = self.node_map[lora_name]
@@ -431,6 +477,9 @@ class LycorisNetwork(nn.Module):
             w, b = node.weights()
             mult = self.multiplier
             if self.merged_forward and not lyco.bypass_mode and not lyco.not_supported:
+                out = self._factored_apply(lyco, node, x, w, b, mult)
+                if out is not None:
+                    return out
                 # one op with W + dW, in the layer's own output layout
                 w_m, b_m = lyco.get_merged_weight(w, b, multiplier=mult)
                 return node.apply(x, w_m.to(x.dtype), None if b_m is None else b_m.to(x.dtype))

@@ -31,8 +31,11 @@ PROFILED_CALLS = 3
 # kernel kinds, matched in order against the lower-cased kernel name
 KINDS = (
     ("flash_fwd (ours)", ("flash_fwd",)),
+    ("flash_bwd (ours)", ("flash_bwd",)),
     ("LayerNorm (ours)", ("ln_fwd_kernel",)),
+    ("LayerNorm bwd (ours)", ("ln_bwd",)),
     ("hada (ours)", ("hada_fwd_kernel",)),
+    ("hada bwd (ours)", ("hada_bwd",)),
     ("convolution (cuDNN)", ("fprop", "convolve", "conv2d", "winograd", "cudnn")),
     ("GEMM (cuBLAS/CUTLASS)", ("gemm", "nvjet", "xmma", "cutlass", "cublas")),
     ("softmax", ("softmax",)),

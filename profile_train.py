@@ -1,0 +1,124 @@
+#!/usr/bin/env python3
+"""Where one adapter train step spends its time, on one CUDA card.
+
+    python3 profile_train.py
+
+Uses ``chip_smoke.py``'s SD1.5 UNet (full width, bf16, seeded random
+weights) and its seeded LoKr and LoHa attn-mlp adapters, trained by
+``DiffusionTrainer`` at batch 8, 64x64 latents, 77 context tokens. Legs:
+LoKr (its 12 widest layers through the factored backward), LoHa, and LoKr
+with the factored backward off (``FACTORED_MIN`` above every layer, so all
+192 layers train by autograd through W + dW). For each leg:
+
+1. host clock per step over 5 steps after 2 warm-up steps, every step
+   ending in ``torch.cuda.synchronize()``;
+2. torch.profiler over 2 steps: device time per step by kind of kernel,
+   kernels per step, and the device busy share (device time per step over
+   the unprofiled median host time per step).
+
+The full kernel lists go to ``chiprun_out/profile_train.json``.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+WARMUP_STEPS = 2
+TIMED_STEPS = 5
+PROFILED_STEPS = 2
+
+
+def main() -> int:
+    sys.path.insert(0, str(ROOT))
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        print("profile_train: no CUDA device", file=sys.stderr)
+        return 1
+    import chip_smoke
+    from profile_serving import kind_of
+    from lycoris_tpu_torch import create_lycoris_from_weights
+    from lycoris_tpu_torch.functional import merged
+    from lycoris_tpu_torch.trainer import DiffusionTrainer
+
+    card = chip_smoke.phase_build()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    model = chip_smoke.build_unet(dev, torch.bfloat16, seed=0)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    b = chip_smoke.TRAIN_BATCH
+    batch = {"latents": torch.randn(b, 4, 64, 64, generator=gen, device=dev).to(torch.bfloat16),
+             "context": torch.randn(b, 77, 768, generator=gen, device=dev).to(torch.bfloat16)}
+    report = {"card": card, "batch": b, "steps": {}}
+    factored_min = merged.FACTORED_MIN
+
+    sds = {}
+    with torch.no_grad():
+        for seed, algo in enumerate(("lokr", "loha"), start=1):
+            sds[algo] = chip_smoke.adapter_state_dict(model, algo, dev, seed=seed)
+    for leg, algo in (("lokr", "lokr"), ("loha", "loha"), ("lokr_dense", "lokr")):
+        net, _ = create_lycoris_from_weights(1.0, None, model, weights_sd=sds[algo])
+        merged.FACTORED_MIN = 1 << 30 if leg == "lokr_dense" else factored_min
+        tr = DiffusionTrainer(model, net, lr=1e-4, weight_dtype=torch.bfloat16)
+        for _ in range(WARMUP_STEPS):
+            tr.train_step(batch)
+        torch.cuda.synchronize()
+        host = []
+        for _ in range(TIMED_STEPS):
+            t0 = time.perf_counter()
+            tr.train_step(batch)
+            torch.cuda.synchronize()
+            host.append((time.perf_counter() - t0) * 1e3)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(PROFILED_STEPS):
+                tr.train_step(batch)
+            torch.cuda.synchronize()
+        net.restore()
+        del tr, net
+
+        kernels = []
+        for evt in prof.key_averages():
+            if evt.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            us = getattr(evt, "self_device_time_total", None)
+            if us is None:
+                us = evt.self_cuda_time_total
+            kernels.append({"name": evt.key, "device_us": us, "count": evt.count})
+        if not kernels:
+            print("profile_train: the profiler recorded no device kernels", file=sys.stderr)
+            return 1
+        kernels.sort(key=lambda k: -k["device_us"])
+        by_kind: dict[str, float] = {}
+        for k in kernels:
+            by_kind[kind_of(k["name"])] = by_kind.get(kind_of(k["name"]), 0.0) + k["device_us"]
+        total_ms = sum(by_kind.values()) / 1e3 / PROFILED_STEPS
+        n_per_step = sum(k["count"] for k in kernels) / PROFILED_STEPS
+        med = statistics.median(host)
+        print(f"[time] {leg}: host ms per step median {med:.2f} (min {min(host):.2f}, "
+              f"max {max(host):.2f}) ({card})", flush=True)
+        print(f"[profile] {leg}: device ms per train step by kind ({card}):", flush=True)
+        for kind, us in sorted(by_kind.items(), key=lambda kv: -kv[1]):
+            print(f"[profile]   {kind}: {us / 1e3 / PROFILED_STEPS:.3f}")
+        print(f"[profile] {leg}: all kernels {total_ms:.3f} ms per step, {n_per_step:.0f} "
+              f"kernels per step; busy share {total_ms / med:.3f} of the {med:.2f} ms host "
+              f"time per step", flush=True)
+        report["steps"][leg] = {
+            "host_ms": host,
+            "by_kind_ms_per_step": {k: v / 1e3 / PROFILED_STEPS for k, v in by_kind.items()},
+            "kernels_per_step": n_per_step, "kernels": kernels,
+        }
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "profile_train.json").write_text(json.dumps(report, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -8,7 +8,9 @@ a machine without it:
 (``--noconftest`` because tests/conftest.py sets up JAX for the other
 tests). Bounds: the ROADMAP's per-dtype MSE (fp32 5e-6, bf16 5e-4), and a
 relative L2 error (fp32 1e-4, bf16 1e-2) that holds small outputs, such as
-flash O at T4096, as tightly as large ones.
+flash O at T4096, as tightly as large ones. The backward kernels are held
+to the same bounds, and each autograd Function's gradients to those of
+autograd through the plain forward.
 """
 
 import pytest
@@ -23,6 +25,7 @@ from lycoris_tpu_torch.ops import layer_norm as tln
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -72,7 +75,98 @@ def test_cuda_hada_kernel(cuda, dtype):
 
 
 @pytest.mark.cuda
-def test_cuda_kernels_refuse_autograd(cuda):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_layer_norm_bwd_kernel(cuda, dtype):
+    g = torch.Generator(device=cuda).manual_seed(1)
+    for rows, c in ((8 * 4096, 320), (8 * 256, 1280), (7, 100), (3000, 2000)):
+        x = (torch.randn(rows, c, device=cuda, generator=g) * 2 + 0.5).to(dtype)
+        w = (torch.randn(c, device=cuda, generator=g) * 0.5 + 1).to(dtype)
+        dy = torch.randn(rows, c, device=cuda, generator=g).to(dtype)
+        want = tln.layer_norm_bwd_plain(x, w, dy, 1e-5)
+        n = tln.bwd_launches
+        got = tln.layer_norm_bwd(x, w, dy, 1e-5)
+        assert tln.bwd_launches == n + 1
+        for a, b in zip(got, want):
+            _check(a, b, dtype)
+        dx, dw, db = tln.layer_norm_bwd(x, w, dy, 1e-5, want_wb=False)
+        assert dw is None and db is None
+        _check(dx, want[0], dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_bwd_kernel(cuda, dtype):
+    g = torch.Generator(device=cuda).manual_seed(2)
+    for b, h, t, d in ((2, 8, 4096, 40), (2, 8, 1024, 80), (1, 2, 1000, 128)):
+        q, k, v, do = (torch.randn(b, h, t, d, device=cuda, generator=g).to(dtype)
+                       for _ in range(4))
+        sm = d**-0.5
+        o, lse = tflash.flash_fwd(q, k, v, sm)
+        want = tflash.flash_attention_bwd_plain(q, k, v, o, lse, do, sm)
+        n = tflash.bwd_launches
+        got = tflash.flash_bwd(q, k, v, o, lse, do, sm)
+        assert tflash.bwd_launches == n + 1
+        for a, w in zip(got, want):
+            assert a.shape == w.shape
+            _check(a, w, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_hada_bwd_kernel(cuda, dtype):
+    g = torch.Generator(device=cuda).manual_seed(3)
+    for o, i, r in ((320, 320, 8), (10240, 1280, 8), (1280, 5120, 8), (100, 130, 40)):
+        w1d, w2d = (torch.randn(r, i, device=cuda, generator=g).to(dtype) for _ in range(2))
+        w1u, w2u = ((0.1 * torch.randn(o, r, device=cuda, generator=g)).to(dtype) for _ in range(2))
+        gr = (torch.randn(o, i, device=cuda, generator=g) * 1e-3).to(dtype)
+        want = thada.hada_weight_bwd_plain(w1d, w1u, w2d, w2u, 0.5, gr)
+        n = thada.bwd_launches
+        got = thada.hada_bwd(w1d, w1u, w2d, w2u, 0.5, gr)
+        assert thada.bwd_launches == n + 1
+        for a, w in zip(got, want):
+            _check(a, w, dtype)
+
+
+def _grads_match(fn, plain, inputs, dtype):
+    """Gradients of sum(out * ct) through the Function (kernels) and through
+    autograd of the plain forward, on the same inputs."""
+    leaves = [x.detach().clone().requires_grad_(True) for x in inputs]
+    out = fn(*leaves)
+    ct = torch.randn(out.shape, device=out.device, generator=torch.Generator(
+        device=out.device).manual_seed(9)).to(out.dtype)
+    got = torch.autograd.grad((out.float() * ct.float()).sum(), leaves)
+    leaves = [x.detach().clone().requires_grad_(True) for x in inputs]
+    want = torch.autograd.grad((plain(*leaves).float() * ct.float()).sum(), leaves)
+    for a, b in zip(got, want):
+        _check(a, b, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_functions_match_autograd_of_plain(cuda, dtype):
+    g = torch.Generator(device=cuda).manual_seed(4)
+    x = (torch.randn(2048, 640, device=cuda, generator=g) + 0.3).to(dtype)
+    w = (torch.randn(640, device=cuda, generator=g) * 0.5 + 1).to(dtype)
+    b = torch.randn(640, device=cuda, generator=g).to(dtype)
+    _grads_match(lambda *a: tln.layer_norm(*a, 1e-5),
+                 lambda *a: tln.layer_norm_plain(*a, 1e-5), (x, w, b), dtype)
+
+    q, k, v = (torch.randn(1, 4, 1024, 40, device=cuda, generator=g).to(dtype) for _ in range(3))
+    _grads_match(lambda *a: tflash.flash_attention(*a, 40**-0.5)[0],
+                 lambda *a: tflash.flash_attention_plain(*a, 40**-0.5)[0], (q, k, v), dtype)
+
+    w1d, w2d = (torch.randn(8, 1280, device=cuda, generator=g).to(dtype) for _ in range(2))
+    w1u, w2u = ((0.1 * torch.randn(640, 8, device=cuda, generator=g)).to(dtype) for _ in range(2))
+    _grads_match(lambda *a: thada.hada_weight(*a, 0.5),
+                 lambda *a: thada.hada_weight_plain(*a, 0.5), (w1d, w1u, w2d, w2u), dtype)
+
+
+@pytest.mark.cuda
+def test_cuda_grads_flow_through_layer_norm(cuda):
     x = torch.randn(8, 320, device=cuda, requires_grad=True)
-    with pytest.raises(RuntimeError, match="requires grad"):
-        tln.layer_norm(x, torch.ones(320, device=cuda), torch.zeros(320, device=cuda), 1e-5)
+    w = torch.ones(320, device=cuda, requires_grad=True)
+    y = tln.layer_norm(x, w, torch.zeros(320, device=cuda), 1e-5)
+    n = tln.bwd_launches
+    (y * y).sum().backward()
+    assert tln.bwd_launches == n + 1
+    assert x.grad is not None and w.grad is not None and bool(torch.isfinite(x.grad).all())

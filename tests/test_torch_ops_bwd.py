@@ -1,0 +1,273 @@
+"""The port's backward math on the CPU against the JAX package: each plain
+backward against the Pallas backward kernel it stands beside (interpret
+mode), the autograd Functions against autograd of the plain forwards, the
+LoHa custom-vjp Functions, and the factored merged cotangents
+(``functional/merged.py``, ``LokrModule.factored_merged_fns``).
+
+Inputs are drawn with numpy from a seed and fed to both packages.
+Tolerance: fp32 atol/rtol 1e-5 per op (summation order differs), 2e-4
+relative for gradients that sum over many tokens or go through a chain of
+small contractions (as the JAX package's own factored-grad tests).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from lycoris_tpu.functional import loha as jloha
+from lycoris_tpu.functional import merged as jmerged
+from lycoris_tpu.ops import flash as jflash
+from lycoris_tpu_torch.functional import loha as tloha
+from lycoris_tpu_torch.functional import merged as tmerged
+from lycoris_tpu_torch.functional.general import linear, linear_head_split
+from lycoris_tpu_torch.modules import LayerInfo, LokrModule
+from lycoris_tpu_torch.ops import flash as tflash
+from lycoris_tpu_torch.ops import hada as thada
+from lycoris_tpu_torch.ops import layer_norm as tln
+
+TOL = dict(atol=1e-5, rtol=1e-5)
+GRAD_TOL = dict(atol=1e-5, rtol=2e-4)
+
+
+@pytest.fixture()
+def interpret_pallas(monkeypatch):
+    """Force pallas_call into interpreter mode for CPU testing."""
+    from jax.experimental import pallas as pl
+
+    orig = pl.pallas_call
+
+    def patched(*args, **kwargs):
+        kwargs.setdefault("interpret", True)
+        return orig(*args, **kwargs)
+
+    monkeypatch.setattr(pl, "pallas_call", patched)
+    yield
+
+
+def _rand(rng, *shape, std=1.0):
+    return (rng.standard_normal(shape) * std).astype(np.float32)
+
+
+def _t(*arrays):
+    return [torch.from_numpy(a) for a in arrays]
+
+
+def _close(got, want, **tol):
+    np.testing.assert_allclose(np.asarray(got.detach()), np.asarray(want), **(tol or TOL))
+
+
+# ---------------------------------------------------------------------------
+# plain backwards against the JAX backward kernels
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("t,d", [(1024, 40), (512, 80)])
+def test_flash_bwd_plain_matches_jax_kernel(monkeypatch, t, d):
+    monkeypatch.setattr(jflash, "_INTERPRET", True)
+    rng = np.random.default_rng(0)
+    q, k, v, do = (_rand(rng, 1, 2, t, d) for _ in range(4))
+    sm = 1.0 / d**0.5
+    jq, jk, jv, jdo = map(jnp.asarray, (q, k, v, do))
+    o, lse = jflash._flash_fwd(jq, jk, jv, sm, 256, 256)
+    want = jflash._bwd_from_res((jq, jk, jv, o, lse), jdo, sm, 256, 256, None, None)
+    got = tflash.flash_attention_bwd_plain(
+        *_t(q, k, v), torch.from_numpy(np.array(o)), torch.from_numpy(np.array(lse)),
+        torch.from_numpy(do), sm)
+    for a, b in zip(got, want):
+        _close(a, b)
+
+
+@pytest.mark.parametrize("shape", [(64, 320), (32, 640), (16, 1280)])
+def test_layer_norm_bwd_plain_matches_jax_kernel(interpret_pallas, shape):
+    from lycoris_tpu.ops import layer_norm as jln
+
+    rng = np.random.default_rng(1)
+    x = _rand(rng, *shape, std=2.0) + 0.5
+    w = _rand(rng, shape[1]) + 1.0
+    dy = _rand(rng, *shape)
+    want = jln._vjp_bwd(1e-5, (jnp.asarray(x), jnp.asarray(w)), jnp.asarray(dy))
+    got = tln.layer_norm_bwd_plain(*_t(x, w, dy), 1e-5)
+    for a, b in zip(got, want):
+        _close(a, b, atol=2e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("shape", [(64, 256, 8), (256, 640, 8), (128, 768, 4)])
+def test_hada_bwd_plain_matches_jax_fused1(interpret_pallas, shape):
+    from lycoris_tpu.ops import hada as jhada
+
+    o, i, r = shape
+    rng = np.random.default_rng(2)
+    ws = [_rand(rng, r, i), _rand(rng, o, r, std=0.1), _rand(rng, r, i), _rand(rng, o, r, std=0.1)]
+    g = _rand(rng, o, i)
+    want = jhada._hada_bwd_fused1(*map(jnp.asarray, ws), 0.5, jnp.asarray(g), interpret=True)
+    got = thada.hada_weight_bwd_plain(*_t(*ws), 0.5, torch.from_numpy(g))
+    for a, b in zip(got, want):
+        _close(a, b, atol=1e-5, rtol=2e-5)
+
+
+# ---------------------------------------------------------------------------
+# autograd Functions on the CPU (plain both ways) against autograd of the
+# plain forwards
+# ---------------------------------------------------------------------------
+
+
+def _grads(fn, inputs, ct):
+    leaves = [x.clone().requires_grad_(True) for x in inputs]
+    out = fn(*leaves)
+    return torch.autograd.grad((out * ct).sum(), leaves)
+
+
+def test_functions_match_autograd_of_plain():
+    g = torch.Generator().manual_seed(0)
+    x, w, b = torch.randn(40, 96, generator=g), torch.randn(96, generator=g), torch.randn(96, generator=g)
+    ct = torch.randn(40, 96, generator=g)
+    for a, c in zip(_grads(lambda *z: tln.layer_norm(*z, 1e-5), (x, w, b), ct),
+                    _grads(lambda *z: tln.layer_norm_plain(*z, 1e-5), (x, w, b), ct)):
+        _close(a, c.numpy())
+
+    q, k, v = (torch.randn(1, 2, 128, 16, generator=g) for _ in range(3))
+    ct = torch.randn(1, 2, 128, 16, generator=g)
+    for a, c in zip(_grads(lambda *z: tflash.flash_attention(*z, 0.25)[0], (q, k, v), ct),
+                    _grads(lambda *z: tflash.flash_attention_plain(*z, 0.25)[0], (q, k, v), ct)):
+        _close(a, c.numpy())
+
+    ws = (torch.randn(4, 130, generator=g), torch.randn(24, 4, generator=g),
+          torch.randn(4, 130, generator=g), torch.randn(24, 4, generator=g))
+    ct = torch.randn(24, 130, generator=g)
+    for a, c in zip(_grads(lambda *z: thada.hada_weight(*z, 0.5), ws, ct),
+                    _grads(lambda *z: thada.hada_weight_plain(*z, 0.5), ws, ct)):
+        _close(a, c.numpy())
+
+
+@pytest.mark.parametrize("tucker", [False, True])
+def test_loha_custom_vjps_match_jax(tucker):
+    import jax
+
+    rng = np.random.default_rng(3)
+    if tucker:
+        ws = [_rand(rng, 4, 4, 3, 3), _rand(rng, 4, 6), _rand(rng, 4, 5),
+              _rand(rng, 4, 4, 3, 3), _rand(rng, 4, 6), _rand(rng, 4, 5)]
+        jfn, tfn = jloha.hada_weight_tucker, tloha.hada_weight_tucker
+    else:
+        ws = [_rand(rng, 4, 20), _rand(rng, 12, 4), _rand(rng, 4, 20), _rand(rng, 12, 4)]
+        jfn, tfn = jloha.hada_weight, tloha.hada_weight
+    ct = _rand(rng, *np.shape(jfn(*map(jnp.asarray, ws), 0.7)))
+    want = jax.grad(lambda *a: jnp.sum(jfn(*a, 0.7) * ct), argnums=tuple(range(len(ws))))(
+        *map(jnp.asarray, ws))
+    got = _grads(lambda *a: tfn(*a, 0.7), _t(*ws), torch.from_numpy(ct))
+    for a, b in zip(got, want):
+        _close(a, b)
+
+
+# ---------------------------------------------------------------------------
+# factored merged cotangents
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("want_scalar", [False, True])
+def test_lora_dtheta_matches_jax(want_scalar):
+    rng = np.random.default_rng(4)
+    x, dy = _rand(rng, 30, 16), _rand(rng, 30, 24)
+    up, down = _rand(rng, 24, 4), _rand(rng, 4, 16)
+    want = jmerged.lora_dtheta(*map(jnp.asarray, (x, dy, up, down)), want_scalar=want_scalar)
+    got = tmerged.lora_dtheta(*_t(x, dy, up, down), want_scalar=want_scalar)
+    for a, b in zip(got, want):
+        assert (a is None) == (b is None)
+        if a is not None:
+            _close(a, b, **GRAD_TOL)
+
+
+@pytest.mark.parametrize("branch", ["w2_ab", "pivot_in", "pivot_out"])
+def test_lokr_dtheta_matches_jax(branch):
+    rng = np.random.default_rng(5)
+    p, q = 4, 2
+    u, v = {"w2_ab": (6, 8), "pivot_in": (6, 4), "pivot_out": (3, 8)}[branch]
+    x, dy = _rand(rng, 30, q * v), _rand(rng, 30, p * u)
+    w1 = _rand(rng, p, q)
+    if branch == "w2_ab":
+        w2, ab = None, (_rand(rng, u, 2), _rand(rng, 2, v))
+    else:
+        w2, ab = _rand(rng, u, v), None
+    jab = None if ab is None else tuple(map(jnp.asarray, ab))
+    want = jmerged.lokr_dtheta(jnp.asarray(x), jnp.asarray(dy), jnp.asarray(w1),
+                               None if w2 is None else jnp.asarray(w2), w2_ab=jab,
+                               want_scalar=True)
+    got = tmerged.lokr_dtheta(*_t(x, dy, w1), None if w2 is None else torch.from_numpy(w2),
+                              w2_ab=None if ab is None else tuple(_t(*ab)), want_scalar=True)
+    flat = lambda r: [r[0], *(r[1] if isinstance(r[1], tuple) else (r[1],)), r[2]]  # noqa: E731
+    for a, b in zip(flat(got), flat(want)):
+        _close(a, b, **GRAD_TOL)
+
+
+def test_worth_factoring_threshold():
+    assert tmerged.worth_factoring(10240, 1280)  # harmonic 1137: SD1.5 ff net_0
+    assert tmerged.worth_factoring(1280, 5120)  # harmonic 1024: SD1.5 ff net_2
+    assert not tmerged.worth_factoring(1280, 1280)  # 640: square 1280 stays dense
+    assert not tmerged.worth_factoring(5120, 640)
+    assert tmerged.worth_factoring(24, 16, threshold=0)
+    for dims in ((10240, 1280), (1280, 5120), (1280, 1280), (5120, 640), (320, 320)):
+        assert tmerged.worth_factoring(*dims) == jmerged.worth_factoring(*dims, threshold=1024)
+
+
+OUT, IN = 24, 16
+
+
+def _noised_lokr(**kw):
+    g = torch.Generator().manual_seed(0)
+    m = LokrModule("t", LayerInfo.linear(OUT, IN), generator=g, alpha=2, factor=4, **kw)
+    with torch.no_grad():
+        for p in m.parameters():
+            p.add_(torch.randn(p.shape, generator=g) * 0.1)
+    return m
+
+
+@pytest.mark.parametrize("apply_kind", ["linear", "head_split"])
+@pytest.mark.parametrize("cfg", [dict(lora_dim=2), dict(lora_dim=1, decompose_both=True),
+                                 dict(lora_dim=2, full_matrix=True), dict(lora_dim=2, use_scalar=True)],
+                         ids=["w2_ab", "w1_ab", "full", "scalar"])
+def test_lokr_factored_grads_match_autograd(cfg, apply_kind):
+    """factored_merged_apply's adapter grads equal plain autograd through
+    W + dW, for each w1/w2 decomposition, the scalar, and both layer ops."""
+    m = _noised_lokr(**cfg)
+    fns = m.factored_merged_fns(0.7)
+    assert fns is not None
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(3, 5, IN, generator=g, requires_grad=True)
+    w, b = torch.randn(OUT, IN, generator=g) * 0.1, torch.randn(OUT, generator=g) * 0.1
+    if apply_kind == "linear":
+        apply_fn = lambda xx, ww, bb: linear(xx, ww, bb)  # noqa: E731
+        native = lambda y: y  # noqa: E731
+    else:
+        apply_fn = lambda xx, ww, bb: linear_head_split(xx, ww, bb, 4, 6)  # noqa: E731
+        native = lambda y: y.transpose(-2, -3).flatten(-2)  # noqa: E731
+    ct = torch.randn(apply_fn(x, w, b).shape, generator=g)
+
+    y = tmerged.factored_merged_apply(
+        x, w, b, dict(m.params), recon_fn=fns[0], dtheta_fn=fns[1], apply_fn=apply_fn,
+        dx_fn=lambda gg, ww: native(gg) @ ww, dy2d_fn=lambda gg: native(gg).reshape(-1, OUT))
+    params = [x, *m.parameters()]
+    got = torch.autograd.grad((y * ct).sum(), params)
+    w_m, b_m = m.get_merged_weight(w, b, multiplier=0.7)
+    want = torch.autograd.grad((apply_fn(x, w_m, b_m) * ct).sum(), params)
+    _close(y, apply_fn(x, w_m, b_m).detach().numpy())
+    for a, c in zip(got, want):
+        _close(a, c.numpy(), **GRAD_TOL)
+
+
+def test_factored_fns_decline_what_needs_autograd():
+    conv = LayerInfo.conv(2, OUT, IN, 3, padding=1)
+    assert LokrModule("t", conv, lora_dim=2, factor=4).factored_merged_fns(1.0) is None
+    assert _noised_lokr(lora_dim=2, rank_dropout=0.5).factored_merged_fns(1.0) is None
+    assert _noised_lokr(lora_dim=2).factored_merged_fns(1.0) is not None
+
+
+def test_hada_bwd_rows_per_block_fill_the_card():
+    """The backward kernel's rows per block: a multiple of its 16-row tile in
+    [16, 256], small layers spread thin, the widest at the cap."""
+    for o, i in ((320, 320), (2560, 320), (640, 640), (1280, 1280), (10240, 1280),
+                 (1280, 5120), (100, 130)):
+        rpb = thada.bwd_rows_per_block(o, i)
+        assert 16 <= rpb <= 256 and rpb % 16 == 0, (o, i, rpb)
+    assert thada.bwd_rows_per_block(320, 320) == 16
+    assert thada.bwd_rows_per_block(10240, 1280) == 256

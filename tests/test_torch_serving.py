@@ -70,10 +70,10 @@ def test_ddim_cfg_with_live_adapters_matches_jax(algo):
     )
     want = jax.jit(jsample)(variables["params"], jnp.asarray(x), jnp.asarray(ctx), jnp.asarray(unc))
 
-    m = tunet.UNet2DConditionModel(tunet.tiny_unet_config())
+    m = tunet.UNet2DConditionModel(tunet.tiny_unet_config(), device="cpu")
     m.load_state_dict(tunet.state_dict_from_jax(variables["params"]))
     sd = {k: torch.from_numpy(np.array(v)) for k, v in net.state_dict().items()}
-    tnet, _ = tl.create_lycoris_from_weights(1.0, None, m, weights_sd=sd)
+    tnet, _ = tl.create_lycoris_from_weights(1.0, None, m, weights_sd=sd, device="cpu")
     assert len(tnet.loras) == len(net.loras)
     tnet.apply_to(merged_forward=True)
     tsample = make_ddim_sampler(lambda xx, tt, cc: m(xx, tt, cc), num_inference_steps=4,
@@ -129,9 +129,9 @@ def test_sd15_full_width_dispatch_counts_on_meta():
 def test_loha_dw_goes_through_the_hada_wrapper():
     """Every LoHa layer of the tiny UNet forms its dW through ops.hada where
     the JAX gate takes it (O >= 8, I >= 128) and the functional path otherwise."""
-    m = tunet.UNet2DConditionModel(tunet.tiny_unet_config())
+    m = tunet.UNet2DConditionModel(tunet.tiny_unet_config(), device="cpu")
     tl.LycorisNetwork.apply_preset({"target_module": ["Transformer2DModel"]})
-    net = tl.create_lycoris(m, 1.0, 4, 2.0, algo="loha")
+    net = tl.create_lycoris(m, 1.0, 4, 2.0, algo="loha", device="cpu")
     tl.LycorisNetwork.reset_preset()
     seen = []
     real = thada.hada_weight

@@ -44,7 +44,7 @@ def _jax_unet(x, t, ctx):
 
 
 def _torch_unet(variables):
-    m = tunet.UNet2DConditionModel(tunet.tiny_unet_config())
+    m = tunet.UNet2DConditionModel(tunet.tiny_unet_config(), device="cpu")
     m.load_state_dict(tunet.state_dict_from_jax(variables["params"]))
     return m.eval()
 
@@ -75,7 +75,7 @@ def test_state_dict_from_jax_covers_every_parameter():
     x, t, ctx = _inputs()
     _, variables = _jax_unet(x, t, ctx)
     sd = tunet.state_dict_from_jax(variables["params"])
-    m = tunet.UNet2DConditionModel(tunet.tiny_unet_config())
+    m = tunet.UNet2DConditionModel(tunet.tiny_unet_config(), device="cpu")
     assert set(sd) == set(m.state_dict())
     assert all(tuple(sd[k].shape) == tuple(v.shape) for k, v in m.state_dict().items())
 
@@ -99,7 +99,7 @@ def test_targeting_names_and_shapes_match(algo, preset):
     m = _torch_unet(variables)
     if preset is not None:
         tl.LycorisNetwork.apply_preset(preset)
-    tnet = tl.create_lycoris(m, 1.0, 4, 2.0, algo=algo, factor=4)
+    tnet = tl.create_lycoris(m, 1.0, 4, 2.0, algo=algo, factor=4, device="cpu")
     tl.LycorisNetwork.reset_preset()
     assert set(tnet.lora_map) == set(jnet.lora_map)
     jsd, tsd = jnet.state_dict(), tnet.state_dict()
@@ -124,7 +124,7 @@ def test_state_dict_round_trip_both_ways(algo):
     # (a LoKr layer with both factors full reloads with alpha = rank, scale 1)
     want = jax_reload(jsd)
     m = _torch_unet(variables)
-    tnet, _ = tl.create_lycoris_from_weights(1.0, None, m, weights_sd=_torch_sd(jsd))
+    tnet, _ = tl.create_lycoris_from_weights(1.0, None, m, weights_sd=_torch_sd(jsd), device="cpu")
     tsd = tnet.state_dict()
     assert set(tsd) == set(want) == set(jsd)
     for k in want:
@@ -135,7 +135,7 @@ def test_state_dict_round_trip_both_ways(algo):
         np.testing.assert_array_equal(np.asarray(back[k]), np.asarray(want[k]), err_msg=k)
     # load_state_dict into a network built by create_lycoris (same targeting)
     tl.LycorisNetwork.apply_preset(ATTN_MLP)
-    tnet2 = tl.create_lycoris(_torch_unet(variables), 1.0, 4, 2.0, algo=algo, factor=4)
+    tnet2 = tl.create_lycoris(_torch_unet(variables), 1.0, 4, 2.0, algo=algo, factor=4, device="cpu")
     tl.LycorisNetwork.reset_preset()
     report = tnet2.load_state_dict(_torch_sd(jsd))
     assert report == {"loaded": len(jnet.loras), "missing": []}
@@ -154,7 +154,8 @@ def test_live_adapters_and_merge_match(algo, merged_forward):
     want = jnet(variables, jx, jt, jc, adapter_params=tree, model=model,
                 merged_forward=merged_forward)
     m = _torch_unet(variables)
-    tnet, _ = tl.create_lycoris_from_weights(1.0, None, m, weights_sd=_torch_sd(jnet.state_dict()))
+    tnet, _ = tl.create_lycoris_from_weights(1.0, None, m, device="cpu",
+                                             weights_sd=_torch_sd(jnet.state_dict()))
     tnet.apply_to(merged_forward=merged_forward)
     tx, tt, tc = map(torch.from_numpy, (x, t, ctx))
     with torch.no_grad():
@@ -180,7 +181,8 @@ def test_restore_gives_back_the_base_model():
     tx, tt, tc = map(torch.from_numpy, (x, t, ctx))
     with torch.no_grad():
         base = m(tx, tt, tc)
-        tnet, _ = tl.create_lycoris_from_weights(1.0, None, m, weights_sd=_torch_sd(jnet.state_dict()))
+        tnet, _ = tl.create_lycoris_from_weights(1.0, None, m, device="cpu",
+                                                 weights_sd=_torch_sd(jnet.state_dict()))
         tnet.apply_to(merged_forward=True)
         adapted = m(tx, tt, tc)
         tnet.restore()
@@ -194,8 +196,8 @@ def test_unported_algorithms_name_themselves():
     _, variables = _jax_unet(x, t, ctx)
     m = _torch_unet(variables)
     with pytest.raises(NotImplementedError, match="'locon'"):
-        tl.create_lycoris(m, 1.0, 4, 2.0, algo="locon")
+        tl.create_lycoris(m, 1.0, 4, 2.0, algo="locon", device="cpu")
     sd = {"lycoris_conv_in.lora_up.weight": torch.zeros(32, 4, 1, 1),
           "lycoris_conv_in.lora_down.weight": torch.zeros(4, 4, 3, 3)}
     with pytest.raises(NotImplementedError, match="'locon'"):
-        tl.create_lycoris_from_weights(1.0, None, m, weights_sd=sd)
+        tl.create_lycoris_from_weights(1.0, None, m, weights_sd=sd, device="cpu")
