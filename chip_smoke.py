@@ -3,19 +3,23 @@
 
     python3 chip_smoke.py
 
-Phases, each printing its own lines; the first failure ends the run with a
-nonzero exit code, and no phase falls back to the CPU:
+Phases, each printing its own lines and its wall time; the first failure
+ends the run with a nonzero exit code, and no phase falls back to the CPU:
 
 1. build  -- compile the CUDA kernels from ``lycoris_tpu_torch/csrc`` (one
    ``nvcc`` per source, all at once) and print the card's name and power
    limit (nvidia-smi);
 2. kernels -- each forward kernel against its plain PyTorch version at the
-   serving path's shapes, in bf16 and fp32 (MSE, relative L2 and max-abs
-   bounds), with device times (calls captured in a CUDA graph and replayed
-   between CUDA events) of both and of the PyTorch library call where one
-   computes the same function, and the wrapper's host-clocked time beside;
-3. kernels_bwd -- each backward kernel likewise at the training path's
-   shapes (batch 8): flash dq/dk/dv, LayerNorm dx/dw/db, LoHa's four grads;
+   shapes of two paths: SD1.5 serving (UNet batch 4, 64x64 latents; bf16
+   and fp32) and SDXL training (batch 4, 128x128 latents; the path's
+   dtype), under MSE, relative L2 and max-abs bounds; the path's dtype is
+   timed: device times (calls captured in a CUDA graph and replayed between
+   CUDA events) of the kernel, its plain version and the PyTorch library
+   call where one computes the same function, and the wrapper's
+   host-clocked time beside;
+3. kernels_bwd -- each backward kernel likewise at SD1.5 training (batch 8)
+   and SDXL training (batch 4) shapes: flash dq/dk/dv, LayerNorm dx/dw/db,
+   LoHa's four grads, GroupNorm dx/dgamma/dbeta, GEGLU d_hfull;
 4. lokr  -- full-width SD1.5 UNet (bf16, random seeded weights), a LoKr
    attn-mlp adapter loaded from a state dict, DDIM 20 steps with CFG for
    3 requests of 2 prompts; counts the kernel launches per UNet call and
@@ -28,19 +32,32 @@ nonzero exit code, and no phase falls back to the CPU:
    factored backward, finite loss, every adapter changed, base unchanged;
 8. train_loha -- the same with the LoHa adapter;
 9. train_e2e -- one loss and every adapter gradient at batch 1, card (bf16,
-   kernels) against the port on the CPU (fp32, plain versions).
+   kernels) against the port on the CPU (fp32, plain versions);
+10. train_sdxl_lokr -- the SD1.5 model freed, a full-width SDXL UNet (bf16,
+   random seeded weights, ``remat="transformer"``) trains LoKr at batch 4,
+   128x128 latents, context (4, 77, 2048), ``added_cond`` (4, 2816): the
+   checks of phase 7, and the peak memory;
+11. train_sdxl_loha -- the same with LoHa;
+12. train_sdxl_e2e -- phase 9 on the SDXL model at 64x64 latents.
 
-The line before the last is the kernel table as JSON; the last line is
-``{"ok": true, "device": {...}}``.
+The line before the last is the kernel table as JSON. Its path is SDXL
+training: per kernel the launches over the SDXL legs and the device ms per
+SDXL train step (kernel, plain, library, bound; each shape's time weighted
+by its launches per step), with the SD1.5 sums (per serving UNet call for
+the forward kernels, per batch-8 train step for the backward ones) under
+"sd15". The last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import json
 import math
 import subprocess
 import sys
 import time
+from collections import Counter
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -57,9 +74,11 @@ MSE_BOUND = {"float32": 5e-6, "bfloat16": 5e-4}
 REL_L2_BOUND = {"float32": 1e-4, "bfloat16": 1e-2}
 MAX_ABS_REL_BOUND = {"float32": 1e-4, "bfloat16": 2**-6}
 
-SD15_CHANNELS = (320, 640, 1280)
-UNET_BATCH = 4  # 2 prompts with classifier-free guidance
-TRAIN_BATCH = 8
+UNET_BATCH = 4  # SD1.5 serving: 2 prompts with classifier-free guidance
+TRAIN_BATCH = 8  # SD1.5 training
+SDXL_BATCH = 4  # SDXL training, 128x128 latents
+SDXL_HW = 128
+SDXL_ADDED = 2816  # SDXL's add_embedding input: pooled text and time ids
 
 # published peaks of one H100 SXM (dense): the least time a kernel could take
 # is the larger of its operations over the peak for their type and the bytes
@@ -74,6 +93,13 @@ def log(msg: str) -> None:
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke FAILED: {msg}")
+
+
+@contextlib.contextmanager
+def phase(name: str):
+    t0 = time.perf_counter()
+    yield
+    log(f"[{name}] phase wall time {time.perf_counter() - t0:.2f} s")
 
 
 def bound(flops: float, nbytes: float, dt: str) -> tuple[float, str]:
@@ -147,6 +173,11 @@ def graph_ms(fn, iters: int, replays: int = 3) -> float:
     return start.elapsed_time(end) / (iters * replays)
 
 
+def iters_for(nbytes: float) -> int:
+    """Calls per timing graph: about 2 GB of traffic, between 3 and 100."""
+    return max(3, min(100, int(2e9 / max(nbytes, 1.0))))
+
+
 # ---------------------------------------------------------------------------
 # phase 1
 # ---------------------------------------------------------------------------
@@ -175,19 +206,180 @@ def phase_build():
 
 
 # ---------------------------------------------------------------------------
-# phase 2
+# what the paths run: kernel shapes and launch counts from the UNet config
 # ---------------------------------------------------------------------------
 
 
-def _hada_shapes():
-    """(O, I, launches per UNet call) of the LoHa attn-mlp adapters on SD1.5:
-    per Transformer2DModel 8 square layers (proj_in/out, attn1 q/k/v/out,
-    attn2 q/out), attn2 k/v from the 768-wide context, ff net_0 (8C, C) and
-    net_2 (C, 4C); 5 transformers at 320 and 640, 6 at 1280 (with the mid)."""
-    out = []
-    for c, n in zip(SD15_CHANNELS, (5, 5, 6)):
-        out += [(c, c, 8 * n), (c, 768, 2 * n), (8 * c, c, n), (c, 4 * c, n)]
+def unet_census(cfg, batch: int, hw: int) -> dict:
+    """The GroupNorms and Transformer2DModels of one UNet call on ``batch`` x
+    4 x ``hw`` x ``hw`` latents, walked block by block as
+    ``UNet2DConditionModel.forward`` walks them: "gn" counts (C, S, act) of
+    every GroupNorm, "gn_grad" those a gradient reaches (every one after the
+    first adapted layer, the first Transformer2DModel's proj_in, which
+    follows that model's own norm), "transformers" lists (channels, tokens,
+    depth)."""
+    gn, gn_grad, transformers = Counter(), Counter(), []
+    grad = False
+
+    def norm(c, res, act):
+        gn[(c, res * res, act)] += 1
+        if grad:
+            gn_grad[(c, res * res, act)] += 1
+
+    def resnet(c_in, c_out, res):
+        norm(c_in, res, "silu")
+        norm(c_out, res, "silu")
+
+    def transformer(c, res, depth):
+        nonlocal grad
+        norm(c, res, None)
+        transformers.append((c, res * res, depth))
+        grad = True
+
+    chs, lpb = cfg.block_out_channels, cfg.layers_per_block
+    res, ch_in = hw, chs[0]
+    skips = [ch_in]
+    for bi, ch in enumerate(chs):
+        for _ in range(lpb):
+            resnet(ch_in, ch, res)
+            ch_in = ch
+            if cfg.transformer_depth[bi]:
+                transformer(ch, res, cfg.transformer_depth[bi])
+            skips.append(ch)
+        if bi < len(chs) - 1:
+            res //= 2
+            skips.append(ch)
+    resnet(ch_in, ch_in, res)
+    if cfg.mid_transformer_depth:
+        transformer(ch_in, res, cfg.mid_transformer_depth)
+    resnet(ch_in, ch_in, res)
+    for bi in reversed(range(len(chs))):
+        for _ in range(lpb + 1):
+            resnet(ch_in + skips.pop(), chs[bi], res)
+            ch_in = chs[bi]
+            if cfg.transformer_depth[bi]:
+                transformer(ch_in, res, cfg.transformer_depth[bi])
+        if bi > 0:
+            res *= 2
+    norm(chs[0], res, "silu")  # conv_norm_out
+    return {"gn": gn, "gn_grad": gn_grad, "transformers": transformers}
+
+
+def path_shapes(cfg, batch: int, hw: int) -> dict:
+    """Each kernel's shapes in one UNet call, as Counters of shape ->
+    launches: "flash" (B*H, T, D) of the self-attentions that take the flash
+    kernel, "ln" (rows, C), "geglu" (B, T, 2F), "hada" (O, I) of the
+    attn-mlp adapted layers, "gn"/"gn_grad" (C, S, act); "factored" counts
+    the LoKr layers whose harmonic dimension takes the factored backward."""
+    from lycoris_tpu_torch.functional.merged import worth_factoring
+    from lycoris_tpu_torch.ops.attention import use_flash
+
+    census = unet_census(cfg, batch, hw)
+    flash, ln, geglu, hada = Counter(), Counter(), Counter(), Counter()
+    factored = 0
+    for ch, t, depth in census["transformers"]:
+        heads = ch // cfg.head_dim if cfg.head_dim else cfg.num_heads
+        if use_flash(t, t, ch // heads):
+            flash[(batch * heads, t, ch // heads)] += depth
+        ln[(batch * t, ch)] += 3 * depth
+        geglu[(batch, t, 8 * ch)] += depth
+        hada[(ch, ch)] += 2  # proj_in, proj_out (1x1 convs)
+        # attn1 q/k/v/out and attn2 q/out; attn2 k/v from the context; ff net_0, net_2
+        for shape, n in (((ch, ch), 6 * depth), ((ch, cfg.context_dim), 2 * depth),
+                         ((8 * ch, ch), depth), ((ch, 4 * ch), depth)):
+            hada[shape] += n
+            factored += n if worth_factoring(*shape) else 0
+    return {"gn": census["gn"], "gn_grad": census["gn_grad"], "flash": flash, "ln": ln,
+            "geglu": geglu, "hada": hada, "factored": factored}
+
+
+def want_counts(shapes: dict, algo: str, train: bool, remat: bool) -> dict:
+    """Launches of every kernel, and factored layer applications, per UNet
+    call (serving, no gradient) or per train step. With ``remat`` (the
+    Transformer2DModels checkpointed) the backward runs each
+    Transformer2DModel's forward again: its flash, LayerNorm and hada
+    forwards, its factored layers and its GroupNorm (the act-free one) run
+    twice per step."""
+    def tot(key):
+        return sum(shapes[key].values())
+
+    again = 2 if train and remat else 1
+    loha = algo == "loha"
+    gn_in_transformers = sum(n for (_, _, act), n in shapes["gn"].items() if act is None)
+    return {
+        "flash_fwd": again * tot("flash"), "layer_norm_fwd": again * tot("ln"),
+        "hada_fwd": again * tot("hada") if loha else 0,
+        "group_norm_fwd": tot("gn") + (again - 1) * gn_in_transformers,
+        "flash_bwd": tot("flash") if train else 0, "layer_norm_bwd": tot("ln") if train else 0,
+        "hada_bwd": tot("hada") if train and loha else 0,
+        "group_norm_bwd": tot("gn_grad") if train else 0,
+        "geglu_bwd": tot("geglu") if train else 0,
+        "factored": again * shapes["factored"] if train and not loha else 0,
+    }
+
+
+# SD1.5 (sd15_config), per UNet call: 16 Transformer2DModels of depth 1 (5 at
+# 320 with T4096, 5 at 640 with T1024, 5 at 1280 with T256, the mid at T64):
+# flash 10 (the T256/T64 levels take the plain path), LayerNorm 48, GEGLU 16,
+# adapted layers 16 x 12 = 192, factored LoKr layers 6 x 2 = 12 (the 1280 ff
+# pair); GroupNorm 22 resnets x 2 + 16 transformer norms + conv_norm_out =
+# 61, of which the first 3 (down 0's first resnet, its transformer's norm)
+# come before any adapted layer and get no gradient: 58 backward.
+#
+# SDXL (sdxl_config), per UNet call:
+# - Transformer2DModels: 2 at 640 (down 1, depth 2) + 2 at 1280 (down 2,
+#   depth 10) + the mid (1280, depth 10) + 3 at 1280 (up 0, depth 10) + 3 at
+#   640 (up 1, depth 2) = 11, holding 2*2 + 2*10 + 10 + 3*10 + 3*2 = 70
+#   BasicTransformerBlocks (10 at 640, 60 at 1280);
+# - flash: one self-attention per block, 70 (10 at T4096 with 10 heads, 60
+#   at T1024 with 20 heads, D64); LayerNorm 3 per block, 210; GEGLU 70;
+# - GroupNorm: 17 resnets (6 down, 2 mid, 9 up) x 2 + 11 transformer norms +
+#   conv_norm_out = 46; a gradient reaches all but the 7 before the first
+#   adapted layer (down 0's two resnets, down 1's first resnet and its
+#   transformer's norm): 39;
+# - adapted layers: 70 blocks x 10 (attn1 q/k/v/out, attn2 q/k/v/out, ff
+#   net_0 and net_2) + 11 x 2 (proj_in, proj_out) = 722;
+# - factored LoKr layers: the ff pair at 1280, harmonic dimensions
+#   10240*1280/11520 = 1137 and 1280*5120/6400 = 1024 reach the threshold of
+#   1024 (640's pair, 568 and 512, and 1280's attention, 640 and 787, do
+#   not): 60 x 2 = 120.
+# A train step with remat="transformer" runs each Transformer2DModel forward
+# twice: flash fwd 2 x 70 = 140, LayerNorm fwd 2 x 210 = 420, hada fwd 2 x 722
+# = 1444, factored 2 x 120 = 240, GroupNorm fwd 46 + 11 = 57; and each
+# backward once: flash 70, LayerNorm 210, hada 722, GroupNorm 39, GEGLU 70.
+SD15_CALL = {"flash_fwd": 10, "layer_norm_fwd": 48, "group_norm_fwd": 61}
+SD15_STEP = {"flash_fwd": 10, "layer_norm_fwd": 48, "group_norm_fwd": 61, "flash_bwd": 10,
+             "layer_norm_bwd": 48, "group_norm_bwd": 58, "geglu_bwd": 16}
+SDXL_STEP = {"flash_fwd": 140, "layer_norm_fwd": 420, "group_norm_fwd": 57, "flash_bwd": 70,
+             "layer_norm_bwd": 210, "group_norm_bwd": 39, "geglu_bwd": 70}
+SD15_ADAPTED, SD15_FACTORED = 192, 12
+SDXL_ADAPTED, SDXL_FACTORED = 722, 120
+
+
+def hand_counts(base: dict, adapted: int, factored: int, algo: str, train: bool,
+                again: int) -> dict:
+    """The launch counts above for one algorithm (hada for LoHa, factored
+    layers for LoKr when training)."""
+    loha = algo == "loha"
+    out = {name: base.get(name, 0) for name in KERNELS}
+    out["hada_fwd"] = again * adapted if loha else 0
+    out["hada_bwd"] = adapted if train and loha else 0
+    out["factored"] = again * factored if train and not loha else 0
     return out
+
+
+def checked_counts(cfg, batch, hw, algo, train, remat, base, adapted, factored) -> dict:
+    """The census's launch counts, failed unless they equal the hand count."""
+    got = want_counts(path_shapes(cfg, batch, hw), algo, train, remat)
+    want = hand_counts(base, adapted, factored, algo, train, 2 if train and remat else 1)
+    if got != want:
+        fail(f"the UNet census gives {got}, the hand count {want}")
+    return got
+
+
+# ---------------------------------------------------------------------------
+# phases 2-3: every kernel against its plain version
+# ---------------------------------------------------------------------------
 
 
 def compare(dtype, got, want):
@@ -215,30 +407,47 @@ def compare_all(dtype, gots, wants):
             max(s[3] for s in stats), worst[4], stats[0][5])
 
 
-def record(results, name, ok, mse, mx, rel, scale, dt, shape_s, ms, host_ms, plain_ms,
-           per_call, bnd, lib_ms=None):
-    """Log one kernel check and add its times, weighted by its launches per
-    UNet call or train step (``per_call``; 0 for a check off the path), to
-    the kernel's row. ``ms``, ``plain_ms`` and ``lib_ms`` are device times
-    (:func:`graph_ms`), ``host_ms`` the wrapper's back-to-back host-clocked
-    time (:func:`time_ms`); ``bnd`` is (bound ms, bound_by) of one launch."""
-    lib_s = "" if lib_ms is None else f" library {lib_ms:.4f} ms"
-    log(f"[kernels] {name} {dt} {shape_s}: mse {mse:.3e} rel_l2 {rel:.3e} "
-        f"max_abs {mx:.3e} (max|ref| {scale:.3e}) kernel {ms:.4f} ms (host-clocked "
-        f"{host_ms:.4f} ms) plain {plain_ms:.4f} ms{lib_s} bound {bnd[0]:.4f} ms ({bnd[1]})")
+def new_results() -> dict:
+    def acc():
+        return {"ms": 0.0, "host_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                "bound_parts": {}, "library_ms": None}
+
+    return {name: {"launches": 0, "max_abs_err": 0.0, "sd15": acc(), "sdxl": acc()}
+            for name in KERNELS}
+
+
+def record(results, name, path, stats, shape_s, times=None, per_call=0):
+    """Log one kernel check (``stats`` from :func:`compare`) and fail if it
+    is over a bound. ``times`` = (kernel ms, host ms, plain ms, library ms or
+    None, (bound ms, bound_by)) of one launch: ms, plain and library are
+    device times (:func:`graph_ms`), host the wrapper's back-to-back
+    host-clocked time (:func:`time_ms`). They are added to the kernel's row
+    for ``path``, weighted by ``per_call``, the shape's launches per UNet
+    call or train step on that path."""
+    ok, mse, mx, rel, scale, dt = stats
+    msg = (f"[kernels] {name} {path} {dt} {shape_s}: mse {mse:.3e} rel_l2 {rel:.3e} "
+           f"max_abs {mx:.3e} (max|ref| {scale:.3e})")
+    if times is not None:
+        ms, host, plain, lib, bnd = times
+        lib_s = "" if lib is None else f" library {lib:.4f} ms"
+        msg += (f" kernel {ms:.4f} ms (host-clocked {host:.4f} ms) plain {plain:.4f} ms"
+                f"{lib_s} bound {bnd[0]:.4f} ms ({bnd[1]}) x {per_call} per call/step")
+    log(msg)
     if not ok:
         fail(f"{name} {dt} {shape_s}: mse {mse:.3e} / rel_l2 {rel:.3e} / "
              f"max_abs {mx:.3e} of max|ref| {scale:.3e} over bound")
     r = results[name]
     r["max_abs_err"] = max(r["max_abs_err"], mx)
-    if per_call:
-        r["ms"] += ms * per_call
-        r["host_ms"] += host_ms * per_call
-        r["plain_ms"] += plain_ms * per_call
-        r["bound_ms"] += bnd[0] * per_call
-        r["bound_parts"][bnd[1]] = r["bound_parts"].get(bnd[1], 0.0) + bnd[0] * per_call
-        if lib_ms is not None:
-            r["library_ms"] = (r["library_ms"] or 0.0) + lib_ms * per_call
+    if times is None or not per_call:
+        return
+    a = r[path]
+    a["ms"] += ms * per_call
+    a["host_ms"] += host * per_call
+    a["plain_ms"] += plain * per_call
+    a["bound_ms"] += bnd[0] * per_call
+    a["bound_parts"][bnd[1]] = a["bound_parts"].get(bnd[1], 0.0) + bnd[0] * per_call
+    if lib is not None:
+        a["library_ms"] = (a["library_ms"] or 0.0) + lib * per_call
 
 
 def _rnd(gen, dev):
@@ -248,83 +457,6 @@ def _rnd(gen, dev):
         return (torch.randn(shape, generator=gen, device=dev) * std).to(dtype)
 
     return rnd
-
-
-def phase_kernels(results: dict):
-    import torch
-    import torch.nn.functional as F
-    from lycoris_tpu_torch.ops import flash, hada, layer_norm
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(0)
-    rnd = _rnd(gen, dev)
-
-    # flash: B*H = 32 (UNet batch 4 x 8 heads) at the two flash levels
-    for (t, d, per_call) in ((4096, 40, 5), (1024, 80, 5)):
-        for dtype in (torch.bfloat16, torch.float32):
-            q, k, v = (rnd((UNET_BATCH, 8, t, d), dtype) for _ in range(3))
-            sm = 1.0 / d**0.5
-            with torch.no_grad():
-                o, lse = flash.flash_attention(q, k, v, sm)
-                o_ref, lse_ref = flash.flash_attention_plain(q, k, v, sm)
-            torch.cuda.synchronize()
-            ok, mse, mx, rel, scale, dt = compare(dtype, o, o_ref)
-            lse_err = float((lse - lse_ref).abs().max())
-            ok = ok and lse_err <= 1e-3
-            log(f"[kernels] flash_fwd {dt} lse max_abs {lse_err:.3e}")
-            iters = 10 if t == 4096 else 30
-            ms = graph_ms(lambda: flash.flash_attention(q, k, v, sm), iters)
-            host = time_ms(lambda: flash.flash_attention(q, k, v, sm), iters)
-            pms = graph_ms(lambda: flash.flash_attention_plain(q, k, v, sm), iters)
-            lib = None
-            if dtype == torch.bfloat16:
-                with torch.no_grad():
-                    lib = graph_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=sm),
-                                   iters)
-            bh = UNET_BATCH * 8
-            bnd = bound(4.0 * bh * t * t * d, 4 * bh * t * d * q.element_size() + 4 * bh * t, dt)
-            record(results, "flash_fwd", ok, mse, mx, rel, scale, dt, f"(32,{t},{d})", ms, host,
-                   pms, per_call if dtype == torch.bfloat16 else 0, bnd, lib)
-
-    # LayerNorm: rows = UNet batch x tokens, per UNet call 15 + 15 + 15 + 3
-    for (t, c, per_call) in ((4096, 320, 15), (1024, 640, 15), (256, 1280, 15), (64, 1280, 3)):
-        for dtype in (torch.bfloat16, torch.float32):
-            x = rnd((UNET_BATCH * t, c), dtype, 2.0) + 0.5
-            w = rnd((c,), dtype, 0.5) + 1.0
-            b = rnd((c,), dtype, 0.5)
-            y = layer_norm.layer_norm(x, w, b, 1e-5)
-            y_ref = layer_norm.layer_norm_plain(x, w, b, 1e-5)
-            torch.cuda.synchronize()
-            ok, mse, mx, rel, scale, dt = compare(dtype, y, y_ref)
-            ms = graph_ms(lambda: layer_norm.layer_norm(x, w, b, 1e-5), 100)
-            host = time_ms(lambda: layer_norm.layer_norm(x, w, b, 1e-5), 100)
-            pms = graph_ms(lambda: layer_norm.layer_norm_plain(x, w, b, 1e-5), 100)
-            lib = graph_ms(lambda: F.layer_norm(x, (c,), w, b, 1e-5), 100)
-            n = x.numel()
-            bnd = bound(8.0 * n, 2 * n * x.element_size() + 2 * c * x.element_size(), dt)
-            record(results, "layer_norm_fwd", ok, mse, mx, rel, scale, dt,
-                   f"({UNET_BATCH * t},{c})", ms, host, pms,
-                   per_call if dtype == torch.bfloat16 else 0, bnd, lib)
-
-    # LoHa dW: rank 8, adapter params fp32 on the path (bf16 checked too)
-    for (o_, i_, per_call) in _hada_shapes():
-        for dtype in (torch.float32, torch.bfloat16):
-            w1d, w2d = rnd((8, i_), dtype), rnd((8, i_), dtype)
-            w1u, w2u = rnd((o_, 8), dtype, 0.1), rnd((o_, 8), dtype, 0.1)
-            out = hada.hada_weight(w1d, w1u, w2d, w2u, 0.5)
-            ref = hada.hada_weight_plain(w1d, w1u, w2d, w2u, 0.5)
-            torch.cuda.synchronize()
-            ok, mse, mx, rel, scale, dt = compare(dtype, out, ref)
-            ms = graph_ms(lambda: hada.hada_weight(w1d, w1u, w2d, w2u, 0.5), 100)
-            host = time_ms(lambda: hada.hada_weight(w1d, w1u, w2d, w2u, 0.5), 100)
-            pms = graph_ms(lambda: hada.hada_weight_plain(w1d, w1u, w2d, w2u, 0.5), 100)
-            es = w1d.element_size()
-            bnd = bound(2.0 * o_ * i_ * (2 * 8 + 2),
-                        (o_ * i_ + 2 * 8 * (o_ + i_)) * es, "float32")
-            record(results, "hada_fwd", ok, mse, mx, rel, scale, dt, f"({o_},{i_})", ms, host,
-                   pms, per_call if dtype == torch.float32 else 0, bnd)
 
 
 def _library_bwd_ms(fwd, inputs, dy, iters: int) -> float:
@@ -341,89 +473,319 @@ def _library_bwd_ms(fwd, inputs, dy, iters: int) -> float:
     return graph_ms(lambda: torch.autograd.grad(out, leaves, dy, retain_graph=True), iters)
 
 
-def phase_kernels_bwd(results: dict):
-    """Each backward kernel against its plain version at the training path's
-    shapes (batch 8), bf16 and fp32, with per-step times (bf16 flash and
-    LayerNorm, fp32 hada, weighted by launches per train step)."""
-    import torch
-    import torch.nn.functional as F
-    from lycoris_tpu_torch.ops import flash, hada, layer_norm
+def _times(kernel, plain, it, bnd, lib=None, plain_iters=None, plain_replays=3):
+    """(kernel, host, plain, library, bound) ms of one launch, each timing
+    over ``it`` calls; ``lib`` is a callable of ``it`` returning the
+    library's device ms, or None."""
+    return (graph_ms(kernel, it), time_ms(kernel, it),
+            graph_ms(plain, plain_iters or it, replays=plain_replays),
+            None if lib is None else lib(it), bnd)
 
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(1)
-    rnd = _rnd(gen, dev)
 
-    # flash: B*H = 64 (batch 8 x 8 heads), 5 + 5 launches per step
-    for (t, d, per_step) in ((4096, 40, 5), (1024, 80, 5)):
-        for dtype in (torch.bfloat16, torch.float32):
-            q, k, v, do = (rnd((TRAIN_BATCH, 8, t, d), dtype) for _ in range(4))
-            sm = 1.0 / d**0.5
+class Checks:
+    """Each kernel against its plain version on seeded inputs at one shape;
+    ``timed`` (the path's dtype) adds the timings of :func:`_times`."""
+
+    def __init__(self, results, seed):
+        import torch
+
+        self.results = results
+        self.dev = torch.device("cuda")
+        self.rnd = _rnd(torch.Generator(device=self.dev).manual_seed(seed), self.dev)
+
+    def flash_fwd(self, path, bh, t, d, dtype, per_call, timed):
+        import torch
+        import torch.nn.functional as F
+        from lycoris_tpu_torch.ops import flash
+
+        b = UNET_BATCH if path == "sd15" else SDXL_BATCH
+        q, k, v = (self.rnd((b, bh // b, t, d), dtype) for _ in range(3))
+        sm = 1.0 / d**0.5
+        with torch.no_grad():
+            o, lse = flash.flash_attention(q, k, v, sm)
+            o_ref, lse_ref = flash.flash_attention_plain(q, k, v, sm)
+        torch.cuda.synchronize()
+        ok, *stats = compare(dtype, o, o_ref)
+        lse_err = float((lse - lse_ref).abs().max())
+        log(f"[kernels] flash_fwd {path} lse max_abs {lse_err:.3e} (bound 1e-3)")
+        times = None
+        if timed:
+            es = q.element_size()
+            nbytes = 4 * bh * t * d * es + 4 * bh * t
             with torch.no_grad():
-                o, lse = flash.flash_fwd(q, k, v, sm)
-                got = flash.flash_bwd(q, k, v, o, lse, do, sm)
-                want = flash.flash_attention_bwd_plain(q, k, v, o, lse, do, sm)
-                torch.cuda.synchronize()
-                stats = compare_all(dtype, got, want)
-                del got, want
-                iters = 5 if t == 4096 else 20
-                ms = graph_ms(lambda: flash.flash_bwd(q, k, v, o, lse, do, sm), iters)
-                host = time_ms(lambda: flash.flash_bwd(q, k, v, o, lse, do, sm), iters)
-                pms = graph_ms(lambda: flash.flash_attention_bwd_plain(q, k, v, o, lse, do, sm),
-                               3 if t == 4096 else 10, replays=1)
-            lib = None
-            if dtype == torch.bfloat16:
-                lib = _library_bwd_ms(lambda *xs: F.scaled_dot_product_attention(*xs, scale=sm),
-                                      (q, k, v), do, iters)
-            bh, es = TRAIN_BATCH * 8, q.element_size()
+                times = _times(
+                    lambda: flash.flash_attention(q, k, v, sm),
+                    lambda: flash.flash_attention_plain(q, k, v, sm), 10 if t >= 4096 else 30,
+                    bound(4.0 * bh * t * t * d, nbytes, str(dtype)[6:]),
+                    lambda it: graph_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=sm),
+                                        it))
+        record(self.results, "flash_fwd", path, (ok and lse_err <= 1e-3, *stats),
+               f"({bh},{t},{d})", times, per_call)
+
+    def layer_norm_fwd(self, path, rows, c, dtype, per_call, timed):
+        import torch
+        import torch.nn.functional as F
+        from lycoris_tpu_torch.ops import layer_norm
+
+        x = self.rnd((rows, c), dtype, 2.0) + 0.5
+        w = self.rnd((c,), dtype, 0.5) + 1.0
+        b = self.rnd((c,), dtype, 0.5)
+        y = layer_norm.layer_norm(x, w, b, 1e-5)
+        y_ref = layer_norm.layer_norm_plain(x, w, b, 1e-5)
+        torch.cuda.synchronize()
+        times = None
+        if timed:
+            n, es = x.numel(), x.element_size()
+            nbytes = 2 * n * es + 2 * c * es
+            times = _times(lambda: layer_norm.layer_norm(x, w, b, 1e-5),
+                           lambda: layer_norm.layer_norm_plain(x, w, b, 1e-5), iters_for(nbytes),
+                           bound(8.0 * n, nbytes, str(dtype)[6:]),
+                           lambda it: graph_ms(lambda: F.layer_norm(x, (c,), w, b, 1e-5), it))
+        record(self.results, "layer_norm_fwd", path, compare(dtype, y, y_ref), f"({rows},{c})",
+               times, per_call)
+
+    def hada_fwd(self, path, o_, i_, dtype, per_call, timed):
+        import torch
+        from lycoris_tpu_torch.ops import hada
+
+        w1d, w2d = self.rnd((8, i_), dtype), self.rnd((8, i_), dtype)
+        w1u, w2u = self.rnd((o_, 8), dtype, 0.1), self.rnd((o_, 8), dtype, 0.1)
+        out = hada.hada_weight(w1d, w1u, w2d, w2u, 0.5)
+        ref = hada.hada_weight_plain(w1d, w1u, w2d, w2u, 0.5)
+        torch.cuda.synchronize()
+        times = None
+        if timed:
+            nbytes = (o_ * i_ + 2 * 8 * (o_ + i_)) * w1d.element_size()
+            times = _times(lambda: hada.hada_weight(w1d, w1u, w2d, w2u, 0.5),
+                           lambda: hada.hada_weight_plain(w1d, w1u, w2d, w2u, 0.5),
+                           iters_for(nbytes),
+                           bound(2.0 * o_ * i_ * (2 * 8 + 2), nbytes, "float32"))
+        record(self.results, "hada_fwd", path, compare(dtype, out, ref), f"({o_},{i_})", times,
+               per_call)
+
+    def group_norm_fwd(self, path, n, c, s, act, dtype, per_call, timed):
+        import torch
+        import torch.nn.functional as F
+        from lycoris_tpu_torch.ops import group_norm as gn
+
+        hw = math.isqrt(s)
+        eps = 1e-5 if act else 1e-6
+        x = self.rnd((n, c, hw, hw), dtype, 2.0) + 0.5
+        w = self.rnd((c,), dtype, 0.5) + 1.0
+        b = self.rnd((c,), dtype, 0.5)
+        y, _, _ = gn.group_norm_fwd(x, 32, w, b, eps, act)
+        y_ref = gn.group_norm_plain(x, 32, w, b, eps, act)
+        torch.cuda.synchronize()
+        times = None
+        if timed:
+            e, es = x.numel(), x.element_size()
+            nbytes = 2 * e * es + 2 * c * es
+
+            def lib_fwd():
+                z = F.group_norm(x, 32, w, b, eps)
+                return F.silu(z) if act else z
+
+            times = _times(lambda: gn.group_norm_fwd(x, 32, w, b, eps, act),
+                           lambda: gn.group_norm_plain(x, 32, w, b, eps, act), iters_for(nbytes),
+                           bound((10.0 if act else 5.0) * e, nbytes, "float32"),
+                           lambda it: graph_ms(lib_fwd, it))
+        record(self.results, "group_norm_fwd", path, compare(dtype, y, y_ref),
+               f"({n},{c},{hw},{hw}) act={act}", times, per_call)
+
+    def flash_bwd(self, path, bh, t, d, dtype, per_call, timed):
+        import torch
+        import torch.nn.functional as F
+        from lycoris_tpu_torch.ops import flash
+
+        b = TRAIN_BATCH if path == "sd15" else SDXL_BATCH
+        q, k, v, do = (self.rnd((b, bh // b, t, d), dtype) for _ in range(4))
+        sm = 1.0 / d**0.5
+        o, lse = flash.flash_fwd(q, k, v, sm)
+        got = flash.flash_bwd(q, k, v, o, lse, do, sm)
+        want = flash.flash_attention_bwd_plain(q, k, v, o, lse, do, sm)
+        torch.cuda.synchronize()
+        stats = compare_all(dtype, got, want)
+        del got, want
+        times = None
+        if timed:
+            es = q.element_size()
             # five matmuls (S, dP, dV, dK, dQ) of 2*T*T*D each per head; q, k,
             # v, o, dO, lse, di read and dq, dk, dv written once
-            bnd = bound(10.0 * bh * t * t * d, 8 * bh * t * d * es + 8 * bh * t, str(dtype)[6:])
-            record(results, "flash_bwd", *stats, f"({bh},{t},{d})", ms, host, pms,
-                   per_step if dtype == torch.bfloat16 else 0, bnd, lib)
+            nbytes = 8 * bh * t * d * es + 8 * bh * t
+            times = _times(
+                lambda: flash.flash_bwd(q, k, v, o, lse, do, sm),
+                lambda: flash.flash_attention_bwd_plain(q, k, v, o, lse, do, sm),
+                5 if t >= 4096 else 20, bound(10.0 * bh * t * t * d, nbytes, str(dtype)[6:]),
+                lambda it: _library_bwd_ms(
+                    lambda *xs: F.scaled_dot_product_attention(*xs, scale=sm), (q, k, v), do, it),
+                plain_iters=3 if t >= 4096 else 10, plain_replays=1)
+        record(self.results, "flash_bwd", path, stats, f"({bh},{t},{d})", times, per_call)
 
-    # LayerNorm: rows = batch 8 x tokens, 15 + 15 + 15 + 3 launches per step;
-    # the path needs dx only (frozen weights), dw/db are checked as well
-    for (t, c, per_step) in ((4096, 320, 15), (1024, 640, 15), (256, 1280, 15), (64, 1280, 3)):
-        for dtype in (torch.bfloat16, torch.float32):
-            x = rnd((TRAIN_BATCH * t, c), dtype, 2.0) + 0.5
-            w = rnd((c,), dtype, 0.5) + 1.0
-            dy = rnd((TRAIN_BATCH * t, c), dtype)
-            got = layer_norm.layer_norm_bwd(x, w, dy, 1e-5)
-            dx_only = layer_norm.layer_norm_bwd(x, w, dy, 1e-5, want_wb=False)[0]
-            want = layer_norm.layer_norm_bwd_plain(x, w, dy, 1e-5)
-            torch.cuda.synchronize()
-            stats = compare_all(dtype, (*got, dx_only), (*want, want[0]))
-            ms = graph_ms(lambda: layer_norm.layer_norm_bwd(x, w, dy, 1e-5, want_wb=False), 100)
-            host = time_ms(lambda: layer_norm.layer_norm_bwd(x, w, dy, 1e-5, want_wb=False), 100)
-            pms = graph_ms(lambda: layer_norm.layer_norm_bwd_plain(x, w, dy, 1e-5), 100)
-            b = rnd((c,), dtype, 0.5)
-            lib = _library_bwd_ms(lambda xl: F.layer_norm(xl, (c,), w, b, 1e-5), (x,), dy, 100)
+    def layer_norm_bwd(self, path, rows, c, dtype, per_call, timed):
+        import torch
+        import torch.nn.functional as F
+        from lycoris_tpu_torch.ops import layer_norm
+
+        x = self.rnd((rows, c), dtype, 2.0) + 0.5
+        w = self.rnd((c,), dtype, 0.5) + 1.0
+        dy = self.rnd((rows, c), dtype)
+        got = layer_norm.layer_norm_bwd(x, w, dy, 1e-5)
+        dx_only = layer_norm.layer_norm_bwd(x, w, dy, 1e-5, want_wb=False)[0]
+        want = layer_norm.layer_norm_bwd_plain(x, w, dy, 1e-5)
+        torch.cuda.synchronize()
+        times = None
+        if timed:
             n, es = x.numel(), x.element_size()
-            bnd = bound(12.0 * n, 3 * n * es + c * es, str(dtype)[6:])
-            record(results, "layer_norm_bwd", *stats, f"({TRAIN_BATCH * t},{c})", ms, host, pms,
-                   per_step if dtype == torch.bfloat16 else 0, bnd, lib)
+            nbytes = 3 * n * es + c * es
+            b = self.rnd((c,), dtype, 0.5)
+            # the path needs dx only (frozen weights): that call is timed
+            times = _times(lambda: layer_norm.layer_norm_bwd(x, w, dy, 1e-5, want_wb=False),
+                           lambda: layer_norm.layer_norm_bwd_plain(x, w, dy, 1e-5),
+                           iters_for(nbytes),
+                           bound(12.0 * n, nbytes, str(dtype)[6:]),
+                           lambda it: _library_bwd_ms(
+                               lambda xl: F.layer_norm(xl, (c,), w, b, 1e-5), (x,), dy, it))
+        record(self.results, "layer_norm_bwd", path,
+               compare_all(dtype, (*got, dx_only), (*want, want[0])), f"({rows},{c})", times,
+               per_call)
 
-    # LoHa: the fp32 cotangent of W + dW (bf16 checked too), rank 8, one
-    # launch per adapted layer per step
-    for (o_, i_, per_step) in _hada_shapes():
-        for dtype in (torch.float32, torch.bfloat16):
-            w1d, w2d = rnd((8, i_), dtype), rnd((8, i_), dtype)
-            w1u, w2u = rnd((o_, 8), dtype, 0.1), rnd((o_, 8), dtype, 0.1)
-            g = rnd((o_, i_), dtype, 1e-3)
-            got = hada.hada_bwd(w1d, w1u, w2d, w2u, 0.5, g)
-            want = hada.hada_weight_bwd_plain(w1d, w1u, w2d, w2u, 0.5, g)
-            torch.cuda.synchronize()
-            stats = compare_all(dtype, got, want)
-            ms = graph_ms(lambda: hada.hada_bwd(w1d, w1u, w2d, w2u, 0.5, g), 100)
-            host = time_ms(lambda: hada.hada_bwd(w1d, w1u, w2d, w2u, 0.5, g), 100)
-            pms = graph_ms(lambda: hada.hada_weight_bwd_plain(w1d, w1u, w2d, w2u, 0.5, g), 100)
-            es = g.element_size()
+    def hada_bwd(self, path, o_, i_, dtype, per_call, timed):
+        import torch
+        from lycoris_tpu_torch.ops import hada
+
+        w1d, w2d = self.rnd((8, i_), dtype), self.rnd((8, i_), dtype)
+        w1u, w2u = self.rnd((o_, 8), dtype, 0.1), self.rnd((o_, 8), dtype, 0.1)
+        g = self.rnd((o_, i_), dtype, 1e-3)
+        got = hada.hada_bwd(w1d, w1u, w2d, w2u, 0.5, g)
+        want = hada.hada_weight_bwd_plain(w1d, w1u, w2d, w2u, 0.5, g)
+        torch.cuda.synchronize()
+        times = None
+        if timed:
+            nbytes = (o_ * i_ + 4 * 8 * (o_ + i_)) * g.element_size()
             # per element of g, 6 R multiply-adds: R for each of the two
             # products and R for each of the four contractions; g and the
             # factors read, the four grads written
-            bnd = bound(2.0 * 6 * 8 * o_ * i_, (o_ * i_ + 4 * 8 * (o_ + i_)) * es, "float32")
-            record(results, "hada_bwd", *stats, f"({o_},{i_})", ms, host, pms,
-                   per_step if dtype == torch.float32 else 0, bnd)
+            times = _times(lambda: hada.hada_bwd(w1d, w1u, w2d, w2u, 0.5, g),
+                           lambda: hada.hada_weight_bwd_plain(w1d, w1u, w2d, w2u, 0.5, g),
+                           iters_for(nbytes), bound(2.0 * 6 * 8 * o_ * i_, nbytes, "float32"))
+        record(self.results, "hada_bwd", path, compare_all(dtype, got, want), f"({o_},{i_})",
+               times, per_call)
+
+    def group_norm_bwd(self, path, n, c, s, act, dtype, per_call, timed):
+        import torch
+        import torch.nn.functional as F
+        from lycoris_tpu_torch.ops import group_norm as gn
+
+        hw = math.isqrt(s)
+        eps = 1e-5 if act else 1e-6
+        x = self.rnd((n, c, hw, hw), dtype, 2.0) + 0.5
+        w = self.rnd((c,), dtype, 0.5) + 1.0
+        b = self.rnd((c,), dtype, 0.5)
+        dh = self.rnd((n, c, hw, hw), dtype)
+        _, mean, rstd = gn.group_norm_fwd(x, 32, w, b, eps, act)
+        got = gn.group_norm_bwd(x, dh, 32, w, b, mean, rstd, act)
+        dx_only = gn.group_norm_bwd(x, dh, 32, w, b, mean, rstd, act, want_wb=False)[0]
+        want = gn.group_norm_bwd_plain(x, dh, 32, w, b, eps, act)
+        torch.cuda.synchronize()
+        times = None
+        if timed:
+            e, es = x.numel(), x.element_size()
+            nbytes = 3 * e * es + 2 * c * es
+
+            def lib_fwd(xl):
+                z = F.group_norm(xl, 32, w, b, eps)
+                return F.silu(z) if act else z
+
+            # the path needs dx only (frozen gamma and beta): that call is timed
+            times = _times(
+                lambda: gn.group_norm_bwd(x, dh, 32, w, b, mean, rstd, act, want_wb=False),
+                lambda: gn.group_norm_bwd_plain(x, dh, 32, w, b, eps, act), iters_for(nbytes),
+                bound((30.0 if act else 12.0) * e, nbytes, "float32"),
+                lambda it: _library_bwd_ms(lib_fwd, (x,), dh, it))
+        record(self.results, "group_norm_bwd", path,
+               compare_all(dtype, (*got, dx_only), (*want, want[0])),
+               f"({n},{c},{hw},{hw}) act={act}", times, per_call)
+
+    def geglu_bwd(self, path, b, t, f2, dtype, per_call, timed):
+        import torch
+        from lycoris_tpu_torch.ops import geglu
+
+        h_full = self.rnd((b, t, f2), dtype, 2.0)
+        dy = self.rnd((b, t, f2 // 2), dtype)
+        got = geglu.geglu_bwd(h_full, dy)
+        want = geglu.geglu_bwd_plain(h_full, dy)
+        torch.cuda.synchronize()
+        times = None
+        if timed:
+            n = b * t * f2 // 2
+            nbytes = 5 * n * h_full.element_size()  # h, gate, dy read; two halves written
+            # no single PyTorch call computes this backward: library_ms stays None
+            times = _times(lambda: geglu.geglu_bwd(h_full, dy),
+                           lambda: geglu.geglu_bwd_plain(h_full, dy), iters_for(nbytes),
+                           bound(25.0 * n, nbytes, "float32"))
+        record(self.results, "geglu_bwd", path, compare(dtype, got, want), f"({b},{t},{f2})",
+               times, per_call)
+
+
+def _paths(train: bool):
+    """(path, shapes, activation dtypes, hada dtypes, per-step factor of the
+    transformer kernels' forwards) of the two paths: SD1.5 serving (b4) or
+    training (b8), and SDXL training (b4, 128x128, remat="transformer")."""
+    import torch
+    from lycoris_tpu_torch.models.unet import sd15_config, sdxl_config
+
+    both = (torch.bfloat16, torch.float32)
+    return (("sd15", path_shapes(sd15_config(), TRAIN_BATCH if train else UNET_BATCH, 64),
+             both, both[::-1], 1),
+            ("sdxl", path_shapes(sdxl_config(), SDXL_BATCH, SDXL_HW), both[:1], both[1:], 2))
+
+
+def phase_kernels(results: dict):
+    """Each forward kernel at the SD1.5 serving shapes (per UNet call) and the
+    SDXL training shapes (per train step: the transformers' forwards twice)."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ck = Checks(results, seed=0)
+    for path, sh, dts, hada_dts, again in _paths(train=False):
+        for (bh, t, d), n in sh["flash"].items():
+            for dt in dts:
+                ck.flash_fwd(path, bh, t, d, dt, n * again, dt == dts[0])
+        for (rows, c), n in sh["ln"].items():
+            for dt in dts:
+                ck.layer_norm_fwd(path, rows, c, dt, n * again, dt == dts[0])
+        for (o_, i_), n in sh["hada"].items():
+            for dt in hada_dts:
+                ck.hada_fwd(path, o_, i_, dt, n * again, dt == hada_dts[0])
+        b = UNET_BATCH if path == "sd15" else SDXL_BATCH
+        for (c, s, act), n in sh["gn"].items():
+            for dt in dts:
+                ck.group_norm_fwd(path, b, c, s, act, dt, n * (again if act is None else 1),
+                                  dt == dts[0])
+
+
+def phase_kernels_bwd(results: dict):
+    """Each backward kernel at the SD1.5 training shapes (batch 8) and the
+    SDXL training shapes (batch 4), per train step."""
+    ck = Checks(results, seed=1)
+    for path, sh, dts, hada_dts, _ in _paths(train=True):
+        for (bh, t, d), n in sh["flash"].items():
+            for dt in dts:
+                ck.flash_bwd(path, bh, t, d, dt, n, dt == dts[0])
+        for (rows, c), n in sh["ln"].items():
+            for dt in dts:
+                ck.layer_norm_bwd(path, rows, c, dt, n, dt == dts[0])
+        for (o_, i_), n in sh["hada"].items():
+            for dt in hada_dts:
+                ck.hada_bwd(path, o_, i_, dt, n, dt == hada_dts[0])
+        b = TRAIN_BATCH if path == "sd15" else SDXL_BATCH
+        for (c, s, act), n in sh["gn_grad"].items():
+            for dt in dts:
+                ck.group_norm_bwd(path, b, c, s, act, dt, n, dt == dts[0])
+        for (bb, t, f2), n in sh["geglu"].items():
+            for dt in dts:
+                ck.geglu_bwd(path, bb, t, f2, dt, n, dt == dts[0])
 
 
 KERNELS = {
@@ -457,22 +819,37 @@ KERNELS = {
         "source": "lycoris_tpu_torch/csrc/hada_bwd.cu",
         "replaces": "lycoris_tpu/ops/hada.py:188",
     },
+    "group_norm_fwd": {
+        "route": "cuda",
+        "source": "lycoris_tpu_torch/csrc/gn_fwd.cu",
+        "replaces": "lycoris_tpu/ops/group_norm_v2.py:125",
+    },
+    "group_norm_bwd": {
+        "route": "cuda",
+        "source": "lycoris_tpu_torch/csrc/gn_bwd.cu",
+        "replaces": "lycoris_tpu/ops/group_norm_v2.py:125",
+    },
+    "geglu_bwd": {
+        "route": "cuda",
+        "source": "lycoris_tpu_torch/csrc/geglu_bwd.cu",
+        "replaces": "lycoris_tpu/ops/geglu.py:58",
+    },
 }
 
 # ---------------------------------------------------------------------------
-# phases 3-5: the serving path
+# phases 4-6: the serving path
 # ---------------------------------------------------------------------------
 
 ADAPTER_FILL_STD = 0.02  # seeded values added to every trainable factor
 
 
-def build_unet(device, dtype, seed):
+def build_unet(device, dtype, seed, config="sd15", remat=False):
     import torch
-    from lycoris_tpu_torch.models.unet import UNet2DConditionModel, sd15_config
+    from lycoris_tpu_torch.models.unet import UNet2DConditionModel, sd15_config, sdxl_config
 
+    cfg = (sd15_config if config == "sd15" else sdxl_config)(dtype, remat=remat)
     gen = torch.Generator(device=device).manual_seed(seed)
-    model = UNet2DConditionModel(sd15_config(dtype), device=device, param_dtype=dtype,
-                                 generator=gen)
+    model = UNet2DConditionModel(cfg, device=device, param_dtype=dtype, generator=gen)
     return model.eval()
 
 
@@ -498,22 +875,31 @@ def adapter_state_dict(model, algo: str, device, seed: int) -> dict:
 
 def reset_counts():
     from lycoris_tpu_torch.functional import merged
-    from lycoris_tpu_torch.ops import flash, hada, layer_norm
+    from lycoris_tpu_torch.ops import flash, geglu, group_norm, hada, layer_norm
 
-    flash.launches = layer_norm.launches = hada.launches = 0
+    flash.launches = layer_norm.launches = hada.launches = group_norm.launches = 0
     flash.bwd_launches = layer_norm.bwd_launches = hada.bwd_launches = 0
+    group_norm.bwd_launches = geglu.bwd_launches = group_norm.copies = 0
     merged.applications = 0
 
 
 def read_counts() -> dict:
     """Launches of every kernel, and factored layer applications."""
     from lycoris_tpu_torch.functional import merged
-    from lycoris_tpu_torch.ops import flash, hada, layer_norm
+    from lycoris_tpu_torch.ops import flash, geglu, group_norm, hada, layer_norm
 
     return {"flash_fwd": flash.launches, "layer_norm_fwd": layer_norm.launches,
-            "hada_fwd": hada.launches, "flash_bwd": flash.bwd_launches,
-            "layer_norm_bwd": layer_norm.bwd_launches, "hada_bwd": hada.bwd_launches,
-            "factored": merged.applications}
+            "hada_fwd": hada.launches, "group_norm_fwd": group_norm.launches,
+            "flash_bwd": flash.bwd_launches, "layer_norm_bwd": layer_norm.bwd_launches,
+            "hada_bwd": hada.bwd_launches, "group_norm_bwd": group_norm.bwd_launches,
+            "geglu_bwd": geglu.bwd_launches, "factored": merged.applications}
+
+
+def gn_copies() -> int:
+    """GroupNorm inputs the wrappers had to make contiguous since the last reset."""
+    from lycoris_tpu_torch.ops import group_norm
+
+    return group_norm.copies
 
 
 def rel_l2(a, b) -> float:
@@ -527,6 +913,7 @@ def serve(model, algo, sd, requests, steps, results, card):
     check launch counts, finiteness, and live == merge_to."""
     import torch
     from lycoris_tpu_torch import create_lycoris_from_weights
+    from lycoris_tpu_torch.models.unet import sd15_config
     from lycoris_tpu_torch.sampler import make_ddim_sampler
 
     dev = torch.device("cuda")
@@ -534,8 +921,8 @@ def serve(model, algo, sd, requests, steps, results, card):
     net, _ = create_lycoris_from_weights(1.0, None, model, weights_sd=sd)
     net.to(dev)
     n_mod = len(net.loras)
-    if n_mod != 192:
-        fail(f"{tag} {n_mod} adapter modules, want 192 (16 transformers x 12 layers)")
+    if n_mod != SD15_ADAPTED:
+        fail(f"{tag} {n_mod} adapter modules, want {SD15_ADAPTED} (16 transformers x 12 layers)")
     net.apply_to(merged_forward=True)
     sampler = make_ddim_sampler(lambda x, t, c: model(x, t, c), num_inference_steps=steps,
                                 guidance_scale=7.5)
@@ -546,6 +933,8 @@ def serve(model, algo, sd, requests, steps, results, card):
          torch.randn(2, 77, 768, generator=gen, device=dev).to(torch.bfloat16))
         for _ in range(requests)
     ]
+    per_call = checked_counts(sd15_config(), UNET_BATCH, 64, algo, False, False, SD15_CALL,
+                              SD15_ADAPTED, SD15_FACTORED)
     torch.cuda.synchronize()
     reset_counts()
     outs, secs = [], []
@@ -557,15 +946,11 @@ def serve(model, algo, sd, requests, steps, results, card):
         outs.append(out)
     counts = read_counts()
     calls = requests * steps
-    want = {"flash_fwd": 10 * calls, "layer_norm_fwd": 48 * calls,
-            "hada_fwd": (n_mod * calls) if algo == "loha" else 0, "flash_bwd": 0,
-            "layer_norm_bwd": 0, "hada_bwd": 0, "factored": 0}
-    log(f"{tag} launches {counts} over {calls} UNet calls (want {want})")
+    want = {k: v * calls for k, v in per_call.items()}
+    log(f"{tag} launches {counts} over {calls} UNet calls (want {want}); GroupNorm input "
+        f"copies {gn_copies()}")
     if counts != want:
         fail(f"{tag} launch counts {counts} != {want}")
-    for name in KERNELS:  # each kernel's count from the first leg that runs it
-        if want.get(name) and not results[name]["launches"]:
-            results[name]["launches"] = counts[name]
     for o in outs:
         if o.shape != (2, 4, 64, 64) or not bool(torch.isfinite(o.float()).all()):
             fail(f"{tag} output not finite / wrong shape {tuple(o.shape)}")
@@ -597,12 +982,23 @@ def serve(model, algo, sd, requests, steps, results, card):
     return net
 
 
+def cpu_copy(model, cfg):
+    """The port's UNet on the CPU in fp32 with ``model``'s weights."""
+    import torch
+    from lycoris_tpu_torch.models.unet import UNet2DConditionModel
+
+    cpu = UNet2DConditionModel(cfg, device="meta")
+    cpu.load_state_dict({k: v.cpu().float() for k, v in model.state_dict().items()},
+                        assign=True)
+    return cpu.eval()
+
+
 def phase_e2e(model, sd):
     """One UNet call at full width (batch 1, 64x64, LoKr live): the card
     (bf16, kernels) against the port on the CPU (fp32, plain versions)."""
     import torch
     from lycoris_tpu_torch import create_lycoris_from_weights
-    from lycoris_tpu_torch.models.unet import UNet2DConditionModel, sd15_config
+    from lycoris_tpu_torch.models.unet import sd15_config
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(11)
@@ -616,9 +1012,7 @@ def phase_e2e(model, sd):
         got = model(x, t, ctx).float().cpu()
     net.restore()
 
-    cpu = UNet2DConditionModel(sd15_config(torch.float32), device="meta")
-    cpu.load_state_dict({k: v.float().cpu() for k, v in model.state_dict().items()}, assign=True)
-    cpu.eval()
+    cpu = cpu_copy(model, sd15_config(torch.float32))
     net_cpu, _ = create_lycoris_from_weights(
         1.0, None, cpu, weights_sd={k: v.float().cpu() for k, v in sd.items()})
     net_cpu.apply_to(merged_forward=True)
@@ -635,36 +1029,29 @@ def phase_e2e(model, sd):
 
 
 # ---------------------------------------------------------------------------
-# phases 7-9: the training path
+# phases 7-12: the training paths
 # ---------------------------------------------------------------------------
 
 
-def train(model, algo, sd, steps, results, card):
+def train(model, algo, sd, batch, want, steps, results, card, tag, main_path):
     """``steps`` AdamW steps of ``DiffusionTrainer`` on the adapter in ``sd``
-    at batch 8 (the first a warm-up); per step: launches of every kernel and
-    factored layer, finite loss; then every adapter parameter changed and the
-    base weights bit-identical."""
+    (the first a warm-up); per step: launches of every kernel and factored
+    layer (``want``), finite loss; then every adapter parameter changed and
+    the base weights bit-identical. On the ``main_path`` the launches go
+    into the kernel table."""
     import torch
     from lycoris_tpu_torch import create_lycoris_from_weights
     from lycoris_tpu_torch.trainer import DiffusionTrainer
 
     dev = torch.device("cuda")
-    tag = f"[train_{algo}]"
     net, _ = create_lycoris_from_weights(1.0, None, model, weights_sd=sd)
     tr = DiffusionTrainer(model, net, lr=1e-4, weight_dtype=torch.bfloat16,
                           generator=torch.Generator(device=dev).manual_seed(21))
-    gen = torch.Generator(device=dev).manual_seed(17)
-    batch = {
-        "latents": torch.randn(TRAIN_BATCH, 4, 64, 64, generator=gen, device=dev).to(torch.bfloat16),
-        "context": torch.randn(TRAIN_BATCH, 77, 768, generator=gen, device=dev).to(torch.bfloat16),
-    }
     base = [p.detach().clone() for p in model.parameters()]
     before = {k: p.detach().clone() for k, p in net.named_parameters()}
-    loha = algo == "loha"
-    want = {"flash_fwd": 10, "flash_bwd": 10, "layer_norm_fwd": 48, "layer_norm_bwd": 48,
-            "hada_fwd": 192 if loha else 0, "hada_bwd": 192 if loha else 0,
-            "factored": 0 if loha else 12}
-    secs, losses, totals = [], [], {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    secs, losses, totals, copies = [], [], Counter(), 0
     for _ in range(steps):
         torch.cuda.synchronize()
         reset_counts()
@@ -673,49 +1060,78 @@ def train(model, algo, sd, steps, results, card):
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
         counts = read_counts()
+        copies += gn_copies()
         if counts != want:
             fail(f"{tag} launch counts per step {counts} != {want}")
-        for k, v in counts.items():
-            totals[k] = totals.get(k, 0) + v
+        totals.update(counts)
         losses.append(float(loss))
         if not math.isfinite(losses[-1]):
             fail(f"{tag} loss {losses[-1]} at step {len(losses)}")
-    log(f"{tag} launches per step {want} over {steps} steps")
-    for name in KERNELS:
-        if want.get(name) and not results[name]["launches"]:
-            results[name]["launches"] = totals[name]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"{tag} launches per step {want} over {steps} steps; GroupNorm input copies {copies}")
+    if main_path:
+        for name in KERNELS:
+            if want.get(name) and not results[name]["launches"]:
+                results[name]["launches"] = totals[name]
     unchanged = [k for k, p in net.named_parameters() if torch.equal(p.detach(), before[k])]
     if unchanged:
         fail(f"{tag} {len(unchanged)} adapter parameters did not change, e.g. {unchanged[:3]}")
     if not all(torch.equal(p, b) for p, b in zip(model.parameters(), base)):
         fail(f"{tag} the frozen base weights changed")
     steady = secs[1:]
-    log(f"{tag} SD1.5 b{TRAIN_BATCH} 64x64, {len(net.loras)} adapters: losses "
+    shape = tuple(batch["latents"].shape)
+    log(f"{tag} latents {shape}, {len(net.loras)} adapters: losses "
         f"{[round(x, 5) for x in losses]}; s/step {[round(x, 4) for x in secs]} (the first "
         f"includes warm-up); steady {min(steady):.4f}-{max(steady):.4f} s/step, peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({card}; host-bound smoke "
-        f"reading, not a benchmark)")
-    results["training"][algo] = {"s_per_step": secs, "losses": losses}
+        f"{peak:.2f} GiB ({card}; host-clocked smoke reading, not a benchmark)")
+    results["training"][tag.strip("[]")] = {"s_per_step": secs, "losses": losses,
+                                            "peak_gib": peak, "gn_copies": copies}
     net.restore()
     del tr, net, base, before
     torch.cuda.empty_cache()
 
 
-def phase_train_e2e(model, sd):
+def sd15_batch():
+    import torch
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(17)
+    return {
+        "latents": torch.randn(TRAIN_BATCH, 4, 64, 64, generator=gen, device=dev).to(torch.bfloat16),
+        "context": torch.randn(TRAIN_BATCH, 77, 768, generator=gen, device=dev).to(torch.bfloat16),
+    }
+
+
+def sdxl_batch():
+    import torch
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(19)
+    b = SDXL_BATCH
+    return {
+        "latents": torch.randn(b, 4, SDXL_HW, SDXL_HW, generator=gen, device=dev).to(torch.bfloat16),
+        "context": torch.randn(b, 77, 2048, generator=gen, device=dev).to(torch.bfloat16),
+        "added_cond": torch.randn(b, SDXL_ADDED, generator=gen, device=dev).to(torch.bfloat16),
+    }
+
+
+def phase_train_e2e(model, sd, cfg_cpu, tag, ctx_dim=768, added_dim=None):
     """One eps-MSE loss and every LoKr adapter gradient at full width,
-    batch 1: the card (bf16, kernels, factored backward) against the port on
-    the CPU (fp32, plain versions), with the same noise and timestep."""
+    batch 1, 64x64 latents: the card (bf16, kernels, factored backward)
+    against the port on the CPU (fp32, plain versions), with the same noise
+    and timestep."""
     import torch
     from lycoris_tpu_torch import create_lycoris_from_weights
-    from lycoris_tpu_torch.models.unet import UNet2DConditionModel, sd15_config
     from lycoris_tpu_torch.trainer import DiffusionTrainer
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(13)
     lat = torch.randn(1, 4, 64, 64, generator=gen, device=dev).to(torch.bfloat16)
-    ctx = torch.randn(1, 77, 768, generator=gen, device=dev).to(torch.bfloat16)
+    ctx = torch.randn(1, 77, ctx_dim, generator=gen, device=dev).to(torch.bfloat16)
     noise = torch.randn(1, 4, 64, 64, generator=gen, device=dev)
     t = torch.tensor([501], dtype=torch.long, device=dev)
+    added = (None if added_dim is None else
+             torch.randn(1, added_dim, generator=gen, device=dev).to(torch.bfloat16))
 
     def loss_and_grads(m, net, wd, args):
         tr = DiffusionTrainer(m, net, weight_dtype=wd)
@@ -727,18 +1143,21 @@ def phase_train_e2e(model, sd):
         return float(loss.detach()), grads
 
     net, _ = create_lycoris_from_weights(1.0, None, model, weights_sd=sd)
-    got_loss, got = loss_and_grads(model, net, torch.bfloat16, (lat, ctx, noise, t))
+    got_loss, got = loss_and_grads(model, net, torch.bfloat16, (lat, ctx, noise, t, added))
     del net
     torch.cuda.empty_cache()
 
-    cpu = UNet2DConditionModel(sd15_config(torch.float32), device="meta")
-    cpu.load_state_dict({k: v.float().cpu() for k, v in model.state_dict().items()}, assign=True)
+    cpu = cpu_copy(model, cfg_cpu)
     net_cpu, _ = create_lycoris_from_weights(
         1.0, None, cpu, weights_sd={k: v.float().cpu() for k, v in sd.items()}, device="cpu")
     t0 = time.perf_counter()
     want_loss, want = loss_and_grads(
-        cpu, net_cpu, torch.float32, (lat.float().cpu(), ctx.float().cpu(), noise.cpu(), t.cpu()))
+        cpu, net_cpu, torch.float32,
+        (lat.float().cpu(), ctx.float().cpu(), noise.cpu(), t.cpu(),
+         None if added is None else added.float().cpu()))
     secs = time.perf_counter() - t0
+    del cpu, net_cpu
+    gc.collect()
     loss_rel = abs(got_loss - want_loss) / abs(want_loss)
     g = torch.cat([got[k].reshape(-1) for k in want])
     w = torch.cat([want[k].reshape(-1) for k in want])
@@ -749,16 +1168,20 @@ def phase_train_e2e(model, sd):
         e, n = per_module.get(ln, (0.0, 0.0))
         per_module[ln] = (e + float((got[k] - want[k]).norm()) ** 2,
                           n + float(want[k].norm()) ** 2)
-    worst = max(per_module, key=lambda ln: per_module[ln][0] / max(per_module[ln][1], 1e-30))
-    e, n = per_module[worst]
+    ranked = sorted(per_module, key=lambda ln: -per_module[ln][0] / max(per_module[ln][1], 1e-30))
+    e, n = per_module[ranked[0]]
     # bounds: bf16 activations and weights through the forward and the
-    # backward of ~100 layers (8-bit mantissa, ~4e-3 per rounding), against fp32
-    log(f"[train_e2e] loss card bf16 {got_loss:.6f} vs CPU fp32 {want_loss:.6f}: rel "
+    # backward of ~100 (SD1.5) or ~400 (SDXL) layers (8-bit mantissa, ~4e-3
+    # per rounding), against fp32
+    log(f"{tag} loss card bf16 {got_loss:.6f} vs CPU fp32 {want_loss:.6f}: rel "
         f"{loss_rel:.3e} (bound 3e-2); adapter gradient ({g.numel()} values, "
         f"{len(per_module)} modules) rel L2 {grad_rel:.3e} (bound 5e-2); worst module "
-        f"{worst} rel L2 {(e / n) ** 0.5:.3e}; CPU loss+backward {secs:.1f} s")
+        f"{ranked[0]} rel L2 {(e / n) ** 0.5:.3e}; CPU loss+backward {secs:.1f} s")
     if not (loss_rel <= 3e-2 and grad_rel <= 5e-2 and bool(torch.isfinite(g).all())):
-        fail(f"train_e2e loss rel {loss_rel:.3e} / gradient rel L2 {grad_rel:.3e} over bound")
+        for ln in ranked[:10]:
+            e, n = per_module[ln]
+            log(f"{tag} module {ln}: rel L2 {(e / n) ** 0.5:.3e} (|grad| {n ** 0.5:.3e})")
+        fail(f"{tag} loss rel {loss_rel:.3e} / gradient rel L2 {grad_rel:.3e} over bound")
 
 
 def main() -> int:
@@ -771,44 +1194,88 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one", file=sys.stderr)
         return 1
+    from lycoris_tpu_torch.models.unet import sd15_config, sdxl_config
 
-    results = {name: {"launches": 0, "max_abs_err": 0.0, "ms": 0.0, "host_ms": 0.0,
-                      "plain_ms": 0.0, "bound_ms": 0.0, "bound_parts": {}, "library_ms": None}
-               for name in KERNELS}
+    t_start = time.perf_counter()
+    results = new_results()
     results["serving"], results["training"] = {}, {}
-    card = phase_build()
-    phase_kernels(results)
-    phase_kernels_bwd(results)
+    with phase("build"):
+        card = phase_build()
+    with phase("kernels"):
+        phase_kernels(results)
+    with phase("kernels_bwd"):
+        phase_kernels_bwd(results)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
     t0 = time.perf_counter()
-    model = build_unet(torch.device("cuda"), torch.bfloat16, seed=0)
+    model = build_unet(dev, torch.bfloat16, seed=0)
     log(f"[unet] SD1.5 full width, bf16, {sum(p.numel() for p in model.parameters())} "
         f"params drawn on the card in {time.perf_counter() - t0:.2f} s")
     with torch.no_grad():
-        sd_lokr = adapter_state_dict(model, "lokr", torch.device("cuda"), seed=1)
-        sd_loha = adapter_state_dict(model, "loha", torch.device("cuda"), seed=2)
-    serve(model, "lokr", sd_lokr, requests=3, steps=20, results=results, card=card)
-    serve(model, "loha", sd_loha, requests=3, steps=10, results=results, card=card)
-    phase_e2e(model, sd_lokr)
-    train(model, "lokr", sd_lokr, steps=5, results=results, card=card)
-    train(model, "loha", sd_loha, steps=3, results=results, card=card)
-    phase_train_e2e(model, sd_lokr)
+        sd_lokr = adapter_state_dict(model, "lokr", dev, seed=1)
+        sd_loha = adapter_state_dict(model, "loha", dev, seed=2)
+    with phase("lokr"):
+        serve(model, "lokr", sd_lokr, requests=3, steps=20, results=results, card=card)
+    with phase("loha"):
+        serve(model, "loha", sd_loha, requests=3, steps=10, results=results, card=card)
+    with phase("e2e"):
+        phase_e2e(model, sd_lokr)
+    batch = sd15_batch()
+    for algo, steps in (("lokr", 5), ("loha", 3)):
+        with phase(f"train_{algo}"):
+            want = checked_counts(sd15_config(), TRAIN_BATCH, 64, algo, True, False, SD15_STEP,
+                                  SD15_ADAPTED, SD15_FACTORED)
+            train(model, algo, sd_lokr if algo == "lokr" else sd_loha, batch, want, steps,
+                  results, card, f"[train_{algo}]", main_path=False)
+    with phase("train_e2e"):
+        phase_train_e2e(model, sd_lokr, sd15_config(torch.float32), "[train_e2e]")
+
+    # SDXL: the SD1.5 model freed first
+    del model, sd_lokr, sd_loha, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model = build_unet(dev, torch.bfloat16, seed=3, config="sdxl", remat="transformer")
+    log(f"[unet] SDXL full width, bf16, remat='transformer', "
+        f"{sum(p.numel() for p in model.parameters())} params drawn on the card in "
+        f"{time.perf_counter() - t0:.2f} s")
+    with torch.no_grad():
+        sd_lokr = adapter_state_dict(model, "lokr", dev, seed=4)
+        sd_loha = adapter_state_dict(model, "loha", dev, seed=5)
+    batch = sdxl_batch()
+    for algo, steps in (("lokr", 4), ("loha", 3)):
+        with phase(f"train_sdxl_{algo}"):
+            want = checked_counts(sdxl_config(), SDXL_BATCH, SDXL_HW, algo, True, True,
+                                  SDXL_STEP, SDXL_ADAPTED, SDXL_FACTORED)
+            train(model, algo, sd_lokr if algo == "lokr" else sd_loha, batch, want, steps,
+                  results, card, f"[train_sdxl_{algo}]", main_path=True)
+    del batch
+    torch.cuda.empty_cache()
+    with phase("train_sdxl_e2e"):
+        phase_train_e2e(model, sd_lokr, sdxl_config(torch.float32), "[train_sdxl_e2e]",
+                        ctx_dim=2048, added_dim=SDXL_ADDED)
 
     for name in KERNELS:
         if results[name]["launches"] <= 0:
             fail(f"{name} was never launched on the main path")
     log(f"[serving] {json.dumps(results['serving'])}")
     log(f"[training] {json.dumps(results['training'])}")
+    log(f"[total] {time.perf_counter() - t_start:.2f} s")
+
+    def sums(a):
+        return {"ms": a["ms"], "plain_ms": a["plain_ms"], "host_ms": a["host_ms"],
+                "bound_ms": a["bound_ms"],
+                "bound_by": (max(a["bound_parts"], key=a["bound_parts"].get)
+                             if a["bound_parts"] else None),
+                "library_ms": a["library_ms"]}
+
     table = []
     for name, meta in KERNELS.items():
         r = results[name]
         table.append({"name": name, "route": meta["route"], "source": meta["source"],
                       "replaces": meta["replaces"], "launches": r["launches"],
-                      "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
-                      "host_ms": r["host_ms"], "bound_ms": r["bound_ms"],
-                      "bound_by": max(r["bound_parts"], key=r["bound_parts"].get),
-                      "library_ms": r["library_ms"]})
+                      "max_abs_err": r["max_abs_err"], **sums(r["sdxl"]), "sd15": sums(r["sd15"])})
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

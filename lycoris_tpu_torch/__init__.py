@@ -1,13 +1,14 @@
 """lycoris_tpu_torch -- the PyTorch/CUDA port of lycoris_tpu.
 
-The port so far: the SD1.5/SDXL UNet (:mod:`.models.unet`), LoKr and LoHa
-adapters (:mod:`.modules`) targeted and applied by :class:`LycorisNetwork`,
-DDIM sampling with CFG (:mod:`.sampler`), and adapter training by
-:class:`DiffusionTrainer` (:mod:`.trainer`) with the factored merged
-backward (:mod:`.functional.merged`). Flash attention, LayerNorm and the
-LoHa delta weight run hand-written CUDA kernels on the card, forward and
-backward (:mod:`.ops`); on the CPU each runs its plain PyTorch version. The
-package never imports JAX.
+The port so far: the SD1.5/SDXL UNet (:mod:`.models.unet`, with whole-block
+checkpointing), LoKr and LoHa adapters (:mod:`.modules`) targeted and
+applied by :class:`LycorisNetwork`, DDIM sampling with CFG
+(:mod:`.sampler`), and adapter training by :class:`DiffusionTrainer`
+(:mod:`.trainer`) with the factored merged backward
+(:mod:`.functional.merged`). Flash attention, LayerNorm, the LoHa delta
+weight and GroupNorm(+SiLU) run hand-written CUDA kernels on the card,
+forward and backward, and so does the GEGLU backward (:mod:`.ops`); on the
+CPU each runs its plain PyTorch version. The package never imports JAX.
 """
 
 __version__ = "0.1.0"

@@ -6,10 +6,12 @@
 - The activation ops keep torch layout (weights (out, in, *k),
   channels-first activations), as the JAX package does.
 - ``layer_norm`` sends the affine single-dim case to the LayerNorm kernel
-  (``ops/layer_norm.py``); ``group_norm`` is the reshape-free fp32 formula
-  of the JAX package (var = E[x^2] - mean^2, gamma/beta folded into one
-  FMA), not ``F.group_norm``; ``geglu_mul`` uses the tanh-approximated gelu
-  that ``jax.nn.gelu`` defaults to.
+  (``ops/layer_norm.py``); ``group_norm`` and ``group_norm_act`` go to the
+  GroupNorm(+SiLU) kernels (``ops/group_norm.py``: the JAX package's math,
+  var = E[x^2] - mean^2 in fp32, gamma/beta folded into one FMA), not
+  ``F.group_norm``; ``geglu_mul`` (the tanh-approximated gelu that
+  ``jax.nn.gelu`` defaults to) has its backward in the GEGLU kernel
+  (``ops/geglu.py``).
 """
 
 from __future__ import annotations
@@ -158,49 +160,29 @@ def layer_norm(x, normalized_shape, weight=None, bias=None, eps: float = 1e-5):
 
 
 def group_norm(x, num_groups: int, weight=None, bias=None, eps: float = 1e-5):
-    """GroupNorm (N, C, *spatial) as the JAX package computes it: per-channel
-    fp32 sums, a (N, C) -> (N, G) combine, var = E[x^2] - mean^2, and one
-    output FMA with gamma/beta folded in (general.py:435-463)."""
-    n, c, *spatial = x.shape
-    cg = c // num_groups
-    xf = x.float()
-    if spatial:
-        sp = tuple(range(2, x.ndim))
-        s1 = xf.sum(dim=sp)
-        s2 = (xf * xf).sum(dim=sp)
-    else:
-        s1, s2 = xf, xf * xf
-    cnt = cg * math.prod(spatial) if spatial else cg
-    mean_g = s1.reshape(n, num_groups, cg).sum(dim=2) / cnt
-    var_g = s2.reshape(n, num_groups, cg).sum(dim=2) / cnt - mean_g * mean_g
-    rstd_g = torch.rsqrt(var_g + eps)
-    scale_c = rstd_g.repeat_interleave(cg, dim=1)
-    shift_c = (-mean_g * rstd_g).repeat_interleave(cg, dim=1)
-    if weight is not None:
-        w = weight.float().reshape(1, c)
-        scale_c = scale_c * w
-        shift_c = shift_c * w
-    if bias is not None:
-        shift_c = shift_c + bias.float().reshape(1, c)
-    exp = (n, c, *[1] * len(spatial))
-    y = xf * scale_c.reshape(exp) + shift_c.reshape(exp)
-    return y.to(x.dtype)
+    """GroupNorm (N, C, *spatial) as the JAX package computes it
+    (general.py:435-463), through the GroupNorm kernels (ops/group_norm.py)."""
+    from ..ops import group_norm as _gn
+
+    return _gn.group_norm_act(x, num_groups, weight, bias, eps)
 
 
 def group_norm_act(x, num_groups: int, weight=None, bias=None, eps: float = 1e-5,
                    act: str | None = None):
-    """GroupNorm followed by an optionally folded activation (None or "silu")."""
-    if act not in (None, "silu"):
-        raise ValueError(f"unsupported folded act {act!r}")
-    y = group_norm(x, num_groups, weight, bias, eps)
-    return F.silu(y) if act == "silu" else y
+    """GroupNorm followed by a folded activation (None or "silu"), one kernel
+    per direction (ops/group_norm.py)."""
+    from ..ops import group_norm as _gn
+
+    return _gn.group_norm_act(x, num_groups, weight, bias, eps, act=act)
 
 
 def geglu_mul(h_full):
     """``h * gelu(gate)`` with ``h, gate = split(h_full, 2)``; gelu is the tanh
-    approximation, as ``jax.nn.gelu`` defaults to."""
-    h, gate = h_full.chunk(2, dim=-1)
-    return h * F.gelu(gate, approximate="tanh")
+    approximation, as ``jax.nn.gelu`` defaults to. The backward is the GEGLU
+    kernel (ops/geglu.py)."""
+    from ..ops import geglu as _geglu
+
+    return _geglu.geglu_mul(h_full)
 
 
 def op_by_ndim(ndim: int):

@@ -4,8 +4,15 @@ Submodules carry exactly the flax module names (``down_blocks_0_resnets_0``,
 ``transformer_blocks_0``, ``attn1.to_out_0``, ``ff.net_0_proj``, ...), so
 :func:`state_dict_from_jax` is a dotted key join and every adapter
 ``lora_name`` matches the JAX one by construction. Class names mirror
-diffusers so presets target them unchanged. The remat tiers of the JAX
-model are not ported: SD1.5 trains at batch 8 without them.
+diffusers so presets target them unchanged.
+
+Rematerialization (``UNetConfig.remat``) takes the JAX values ``False``,
+``"transformer"`` (each Transformer2DModel is checkpointed) and ``True``
+(the resnets too), through ``torch.utils.checkpoint``: a checkpointed block
+keeps only its inputs and runs its forward again in the backward. SDXL
+trains at batch 4 on 128x128 latents with ``"transformer"``; SD1.5 trains at
+batch 8 without it. The JAX package's named-save tiers (``"attn_out"``,
+``"attn_ff"``, ...) are not ported and raise ``ValueError``.
 """
 
 from __future__ import annotations
@@ -18,6 +25,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from . import layers as L
 from ..functional.general import geglu_mul
@@ -38,19 +46,28 @@ class UNetConfig:
     norm_groups: int = 32
     time_embed_dim: int | None = None  # default 4*ch0
     addition_embed_dim: int | None = None  # SDXL: 2816 add_embedding in dim
+    remat: Any = False  # False | "transformer" | True (also resnets)
     dtype: Any = torch.float32  # activation dtype of the timestep embedding
+
+    def __post_init__(self):
+        if not (self.remat is False or self.remat is True or self.remat == "transformer"):
+            raise ValueError(
+                f"remat={self.remat!r} is not ported: the port checkpoints whole blocks "
+                f"(False, 'transformer' or True); the JAX package's named-save tiers "
+                f"(attn_out, attn_ff, ...) have no counterpart")
 
     @property
     def temb_dim(self):
         return self.time_embed_dim or self.block_out_channels[0] * 4
 
 
-def sd15_config(dtype=torch.float32) -> UNetConfig:
-    return UNetConfig(dtype=dtype)
+def sd15_config(dtype=torch.float32, remat=False) -> UNetConfig:
+    return UNetConfig(dtype=dtype, remat=remat)
 
 
-def sdxl_config(dtype=torch.float32) -> UNetConfig:
+def sdxl_config(dtype=torch.float32, remat=False) -> UNetConfig:
     return UNetConfig(
+        remat=remat,
         block_out_channels=(320, 640, 1280),
         layers_per_block=2,
         transformer_depth=(0, 2, 10),
@@ -167,8 +184,11 @@ class Transformer2DModel(nn.Module):
         x = x.reshape(b, self.channels, h * w).transpose(1, 2).contiguous()
         for i in range(self.depth):
             x = getattr(self, f"transformer_blocks_{i}")(x, context)
+        # (B, C, H, W) as a channels-last view: proj_out (a 1x1 conv) reads it
+        # as it is, and the sum takes the layout of its first operand, so the
+        # residual first keeps the blocks after this one in contiguous NCHW
         x = x.transpose(1, 2).reshape(b, self.channels, h, w)
-        return self.proj_out(x) + residual
+        return residual + self.proj_out(x)
 
 
 class ResnetBlock2D(nn.Module):
@@ -279,6 +299,16 @@ class UNet2DConditionModel(nn.Module):
     def _sub(self, name):
         return self._modules.get(name)
 
+    def _run(self, block, *args):
+        """``block(*args)``, checkpointed where ``cfg.remat`` asks for it and
+        a gradient is being recorded (the blocks draw no random numbers, so
+        the RNG state is not stashed for the recompute)."""
+        remat = self.cfg.remat
+        if torch.is_grad_enabled() and (
+                remat is True or (remat == "transformer" and isinstance(block, Transformer2DModel))):
+            return checkpoint(block, *args, use_reentrant=False, preserve_rng_state=False)
+        return block(*args)
+
     def forward(self, sample, timesteps, encoder_hidden_states, added_cond=None):
         cfg = self.cfg
         ch0 = cfg.block_out_channels[0]
@@ -294,27 +324,27 @@ class UNet2DConditionModel(nn.Module):
         nb = len(cfg.block_out_channels)
         for bi in range(nb):
             for li in range(cfg.layers_per_block):
-                h = self._sub(f"down_blocks_{bi}_resnets_{li}")(h, temb)
+                h = self._run(self._sub(f"down_blocks_{bi}_resnets_{li}"), h, temb)
                 attn = self._sub(f"down_blocks_{bi}_attentions_{li}")
                 if attn is not None:
-                    h = attn(h, ctx)
+                    h = self._run(attn, h, ctx)
                 skips.append(h)
             if bi < nb - 1:
                 h = self._sub(f"down_blocks_{bi}_downsamplers_0")(h)
                 skips.append(h)
 
-        h = self.mid_block_resnets_0(h, temb)
+        h = self._run(self.mid_block_resnets_0, h, temb)
         if cfg.mid_transformer_depth > 0:
-            h = self.mid_block_attentions_0(h, ctx)
-        h = self.mid_block_resnets_1(h, temb)
+            h = self._run(self.mid_block_attentions_0, h, ctx)
+        h = self._run(self.mid_block_resnets_1, h, temb)
 
         for ui in range(nb):
             for li in range(cfg.layers_per_block + 1):
                 h = torch.cat([h, skips.pop()], dim=1)
-                h = self._sub(f"up_blocks_{ui}_resnets_{li}")(h, temb)
+                h = self._run(self._sub(f"up_blocks_{ui}_resnets_{li}"), h, temb)
                 attn = self._sub(f"up_blocks_{ui}_attentions_{li}")
                 if attn is not None:
-                    h = attn(h, ctx)
+                    h = self._run(attn, h, ctx)
             up = self._sub(f"up_blocks_{ui}_upsamplers_0")
             if up is not None:
                 h = up(h)

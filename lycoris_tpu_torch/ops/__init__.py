@@ -1,5 +1,7 @@
 """Hand-written CUDA kernels of the serving and training paths, forward and
 backward, each beside its plain PyTorch version and wrapped in an autograd
 Function: LayerNorm (:mod:`.layer_norm`), flash attention (:mod:`.flash`,
-dispatched by :mod:`.attention`) and the LoHa delta weight (:mod:`.hada`).
+dispatched by :mod:`.attention`), the LoHa delta weight (:mod:`.hada`),
+GroupNorm with a folded SiLU (:mod:`.group_norm`) and the GEGLU backward
+(:mod:`.geglu`).
 Kernels build on first use (:mod:`._build`)."""

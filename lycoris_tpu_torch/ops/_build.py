@@ -38,6 +38,9 @@ _SIGNATURES = {
     "lyc_ln_bwd": [_P] * 8 + [_I, _I, _I, _F, _I, _P],
     "lyc_flash_bwd": [_P] * 9 + [_I] * 4 + [ctypes.POINTER(_L), _F, _I, _P],
     "lyc_hada_bwd": [_P] * 13 + [_I, _I, _I, _I, _F, _I, _P],
+    "lyc_gn_fwd": [_P] * 8 + [_I] * 6 + [_F, _I, _I, _I, _P],
+    "lyc_gn_bwd": [_P] * 14 + [_I] * 9 + [_P],
+    "lyc_geglu_bwd": [_P] * 3 + [_I] * 4 + [_P],
 }
 
 

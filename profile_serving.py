@@ -36,6 +36,9 @@ KINDS = (
     ("LayerNorm bwd (ours)", ("ln_bwd",)),
     ("hada (ours)", ("hada_fwd_kernel",)),
     ("hada bwd (ours)", ("hada_bwd",)),
+    ("GroupNorm (ours)", ("gn_fwd_",)),
+    ("GroupNorm bwd (ours)", ("gn_bwd_",)),
+    ("GEGLU bwd (ours)", ("geglu_bwd",)),
     ("convolution (cuDNN)", ("fprop", "convolve", "conv2d", "winograd", "cudnn")),
     ("GEMM (cuBLAS/CUTLASS)", ("gemm", "nvjet", "xmma", "cutlass", "cublas")),
     ("softmax", ("softmax",)),
@@ -117,7 +120,10 @@ def main() -> int:
 
     kernels = []
     for evt in prof.key_averages():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
+        # user annotations (e.g. ``Optimizer.step#AdamW.step``) span kernels
+        # listed on their own: counting them too would count that time twice
+        if (evt.device_type != torch.autograd.DeviceType.CUDA
+                or getattr(evt, "is_user_annotation", False)):
             continue
         us = getattr(evt, "self_device_time_total", None)
         if us is None:

@@ -8,7 +8,10 @@ weights) and its seeded LoKr and LoHa attn-mlp adapters, trained by
 ``DiffusionTrainer`` at batch 8, 64x64 latents, 77 context tokens. Legs:
 LoKr (its 12 widest layers through the factored backward), LoHa, and LoKr
 with the factored backward off (``FACTORED_MIN`` above every layer, so all
-192 layers train by autograd through W + dW). For each leg:
+192 layers train by autograd through W + dW); then, the SD1.5 model freed,
+``sdxl_lokr``: the SDXL UNet (``remat="transformer"``) with a LoKr adapter
+at batch 4, 128x128 latents, context (4, 77, 2048) and ``added_cond``
+(4, 2816). For each leg:
 
 1. host clock per step over 5 steps after 2 warm-up steps, every step
    ending in ``torch.cuda.synchronize()``;
@@ -56,17 +59,27 @@ def main() -> int:
     b = chip_smoke.TRAIN_BATCH
     batch = {"latents": torch.randn(b, 4, 64, 64, generator=gen, device=dev).to(torch.bfloat16),
              "context": torch.randn(b, 77, 768, generator=gen, device=dev).to(torch.bfloat16)}
-    report = {"card": card, "batch": b, "steps": {}}
+    report = {"card": card, "batch": {"sd15": b, "sdxl": chip_smoke.SDXL_BATCH}, "steps": {}}
     factored_min = merged.FACTORED_MIN
 
     sds = {}
     with torch.no_grad():
         for seed, algo in enumerate(("lokr", "loha"), start=1):
             sds[algo] = chip_smoke.adapter_state_dict(model, algo, dev, seed=seed)
-    for leg, algo in (("lokr", "lokr"), ("loha", "loha"), ("lokr_dense", "lokr")):
+    legs = [("lokr", "lokr"), ("loha", "loha"), ("lokr_dense", "lokr"), ("sdxl_lokr", "lokr")]
+    for leg, algo in legs:
+        if leg == "sdxl_lokr":  # the SD1.5 model freed first
+            del model, sds, batch
+            torch.cuda.empty_cache()
+            model = chip_smoke.build_unet(dev, torch.bfloat16, seed=3, config="sdxl",
+                                          remat="transformer")
+            with torch.no_grad():
+                sds = {algo: chip_smoke.adapter_state_dict(model, algo, dev, seed=4)}
+            batch = chip_smoke.sdxl_batch()
         net, _ = create_lycoris_from_weights(1.0, None, model, weights_sd=sds[algo])
         merged.FACTORED_MIN = 1 << 30 if leg == "lokr_dense" else factored_min
         tr = DiffusionTrainer(model, net, lr=1e-4, weight_dtype=torch.bfloat16)
+        torch.cuda.reset_peak_memory_stats()
         for _ in range(WARMUP_STEPS):
             tr.train_step(batch)
         torch.cuda.synchronize()
@@ -85,7 +98,10 @@ def main() -> int:
 
         kernels = []
         for evt in prof.key_averages():
-            if evt.device_type != torch.autograd.DeviceType.CUDA:
+            # user annotations (e.g. ``Optimizer.step#AdamW.step``) span kernels
+            # listed on their own: counting them too would count that time twice
+            if (evt.device_type != torch.autograd.DeviceType.CUDA
+                    or getattr(evt, "is_user_annotation", False)):
                 continue
             us = getattr(evt, "self_device_time_total", None)
             if us is None:
@@ -101,8 +117,9 @@ def main() -> int:
         total_ms = sum(by_kind.values()) / 1e3 / PROFILED_STEPS
         n_per_step = sum(k["count"] for k in kernels) / PROFILED_STEPS
         med = statistics.median(host)
+        peak = torch.cuda.max_memory_allocated() / 2**30
         print(f"[time] {leg}: host ms per step median {med:.2f} (min {min(host):.2f}, "
-              f"max {max(host):.2f}) ({card})", flush=True)
+              f"max {max(host):.2f}); peak memory {peak:.2f} GiB ({card})", flush=True)
         print(f"[profile] {leg}: device ms per train step by kind ({card}):", flush=True)
         for kind, us in sorted(by_kind.items(), key=lambda kv: -kv[1]):
             print(f"[profile]   {kind}: {us / 1e3 / PROFILED_STEPS:.3f}")
@@ -110,7 +127,7 @@ def main() -> int:
               f"kernels per step; busy share {total_ms / med:.3f} of the {med:.2f} ms host "
               f"time per step", flush=True)
         report["steps"][leg] = {
-            "host_ms": host,
+            "host_ms": host, "peak_gib": peak,
             "by_kind_ms_per_step": {k: v / 1e3 / PROFILED_STEPS for k, v in by_kind.items()},
             "kernels_per_step": n_per_step, "kernels": kernels,
         }

@@ -1,0 +1,142 @@
+"""The port's GroupNorm(+SiLU) and GEGLU modules against the JAX kernels they
+replace, run as the JAX package's own tests run them on the CPU (Pallas in
+interpret mode): ``group_norm_v2.group_norm_act`` (forward and the vjp in
+x, gamma, beta), the v1 ``ops.group_norm.group_norm`` that the same port
+kernels serve, and ``geglu.geglu_bwd_dt``. The port side is the autograd
+Function each kernel sits in, which takes its plain version on the CPU.
+
+Tolerance: 1e-5 for forwards and 1e-4 for gradients (fp32; summation order
+differs), as the JAX package holds its fused GroupNorm to its jnp form.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from lycoris_tpu.ops import geglu as jgeglu
+from lycoris_tpu.ops import group_norm as jgn1
+from lycoris_tpu.ops import group_norm_v2 as jgn2
+from lycoris_tpu_torch.functional import general as tgeneral
+from lycoris_tpu_torch.ops import geglu as tgeglu
+from lycoris_tpu_torch.ops import group_norm as tgn
+
+FWD = dict(rtol=1e-5, atol=1e-5)
+GRAD = dict(rtol=1e-4, atol=1e-4)
+
+# (shape, groups): cg = 8, and cg = 30 as at SDXL's 960-channel level
+SHAPES = [((2, 64, 16, 16), 8), ((2, 120, 16, 16), 4)]
+
+
+@pytest.fixture()
+def interpret_pallas(monkeypatch):
+    """Force pallas_call into interpreter mode for CPU testing."""
+    from jax.experimental import pallas as pl
+
+    orig = pl.pallas_call
+
+    def patched(*args, **kwargs):
+        kwargs.setdefault("interpret", True)
+        return orig(*args, **kwargs)
+
+    monkeypatch.setattr(pl, "pallas_call", patched)
+    yield
+
+
+def _inputs(shape, seed):
+    rng = np.random.default_rng(seed)
+    c = shape[1]
+    x = (rng.standard_normal(shape) * 1.5 + 0.3).astype(np.float32)
+    gamma = (1.0 + 0.1 * rng.standard_normal(c)).astype(np.float32)
+    beta = (0.1 * rng.standard_normal(c)).astype(np.float32)
+    dy = rng.standard_normal(shape).astype(np.float32)
+    return x, gamma, beta, dy
+
+
+def _port(x, gamma, beta, dy, groups, act, eps):
+    """The port's Function: output and (dx, dgamma, dbeta) for cotangent dy."""
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in (x, gamma, beta)]
+    x_, w_, b_ = leaves
+    y = tgeneral.group_norm_act(x_, groups, w_, b_, eps, act=act)
+    grads = torch.autograd.grad(y, leaves, torch.from_numpy(dy))
+    return y.detach().numpy(), [g.numpy() for g in grads]
+
+
+def _check(got_y, got_g, want_y, want_g):
+    np.testing.assert_allclose(got_y, np.asarray(want_y), **FWD)
+    for got, want, name in zip(got_g, want_g, ("dx", "dgamma", "dbeta")):
+        np.testing.assert_allclose(got, np.asarray(want), **GRAD, err_msg=name)
+
+
+@pytest.mark.parametrize("shape,groups", SHAPES)
+@pytest.mark.parametrize("act", [None, "silu"])
+def test_group_norm_matches_jax_v2_kernel(monkeypatch, shape, groups, act):
+    monkeypatch.setattr(jgn2, "_INTERPRET", True)
+    x, gamma, beta, dy = _inputs(shape, 0)
+    assert jgn2.supported(shape)  # the JAX call below takes its kernels
+
+    def jfn(*a):
+        return jgn2.group_norm_act(*a[:1], groups, *a[1:], eps=1e-5, act=act)
+
+    want_y, vjp = jax.vjp(jfn, *map(jnp.asarray, (x, gamma, beta)))
+    want_g = vjp(jnp.asarray(dy))
+    got_y, got_g = _port(x, gamma, beta, dy, groups, act, 1e-5)
+    _check(got_y, got_g, want_y, want_g)
+
+
+@pytest.mark.parametrize("shape,groups", SHAPES)
+def test_group_norm_matches_jax_v1_kernel(interpret_pallas, shape, groups):
+    x, gamma, beta, dy = _inputs(shape, 1)
+
+    def jfn(*a):
+        return jgn1.group_norm(a[0], groups, a[1], a[2], 1e-6)
+
+    want_y, vjp = jax.vjp(jfn, *map(jnp.asarray, (x, gamma, beta)))
+    want_g = vjp(jnp.asarray(dy))
+    got_y, got_g = _port(x, gamma, beta, dy, groups, None, 1e-6)
+    _check(got_y, got_g, want_y, want_g)
+
+
+def test_group_norm_without_affine_and_frozen_weights():
+    """No gamma/beta; and frozen gamma/beta get no gradient (the path's case)."""
+    x, gamma, beta, dy = _inputs((2, 64, 8, 8), 2)
+    xt = torch.from_numpy(x).requires_grad_(True)
+    y = tgn.group_norm_act(xt, 8, None, None, 1e-5, "silu")
+    (dx,) = torch.autograd.grad(y, xt, torch.from_numpy(dy))
+    want_dx, _, _ = tgn.group_norm_bwd_plain(xt.detach(), torch.from_numpy(dy), 8,
+                                             torch.ones(64), torch.zeros(64), 1e-5, "silu")
+    np.testing.assert_allclose(dx.numpy(), want_dx.numpy(), **FWD)
+    w, b = torch.from_numpy(gamma), torch.from_numpy(beta)
+    y = tgn.group_norm_act(xt, 8, w, b, 1e-5, "silu")
+    y.backward(torch.from_numpy(dy))
+    assert w.grad is None and b.grad is None and xt.grad is not None
+    with pytest.raises(ValueError, match="act"):
+        tgn.group_norm_act(xt, 8, w, b, 1e-5, "gelu")
+
+
+def test_geglu_matches_jax_kernel(monkeypatch):
+    monkeypatch.setattr(jgeglu, "_INTERPRET", True)
+    rng = np.random.default_rng(3)
+    h_full = (rng.standard_normal((1, 512, 512)) * 2.0).astype(np.float32)
+    dy = rng.standard_normal((1, 512, 256)).astype(np.float32)
+    want = jgeglu.geglu_bwd_dt(jnp.asarray(h_full), jnp.asarray(dy))
+
+    from lycoris_tpu.functional import general as jgeneral
+
+    want_y = jgeneral.geglu_mul(jnp.asarray(h_full))
+    # torch gets copies: the JAX CPU arrays may alias the numpy buffers
+    ht = torch.tensor(h_full, requires_grad=True)
+    y = tgeneral.geglu_mul(ht)
+    (got,) = torch.autograd.grad(y, ht, torch.tensor(dy))
+    np.testing.assert_allclose(y.detach().numpy(), np.asarray(want_y), **FWD)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **GRAD)
+
+
+def test_cpu_wrappers_use_plain_and_count_nothing():
+    before = (tgn.launches, tgn.bwd_launches, tgn.copies, tgeglu.bwd_launches)
+    x = torch.randn(2, 32, 8, 8, requires_grad=True)
+    tgn.group_norm_act(x, 8, torch.ones(32), torch.zeros(32), 1e-5, "silu").sum().backward()
+    h = torch.randn(2, 16, 64, requires_grad=True)
+    tgeglu.geglu_mul(h).sum().backward()
+    assert (tgn.launches, tgn.bwd_launches, tgn.copies, tgeglu.bwd_launches) == before

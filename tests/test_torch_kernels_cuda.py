@@ -17,6 +17,8 @@ import pytest
 import torch
 
 from lycoris_tpu_torch.ops import flash as tflash
+from lycoris_tpu_torch.ops import geglu as tgeglu
+from lycoris_tpu_torch.ops import group_norm as tgn
 from lycoris_tpu_torch.ops import hada as thada
 from lycoris_tpu_torch.ops import layer_norm as tln
 
@@ -55,7 +57,8 @@ def test_cuda_layer_norm_kernel(cuda, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_flash_kernel(cuda, dtype):
     g = torch.Generator(device=cuda).manual_seed(0)
-    for b, h, t, d in ((4, 8, 4096, 40), (4, 8, 1024, 80), (1, 2, 1000, 128)):
+    for b, h, t, d in ((4, 8, 4096, 40), (4, 8, 1024, 80), (1, 2, 1000, 128), (4, 10, 4096, 64),
+                       (4, 20, 1024, 64)):
         q, k, v = (torch.randn(b, h, t, d, device=cuda, generator=g).to(dtype) for _ in range(3))
         o, lse = tflash.flash_attention(q, k, v, d**-0.5)
         o_ref, lse_ref = tflash.flash_attention_plain(q, k, v, d**-0.5)
@@ -97,7 +100,8 @@ def test_cuda_layer_norm_bwd_kernel(cuda, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_flash_bwd_kernel(cuda, dtype):
     g = torch.Generator(device=cuda).manual_seed(2)
-    for b, h, t, d in ((2, 8, 4096, 40), (2, 8, 1024, 80), (1, 2, 1000, 128)):
+    for b, h, t, d in ((2, 8, 4096, 40), (2, 8, 1024, 80), (1, 2, 1000, 128), (4, 10, 4096, 64),
+                       (2, 20, 1024, 64)):
         q, k, v, do = (torch.randn(b, h, t, d, device=cuda, generator=g).to(dtype)
                        for _ in range(4))
         sm = d**-0.5
@@ -125,6 +129,50 @@ def test_cuda_hada_bwd_kernel(cuda, dtype):
         assert thada.bwd_launches == n + 1
         for a, w in zip(got, want):
             _check(a, w, dtype)
+
+
+# (N, C, H, W, groups): SDXL's 320- and 960-channel levels (cg = 10, 30),
+# SD1.5's mid block, and an odd spatial size that takes the scalar loads
+GN_SHAPES = ((4, 320, 128, 128, 32), (4, 960, 64, 64, 32), (8, 1280, 8, 8, 32), (3, 60, 7, 5, 4))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act", [None, "silu"])
+def test_cuda_group_norm_kernels(cuda, dtype, act):
+    g = torch.Generator(device=cuda).manual_seed(5)
+    for n, c, h, w_, groups in GN_SHAPES:
+        x = (torch.randn(n, c, h, w_, device=cuda, generator=g) * 2 + 0.5).to(dtype)
+        w = (torch.randn(c, device=cuda, generator=g) * 0.5 + 1).to(dtype)
+        b = (torch.randn(c, device=cuda, generator=g) * 0.5).to(dtype)
+        dh = torch.randn(n, c, h, w_, device=cuda, generator=g).to(dtype)
+        n0, b0 = tgn.launches, tgn.bwd_launches
+        y, mean, rstd = tgn.group_norm_fwd(x, groups, w, b, 1e-5, act)
+        _check(y, tgn.group_norm_plain(x, groups, w, b, 1e-5, act), dtype)
+        got = tgn.group_norm_bwd(x, dh, groups, w, b, mean, rstd, act)
+        want = tgn.group_norm_bwd_plain(x, dh, groups, w, b, 1e-5, act)
+        for a, ref in zip(got, want):
+            _check(a, ref, dtype)
+        dx, dw, db = tgn.group_norm_bwd(x, dh, groups, None, None, mean, rstd, act,
+                                        want_wb=False)
+        assert dw is None and db is None
+        ref_mean, ref_rstd = tgn.group_norm_stats_plain(x, groups, 1e-5)
+        _check(dx, tgn.group_norm_bwd_plain(x, dh, groups, None, None, 1e-5, act,
+                                            (ref_mean, ref_rstd))[0], dtype)
+        assert (tgn.launches, tgn.bwd_launches) == (n0 + 1, b0 + 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_geglu_bwd_kernel(cuda, dtype):
+    g = torch.Generator(device=cuda).manual_seed(6)
+    for b, t, f in ((4, 4096, 2560), (4, 1024, 5120), (8, 64, 5120), (2, 7, 12)):
+        h_full = (torch.randn(b, t, 2 * f, device=cuda, generator=g) * 2).to(dtype)
+        dy = torch.randn(b, t, f, device=cuda, generator=g).to(dtype)
+        n = tgeglu.bwd_launches
+        got = tgeglu.geglu_bwd(h_full, dy)
+        assert tgeglu.bwd_launches == n + 1 and got.shape == h_full.shape
+        _check(got, tgeglu.geglu_bwd_plain(h_full, dy), dtype)
 
 
 def _grads_match(fn, plain, inputs, dtype):
@@ -159,6 +207,17 @@ def test_cuda_functions_match_autograd_of_plain(cuda, dtype):
     w1u, w2u = ((0.1 * torch.randn(640, 8, device=cuda, generator=g)).to(dtype) for _ in range(2))
     _grads_match(lambda *a: thada.hada_weight(*a, 0.5),
                  lambda *a: thada.hada_weight_plain(*a, 0.5), (w1d, w1u, w2d, w2u), dtype)
+
+    x = (torch.randn(2, 960, 16, 16, device=cuda, generator=g) + 0.3).to(dtype)
+    w = (torch.randn(960, device=cuda, generator=g) * 0.5 + 1).to(dtype)
+    b = torch.randn(960, device=cuda, generator=g).to(dtype)
+    for act in (None, "silu"):
+        _grads_match(lambda *a: tgn.group_norm_act(*a[:1], 32, *a[1:], 1e-5, act),
+                     lambda *a: tgn.group_norm_plain(*a[:1], 32, *a[1:], 1e-5, act), (x, w, b),
+                     dtype)
+
+    h_full = (torch.randn(2, 256, 2560, device=cuda, generator=g) * 2).to(dtype)
+    _grads_match(tgeglu.geglu_mul, tgeglu.geglu_fwd_plain, (h_full,), dtype)
 
 
 @pytest.mark.cuda

@@ -18,6 +18,7 @@ from lycoris_tpu.models import unet as junet
 from lycoris_tpu.sampler import make_ddim_sampler as jax_ddim
 from lycoris_tpu_torch.models import unet as tunet
 from lycoris_tpu_torch.ops import flash as tflash
+from lycoris_tpu_torch.ops import group_norm as tgn
 from lycoris_tpu_torch.ops import hada as thada
 from lycoris_tpu_torch.ops import layer_norm as tln
 from lycoris_tpu_torch.sampler import ddim_timesteps, ddpm_alphas_cumprod, make_ddim_sampler
@@ -91,7 +92,8 @@ def test_ddim_cfg_with_live_adapters_matches_jax(algo):
 def test_sd15_full_width_dispatch_counts_on_meta():
     """Full-width SD1.5 (bf16, batch 4 = 2 prompts with CFG, 64x64 latents)
     traced on the meta device: 10 flash self-attentions (T4096/D40 and
-    T1024/D80), 48 LayerNorms, 192 attn-mlp adapter targets."""
+    T1024/D80), 48 LayerNorms, 61 GroupNorms (45 with SiLU: the resnets and
+    conv_norm_out), 192 attn-mlp adapter targets."""
     m = tunet.UNet2DConditionModel(tunet.sd15_config(torch.bfloat16), device="meta",
                                    param_dtype=torch.bfloat16)
     assert sum(p.numel() for p in m.parameters()) == 859_520_964
@@ -100,7 +102,7 @@ def test_sd15_full_width_dispatch_counts_on_meta():
                if n.is_leaf and not n.layer_info.is_norm and "_attentions_" in n.name]
     assert len(targets) == 16 * 10 + 16 * 2
 
-    calls = {"flash": [], "ln": 0}
+    calls = {"flash": [], "ln": 0, "gn": []}
 
     def flash_spy(q, k, v, sm):
         calls["flash"].append(tuple(q.shape))
@@ -110,9 +112,14 @@ def test_sd15_full_width_dispatch_counts_on_meta():
         calls["ln"] += 1
         return tln.layer_norm_plain(x, w, b, eps)
 
+    def gn_spy(x, num_groups, weight=None, bias=None, eps=1e-5, act=None):
+        calls["gn"].append(act)
+        return tgn.group_norm_plain(x, num_groups, weight, bias, eps, act)
+
     mp = pytest.MonkeyPatch()
     mp.setattr(tflash, "flash_attention", flash_spy)
     mp.setattr(tln, "layer_norm", ln_spy)
+    mp.setattr(tgn, "group_norm_act", gn_spy)
     try:
         x = torch.empty(4, 4, 64, 64, device="meta", dtype=torch.bfloat16)
         t = torch.zeros(4, dtype=torch.int32, device="meta")
@@ -123,6 +130,7 @@ def test_sd15_full_width_dispatch_counts_on_meta():
         mp.undo()
     assert y.shape == (4, 4, 64, 64) and y.dtype == torch.bfloat16
     assert calls["ln"] == 48
+    assert len(calls["gn"]) == 61 and calls["gn"].count("silu") == 45
     assert sorted(calls["flash"]) == [(4, 8, 1024, 80)] * 5 + [(4, 8, 4096, 40)] * 5
 
 
