@@ -16,36 +16,61 @@ ends the run with a nonzero exit code, and no phase falls back to the CPU:
    timed: device times (calls captured in a CUDA graph and replayed between
    CUDA events) of the kernel, its plain version and the PyTorch library
    call where one computes the same function, and the wrapper's
-   host-clocked time beside;
+   host-clocked time beside.
+   The fused LoRA matmul (nt) at every adapted linear shape (M, N, K) of
+   the SD1.5 b8 and SDXL b4 LoRA training legs, bf16 and fp32, its
+   library time the merged route the path runs (W + dW merged in fp32,
+   then one bf16 matmul);
 3. kernels_bwd -- each backward kernel likewise at SD1.5 training (batch 8)
    and SDXL training (batch 4) shapes: flash dq/dk/dv, LayerNorm dx/dw/db,
-   LoHa's four grads, GroupNorm dx/dgamma/dbeta, GEGLU d_hfull;
-4. lokr  -- full-width SD1.5 UNet (bf16, random seeded weights), a LoKr
+   LoHa's four grads (fused1, and the split form, fp32, also held to the
+   fused1 kernel's grads), GroupNorm dx/dgamma/dbeta, GEGLU d_hfull, the
+   fused LoRA matmul's dx (nn);
+4. lora_fused_op -- the public differentiable op ``fused_lora_matmul`` at
+   those shapes, forward and backward (bf16), against autograd of its
+   plain version: the path its kernels' launches are read from (neither
+   package dispatches it on the adapter path);
+5. lokr  -- full-width SD1.5 UNet (bf16, random seeded weights), a LoKr
    attn-mlp adapter loaded from a state dict, DDIM 20 steps with CFG for
    3 requests of 2 prompts; counts the kernel launches per UNet call and
    holds the live-adapter output against the merged-weight output;
-5. loha  -- the same with a LoHa adapter, fewer steps;
-6. e2e   -- one UNet call on the card (bf16, kernels) against the port on
+6. loha  -- the same with a LoHa adapter, fewer steps;
+7. lora  -- the same with a LoRA adapter (the default algorithm), 20 steps;
+8. e2e   -- one UNet call on the card (bf16, kernels) against the port on
    the CPU (fp32, plain versions) with the same weights;
-7. train_lokr -- ``DiffusionTrainer`` AdamW steps on the LoKr adapter at
+9. train_lokr -- ``DiffusionTrainer`` AdamW steps on the LoKr adapter at
    batch 8, 64x64 latents: launches per step of every kernel and of the
    factored backward, finite loss, every adapter changed, base unchanged;
-8. train_loha -- the same with the LoHa adapter;
-9. train_e2e -- one loss and every adapter gradient at batch 1, card (bf16,
-   kernels) against the port on the CPU (fp32, plain versions);
-10. train_sdxl_lokr -- the SD1.5 model freed, a full-width SDXL UNet (bf16,
-   random seeded weights, ``remat="transformer"``) trains LoKr at batch 4,
+10. train_loha, train_lora -- the same with the LoHa and LoRA adapters;
+11. train_locon_conv -- LoCon on the kohya "full" UNet targets (the
+   transformers, resnets, down/upsamplers, conv_in/out, the time
+   embedding; 3x3 convs with conv_dim 8): the adapted-layer hand count and
+   the checks of phase 9;
+12. train_loha_split -- LoHa with ``ops.hada.BWD = "split"``: the split
+   kernels in place of fused1, then one loss and the adapter grads at b8
+   held to fused1's;
+13. train_e2e, train_e2e_lora -- one loss and every adapter gradient (LoKr,
+   LoRA) at batch 1, card (bf16, kernels) against the port on the CPU
+   (fp32, plain versions);
+14. train_sdxl_lora -- the SD1.5 model freed, a full-width SDXL UNet (bf16,
+   random seeded weights, ``remat="transformer"``) trains LoRA at batch 4,
    128x128 latents, context (4, 77, 2048), ``added_cond`` (4, 2816): the
-   checks of phase 7, and the peak memory;
-11. train_sdxl_loha -- the same with LoHa;
-12. train_sdxl_e2e -- phase 9 on the SDXL model at 64x64 latents.
+   checks of phase 9, and the peak memory;
+15. train_sdxl_lokr, train_sdxl_loha -- the same with LoKr and LoHa;
+16. train_sdxl_e2e, train_sdxl_e2e_lora -- phase 13 on the SDXL model at
+   64x64 latents.
 
-The line before the last is the kernel table as JSON. Its path is SDXL
-training: per kernel the launches over the SDXL legs and the device ms per
-SDXL train step (kernel, plain, library, bound; each shape's time weighted
-by its launches per step), with the SD1.5 sums (per serving UNet call for
-the forward kernels, per batch-8 train step for the backward ones) under
-"sd15". The last line is ``{"ok": true, "device": {...}}``.
+The line before the last is the kernel table as JSON. Each kernel names the
+path its launches are read from (``path``): SDXL training (the first SDXL
+leg that runs it) for the kernels of the adapter path, ``lora_fused_op`` for
+the fused LoRA matmul, ``train_loha_split`` for the split LoHa backward; the
+run fails if a kernel was never launched there. Times are device ms per SDXL
+train step (kernel, plain, library, bound; each shape's time weighted by
+its launches, or for the fused LoRA matmul and the split LoHa backward,
+which no SDXL step dispatches, its layers per step: ``per`` says which), with the
+SD1.5 sums (per serving UNet call for the forward kernels, per batch-8 train
+step for the backward ones and the fused LoRA matmul) under "sd15". The
+last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -79,6 +104,8 @@ TRAIN_BATCH = 8  # SD1.5 training
 SDXL_BATCH = 4  # SDXL training, 128x128 latents
 SDXL_HW = 128
 SDXL_ADDED = 2816  # SDXL's add_embedding input: pooled text and time ids
+CONTEXT_TOKENS = 77  # text-encoder tokens of the context (attn2 k/v rows per sample)
+LORA_RANK = 8  # every smoke adapter: dim 8, alpha 4
 
 # published peaks of one H100 SXM (dense): the least time a kernel could take
 # is the larger of its operations over the peak for their type and the bytes
@@ -214,11 +241,13 @@ def unet_census(cfg, batch: int, hw: int) -> dict:
     """The GroupNorms and Transformer2DModels of one UNet call on ``batch`` x
     4 x ``hw`` x ``hw`` latents, walked block by block as
     ``UNet2DConditionModel.forward`` walks them: "gn" counts (C, S, act) of
-    every GroupNorm, "gn_grad" those a gradient reaches (every one after the
-    first adapted layer, the first Transformer2DModel's proj_in, which
-    follows that model's own norm), "transformers" lists (channels, tokens,
-    depth)."""
-    gn, gn_grad, transformers = Counter(), Counter(), []
+    every GroupNorm, "gn_grad" those a gradient reaches under attn-mlp
+    adapters (every one after the first adapted layer, the first
+    Transformer2DModel's proj_in, which follows that model's own norm),
+    "transformers" lists (channels, tokens, depth), "resnets" (in, out
+    channels), "samplers" counts the down- and upsamplers."""
+    gn, gn_grad, transformers, resnets = Counter(), Counter(), [], []
+    samplers = 0
     grad = False
 
     def norm(c, res, act):
@@ -229,6 +258,7 @@ def unet_census(cfg, batch: int, hw: int) -> dict:
     def resnet(c_in, c_out, res):
         norm(c_in, res, "silu")
         norm(c_out, res, "silu")
+        resnets.append((c_in, c_out))
 
     def transformer(c, res, depth):
         nonlocal grad
@@ -249,6 +279,7 @@ def unet_census(cfg, batch: int, hw: int) -> dict:
         if bi < len(chs) - 1:
             res //= 2
             skips.append(ch)
+            samplers += 1
     resnet(ch_in, ch_in, res)
     if cfg.mid_transformer_depth:
         transformer(ch_in, res, cfg.mid_transformer_depth)
@@ -261,21 +292,25 @@ def unet_census(cfg, batch: int, hw: int) -> dict:
                 transformer(ch_in, res, cfg.transformer_depth[bi])
         if bi > 0:
             res *= 2
+            samplers += 1
     norm(chs[0], res, "silu")  # conv_norm_out
-    return {"gn": gn, "gn_grad": gn_grad, "transformers": transformers}
+    return {"gn": gn, "gn_grad": gn_grad, "transformers": transformers, "resnets": resnets,
+            "samplers": samplers}
 
 
 def path_shapes(cfg, batch: int, hw: int) -> dict:
     """Each kernel's shapes in one UNet call, as Counters of shape ->
     launches: "flash" (B*H, T, D) of the self-attentions that take the flash
     kernel, "ln" (rows, C), "geglu" (B, T, 2F), "hada" (O, I) of the
-    attn-mlp adapted layers, "gn"/"gn_grad" (C, S, act); "factored" counts
-    the LoKr layers whose harmonic dimension takes the factored backward."""
+    attn-mlp adapted layers, "lora" (M, N, K) of their linear layers (M
+    rows of x, W (N, K)), "gn"/"gn_grad" (C, S, act); "factored" counts the
+    LoKr/LoRA layers whose harmonic dimension takes the factored backward,
+    "full_adapted" the layers the kohya "full" UNet targets adapt."""
     from lycoris_tpu_torch.functional.merged import worth_factoring
     from lycoris_tpu_torch.ops.attention import use_flash
 
     census = unet_census(cfg, batch, hw)
-    flash, ln, geglu, hada = Counter(), Counter(), Counter(), Counter()
+    flash, ln, geglu, hada, lora = Counter(), Counter(), Counter(), Counter(), Counter()
     factored = 0
     for ch, t, depth in census["transformers"]:
         heads = ch // cfg.head_dim if cfg.head_dim else cfg.num_heads
@@ -285,35 +320,51 @@ def path_shapes(cfg, batch: int, hw: int) -> dict:
         geglu[(batch, t, 8 * ch)] += depth
         hada[(ch, ch)] += 2  # proj_in, proj_out (1x1 convs)
         # attn1 q/k/v/out and attn2 q/out; attn2 k/v from the context; ff net_0, net_2
-        for shape, n in (((ch, ch), 6 * depth), ((ch, cfg.context_dim), 2 * depth),
-                         ((8 * ch, ch), depth), ((ch, 4 * ch), depth)):
+        for shape, n, rows in (((ch, ch), 6 * depth, batch * t),
+                               ((ch, cfg.context_dim), 2 * depth, batch * CONTEXT_TOKENS),
+                               ((8 * ch, ch), depth, batch * t), ((ch, 4 * ch), depth, batch * t)):
             hada[shape] += n
+            lora[(rows, *shape)] += n
             factored += n if worth_factoring(*shape) else 0
+    # kohya "full": each transformer's 10 linears per block and proj_in/out;
+    # each resnet's conv1, conv2, time_emb_proj and a conv_shortcut where the
+    # channels change; the down/upsampler convs; conv_in, conv_out and the
+    # time embedding's linear_1, linear_2
+    full = (sum(10 * depth + 2 for _, _, depth in census["transformers"])
+            + sum(3 + (c_in != c_out) for c_in, c_out in census["resnets"])
+            + census["samplers"] + 4)
     return {"gn": census["gn"], "gn_grad": census["gn_grad"], "flash": flash, "ln": ln,
-            "geglu": geglu, "hada": hada, "factored": factored}
+            "geglu": geglu, "hada": hada, "lora": lora, "factored": factored,
+            "full_adapted": full}
 
 
-def want_counts(shapes: dict, algo: str, train: bool, remat: bool) -> dict:
+def want_counts(shapes: dict, algo: str, train: bool, remat: bool, split: bool = False,
+                full: bool = False) -> dict:
     """Launches of every kernel, and factored layer applications, per UNet
     call (serving, no gradient) or per train step. With ``remat`` (the
     Transformer2DModels checkpointed) the backward runs each
     Transformer2DModel's forward again: its flash, LayerNorm and hada
     forwards, its factored layers and its GroupNorm (the act-free one) run
-    twice per step."""
+    twice per step. ``split``: LoHa's backward is the split form. ``full``:
+    the kohya "full" targets adapt conv_in, so a gradient reaches every
+    GroupNorm. The fused LoRA matmul is never dispatched on this path."""
     def tot(key):
         return sum(shapes[key].values())
 
     again = 2 if train and remat else 1
     loha = algo == "loha"
+    hada_bwd = tot("hada") if train and loha else 0
     gn_in_transformers = sum(n for (_, _, act), n in shapes["gn"].items() if act is None)
     return {
         "flash_fwd": again * tot("flash"), "layer_norm_fwd": again * tot("ln"),
         "hada_fwd": again * tot("hada") if loha else 0,
         "group_norm_fwd": tot("gn") + (again - 1) * gn_in_transformers,
         "flash_bwd": tot("flash") if train else 0, "layer_norm_bwd": tot("ln") if train else 0,
-        "hada_bwd": tot("hada") if train and loha else 0,
-        "group_norm_bwd": tot("gn_grad") if train else 0,
+        "hada_bwd": 0 if split else hada_bwd,
+        "group_norm_bwd": tot("gn" if full else "gn_grad") if train else 0,
         "geglu_bwd": tot("geglu") if train else 0,
+        "lora_fused_nt": 0, "lora_fused_nn": 0,
+        "hada_bwd_split": hada_bwd if split else 0,
         "factored": again * shapes["factored"] if train and not loha else 0,
     }
 
@@ -347,38 +398,58 @@ def want_counts(shapes: dict, algo: str, train: bool, remat: bool) -> dict:
 # twice: flash fwd 2 x 70 = 140, LayerNorm fwd 2 x 210 = 420, hada fwd 2 x 722
 # = 1444, factored 2 x 120 = 240, GroupNorm fwd 46 + 11 = 57; and each
 # backward once: flash 70, LayerNorm 210, hada 722, GroupNorm 39, GEGLU 70.
+#
+# LoRA (attn-mlp) has no kernel of its own on the merged path: its layers
+# run W + dW through cuBLAS, and its factored layers are the linear ones
+# whose harmonic dimension reaches 1024, as for LoKr (the 1x1-conv
+# proj_in/out are declined by factored_merged_fns): 12 per SD1.5 step, 240
+# per SDXL step (120 per UNet forward, run twice).
+#
+# LoCon on the kohya "full" SD1.5 targets: 16 transformers x 12 = 192; 22
+# resnets (8 down, 2 mid, 12 up) x 3 (conv1, conv2, time_emb_proj) = 66;
+# conv_shortcut where the channels change: down 320->640 and 640->1280, and
+# all 12 up resnets (their inputs carry a skip) = 14; 3 downsamplers + 3
+# upsamplers = 6; conv_in, conv_out, time_embedding.linear_1/_2 = 4; in all
+# 282 layers, 52 of them 3x3 convs (conv_dim 8). conv_in is adapted, so a
+# gradient reaches all 61 GroupNorms; the factored layers are the same 12
+# (no resnet or time-embedding linear reaches the threshold).
 SD15_CALL = {"flash_fwd": 10, "layer_norm_fwd": 48, "group_norm_fwd": 61}
 SD15_STEP = {"flash_fwd": 10, "layer_norm_fwd": 48, "group_norm_fwd": 61, "flash_bwd": 10,
              "layer_norm_bwd": 48, "group_norm_bwd": 58, "geglu_bwd": 16}
+SD15_STEP_FULL = {**SD15_STEP, "group_norm_bwd": 61}
 SDXL_STEP = {"flash_fwd": 140, "layer_norm_fwd": 420, "group_norm_fwd": 57, "flash_bwd": 70,
              "layer_norm_bwd": 210, "group_norm_bwd": 39, "geglu_bwd": 70}
 SD15_ADAPTED, SD15_FACTORED = 192, 12
 SDXL_ADAPTED, SDXL_FACTORED = 722, 120
+SD15_FULL_ADAPTED = 282
 
 
 def hand_counts(base: dict, adapted: int, factored: int, algo: str, train: bool,
-                again: int) -> dict:
-    """The launch counts above for one algorithm (hada for LoHa, factored
-    layers for LoKr when training)."""
+                again: int, split: bool = False) -> dict:
+    """The launch counts above for one algorithm (hada for LoHa, fused1 or
+    split backward; factored layers for LoKr and LoRA when training)."""
     loha = algo == "loha"
     out = {name: base.get(name, 0) for name in KERNELS}
     out["hada_fwd"] = again * adapted if loha else 0
-    out["hada_bwd"] = adapted if train and loha else 0
+    out["hada_bwd"] = adapted if train and loha and not split else 0
+    out["hada_bwd_split"] = adapted if train and loha and split else 0
     out["factored"] = again * factored if train and not loha else 0
     return out
 
 
-def checked_counts(cfg, batch, hw, algo, train, remat, base, adapted, factored) -> dict:
+def checked_counts(cfg, batch, hw, algo, train, remat, base, adapted, factored,
+                   split=False, full=False) -> dict:
     """The census's launch counts, failed unless they equal the hand count."""
-    got = want_counts(path_shapes(cfg, batch, hw), algo, train, remat)
-    want = hand_counts(base, adapted, factored, algo, train, 2 if train and remat else 1)
+    got = want_counts(path_shapes(cfg, batch, hw), algo, train, remat, split=split, full=full)
+    want = hand_counts(base, adapted, factored, algo, train, 2 if train and remat else 1,
+                       split=split)
     if got != want:
         fail(f"the UNet census gives {got}, the hand count {want}")
     return got
 
 
 # ---------------------------------------------------------------------------
-# phases 2-3: every kernel against its plain version
+# phases 2-4: every kernel against its plain version, the fused LoRA op
 # ---------------------------------------------------------------------------
 
 
@@ -706,6 +777,98 @@ class Checks:
                compare_all(dtype, (*got, dx_only), (*want, want[0])),
                f"({n},{c},{hw},{hw}) act={act}", times, per_call)
 
+    def _lora_inputs(self, m, n, k, dtype):
+        """x (M, K) and g (M, N) in ``dtype``, scaled so that y and dx are
+        O(1); W (N, K) in ``dtype``; the rank-8 factors fp32, as the path
+        keeps them."""
+        import torch
+
+        x = self.rnd((m, k), dtype)
+        g = self.rnd((m, n), dtype, min(1.0, (k / n) ** 0.5))
+        w = self.rnd((n, k), dtype, k**-0.5)
+        down = self.rnd((LORA_RANK, k), torch.float32, k**-0.5)
+        up = self.rnd((n, LORA_RANK), torch.float32, 0.1)
+        return x, g, w, down, up
+
+    def lora_fused_nt(self, path, m, n, k, dtype, per_call, timed):
+        import torch
+        from lycoris_tpu_torch.ops import lora_fused as lf
+
+        x, _, w, down, up = self._lora_inputs(m, n, k, dtype)
+        gamma = 0.5
+        y = lf.lora_fused_nt(x, w, down, up, gamma)
+        y_ref = lf.fused_lora_matmul_plain(x, w, down, up, gamma)
+        torch.cuda.synchronize()
+        times = None
+        if timed:
+            es = x.element_size()
+            nbytes = (m * k + n * k + m * n) * es + 4 * LORA_RANK * (n + k)
+            # the plain version is the merged route the path runs (the fp32
+            # merge, then one matmul): it is timed again as the library call
+            plain = lambda: lf.fused_lora_matmul_plain(x, w, down, up, gamma)  # noqa: E731
+            times = _times(lambda: lf.lora_fused_nt(x, w, down, up, gamma), plain,
+                           iters_for(nbytes),
+                           bound(2.0 * m * n * k + 2.0 * n * k * LORA_RANK, nbytes,
+                                 str(dtype)[6:]),
+                           lambda it: graph_ms(plain, it))
+        record(self.results, "lora_fused_nt", path, compare(dtype, y, y_ref), f"({m},{n},{k})",
+               times, per_call)
+
+    def lora_fused_nn(self, path, m, n, k, dtype, per_call, timed):
+        import torch
+        import torch.nn.functional as F
+        from lycoris_tpu_torch.ops import lora_fused as lf
+
+        x, g, w, down, up = self._lora_inputs(m, n, k, dtype)
+        gamma = 0.5
+        dx = lf.lora_fused_nn(g, w, down, up, gamma)
+        dx_ref = lf.fused_lora_dx_plain(g, w, down, up, gamma)
+        torch.cuda.synchronize()
+        times = None
+        if timed:
+            es = x.element_size()
+            nbytes = (m * n + n * k + m * k) * es + 4 * LORA_RANK * (n + k)
+            # library: the autograd backward (dx) of the merged route, whose
+            # merge runs in its forward
+            times = _times(lambda: lf.lora_fused_nn(g, w, down, up, gamma),
+                           lambda: lf.fused_lora_dx_plain(g, w, down, up, gamma),
+                           iters_for(nbytes),
+                           bound(2.0 * m * n * k + 2.0 * n * k * LORA_RANK, nbytes,
+                                 str(dtype)[6:]),
+                           lambda it: _library_bwd_ms(
+                               lambda xl: F.linear(xl, lf.effective_weight_plain(
+                                   w, down, up, gamma, xl.dtype)), (x,), g, it))
+        record(self.results, "lora_fused_nn", path, compare(dtype, dx, dx_ref), f"({m},{n},{k})",
+               times, per_call)
+
+    def hada_bwd_split(self, path, o_, i_, dtype, per_call, timed):
+        import torch
+        from lycoris_tpu_torch.ops import hada
+
+        w1d, w2d = self.rnd((8, i_), dtype), self.rnd((8, i_), dtype)
+        w1u, w2u = self.rnd((o_, 8), dtype, 0.1), self.rnd((o_, 8), dtype, 0.1)
+        g = self.rnd((o_, i_), dtype, 1e-3)
+        got = hada.hada_bwd_split(w1d, w1u, w2d, w2u, 0.5, g)
+        want = hada.hada_weight_bwd_split_plain(w1d, w1u, w2d, w2u, 0.5, g)
+        fused = hada.hada_bwd(w1d, w1u, w2d, w2u, 0.5, g)
+        torch.cuda.synchronize()
+        vs_fused = max(rel_l2(a, f) for a, f in zip(got, fused))
+        log(f"[kernels] hada_bwd_split {path} ({o_},{i_}) against the fused1 kernel: rel L2 "
+            f"{vs_fused:.3e} (bound 1e-5)")
+        times = None
+        if timed:
+            nbytes = (o_ * i_ + 4 * 8 * (o_ + i_)) * g.element_size()
+            # the function's own cost, as for hada_bwd: g and the factors
+            # read once, the four grads written, 6R multiply-adds per element
+            # of g (the split form reads g twice and forms both products in
+            # each kernel: its extra work, not the function's)
+            times = _times(lambda: hada.hada_bwd_split(w1d, w1u, w2d, w2u, 0.5, g),
+                           lambda: hada.hada_weight_bwd_split_plain(w1d, w1u, w2d, w2u, 0.5, g),
+                           iters_for(nbytes), bound(2.0 * 6 * 8 * o_ * i_, nbytes, "float32"))
+        ok, *stats = compare_all(dtype, got, want)
+        record(self.results, "hada_bwd_split", path, (ok and vs_fused <= 1e-5, *stats),
+               f"({o_},{i_})", times, per_call)
+
     def geglu_bwd(self, path, b, t, f2, dtype, per_call, timed):
         import torch
         from lycoris_tpu_torch.ops import geglu
@@ -763,11 +926,19 @@ def phase_kernels(results: dict):
             for dt in dts:
                 ck.group_norm_fwd(path, b, c, s, act, dt, n * (again if act is None else 1),
                                   dt == dts[0])
+    # the fused LoRA matmul at the LoRA training legs' linear shapes (SD1.5
+    # b8, SDXL b4), weighted by the layers of each shape per train step
+    for path, sh, _, _, again in _paths(train=True):
+        for (m, n, k), layers in sh["lora"].items():
+            for dt in (torch.bfloat16, torch.float32):
+                ck.lora_fused_nt(path, m, n, k, dt, layers * again, dt == torch.bfloat16)
 
 
 def phase_kernels_bwd(results: dict):
     """Each backward kernel at the SD1.5 training shapes (batch 8) and the
     SDXL training shapes (batch 4), per train step."""
+    import torch
+
     ck = Checks(results, seed=1)
     for path, sh, dts, hada_dts, _ in _paths(train=True):
         for (bh, t, d), n in sh["flash"].items():
@@ -786,58 +957,152 @@ def phase_kernels_bwd(results: dict):
         for (bb, t, f2), n in sh["geglu"].items():
             for dt in dts:
                 ck.geglu_bwd(path, bb, t, f2, dt, n, dt == dts[0])
+        for (o_, i_), n in sh["hada"].items():
+            ck.hada_bwd_split(path, o_, i_, torch.float32, n, True)
+        for (m, n_, k), layers in sh["lora"].items():
+            for dt in (torch.bfloat16, torch.float32):
+                ck.lora_fused_nn(path, m, n_, k, dt, layers, dt == torch.bfloat16)
 
 
+def phase_lora_fused_op(results: dict):
+    """The public op ``fused_lora_matmul`` (forward kernel, then its
+    backward: the dx kernel and the fp32 factor gradients) at every linear
+    shape of the SD1.5 b8 and SDXL b4 LoRA legs in bf16, against autograd of
+    its plain version. Neither package dispatches it on the adapter path, so
+    this is the path its kernels' launches are read from: the counts are
+    set to 0 just before and read just after."""
+    import torch
+    from lycoris_tpu_torch.ops import lora_fused as lf
+
+    ck = Checks(results, seed=2)
+    cases = []
+    for path, sh, _, _, _ in _paths(train=True):
+        for m, n, k in sh["lora"]:
+            x, g, w, down, up = ck._lora_inputs(m, n, k, torch.bfloat16)
+            cases.append((path, (m, n, k), w, g, [x, down, up]))
+    outs = []
+    torch.cuda.synchronize()
+    lf.launches = lf.dx_launches = 0
+    for _, _, w, g, inputs in cases:
+        leaves = [t.detach().clone().requires_grad_(True) for t in inputs]
+        y = lf.fused_lora_matmul(leaves[0], w, leaves[1], leaves[2], 0.5)
+        outs.append((y.detach(), *torch.autograd.grad(y, leaves, g)))
+    torch.cuda.synchronize()
+    launches = {"lora_fused_nt": lf.launches, "lora_fused_nn": lf.dx_launches}
+    if launches != {"lora_fused_nt": len(cases), "lora_fused_nn": len(cases)}:
+        fail(f"[lora_fused_op] launches {launches}, want {len(cases)} of each")
+    for name, n in launches.items():
+        results[name]["launches"] = n
+    worst = 0.0
+    for (path, shape, w, g, inputs), got in zip(cases, outs):
+        leaves = [t.detach().clone().requires_grad_(True) for t in inputs]
+        y = lf.fused_lora_matmul_plain(leaves[0], w, leaves[1], leaves[2], 0.5)
+        want = (y.detach(), *torch.autograd.grad(y, leaves, g))
+        # each output in units of its reference's RMS: the factor gradients
+        # sum over up to 32768 tokens, so the bf16 MSE bound, written for O(1)
+        # outputs, is applied relative to their size
+        rms = [float(b.float().pow(2).mean().sqrt()) for b in want]
+        ok, _, _, rel, _, _ = compare_all(torch.bfloat16, [a.float() / r for a, r in zip(got, rms)],
+                                          [b.float() / r for b, r in zip(want, rms)])
+        worst = max(worst, rel)
+        if not ok:
+            fail(f"[lora_fused_op] {path} {shape}: y or a gradient over its bf16 bound "
+                 f"(rel L2 {rel:.3e})")
+    log(f"[lora_fused_op] fused_lora_matmul forward + backward at {len(cases)} shapes: "
+        f"launches {launches}; worst rel L2 of y, dx, d_down, d_up against autograd of the "
+        f"plain version {worst:.3e} (bound 1e-2)")
+
+
+# each kernel: its route and source, the TPU kernel it replaces, and the path
+# its launches are read from: "train_sdxl" (the SDXL LoRA, LoKr and LoHa
+# legs, the adapter training path of bench.py's headline case),
+# "lora_fused_op" (the public fused_lora_matmul op, which neither package
+# dispatches on the adapter path), "train_loha_split" (SD1.5 LoHa with
+# ops.hada.BWD = "split")
 KERNELS = {
     "flash_fwd": {
         "route": "cuda",
         "source": "lycoris_tpu_torch/csrc/flash_fwd.cu",
+        "path": "train_sdxl",
         "replaces": "lycoris_tpu/ops/flash.py:87",
     },
     "layer_norm_fwd": {
         "route": "cuda",
         "source": "lycoris_tpu_torch/csrc/ln_fwd.cu",
+        "path": "train_sdxl",
         "replaces": "lycoris_tpu/ops/layer_norm.py:84",
     },
     "hada_fwd": {
         "route": "cuda",
         "source": "lycoris_tpu_torch/csrc/hada_fwd.cu",
+        "path": "train_sdxl",
         "replaces": "lycoris_tpu/ops/hada.py:76",
     },
     "flash_bwd": {
         "route": "cuda",
         "source": "lycoris_tpu_torch/csrc/flash_bwd.cu",
+        "path": "train_sdxl",
         "replaces": "lycoris_tpu/ops/flash.py:238",
     },
     "layer_norm_bwd": {
         "route": "cuda",
         "source": "lycoris_tpu_torch/csrc/ln_bwd.cu",
+        "path": "train_sdxl",
         "replaces": "lycoris_tpu/ops/layer_norm.py:104",
     },
     "hada_bwd": {
         "route": "cuda",
         "source": "lycoris_tpu_torch/csrc/hada_bwd.cu",
+        "path": "train_sdxl",
         "replaces": "lycoris_tpu/ops/hada.py:188",
     },
     "group_norm_fwd": {
         "route": "cuda",
         "source": "lycoris_tpu_torch/csrc/gn_fwd.cu",
+        "path": "train_sdxl",
         "replaces": "lycoris_tpu/ops/group_norm_v2.py:125",
     },
     "group_norm_bwd": {
         "route": "cuda",
         "source": "lycoris_tpu_torch/csrc/gn_bwd.cu",
+        "path": "train_sdxl",
         "replaces": "lycoris_tpu/ops/group_norm_v2.py:125",
     },
     "geglu_bwd": {
         "route": "cuda",
         "source": "lycoris_tpu_torch/csrc/geglu_bwd.cu",
+        "path": "train_sdxl",
         "replaces": "lycoris_tpu/ops/geglu.py:58",
+    },
+    "lora_fused_nt": {
+        "route": "cuda",
+        "source": "lycoris_tpu_torch/csrc/lora_fused.cu",
+        "path": "lora_fused_op",
+        "replaces": "lycoris_tpu/ops/lora_fused.py:97",
+        "per": "the LoRA linear layers of one SDXL b4 train step (the op is not dispatched there)",
+    },
+    "lora_fused_nn": {
+        "route": "cuda",
+        "source": "lycoris_tpu_torch/csrc/lora_fused.cu",
+        "path": "lora_fused_op",
+        "replaces": "lycoris_tpu/ops/lora_fused.py:97",
+        "per": "the LoRA linear layers of one SDXL b4 train step (the op is not dispatched there)",
+    },
+    "hada_bwd_split": {
+        "route": "cuda",
+        "source": "lycoris_tpu_torch/csrc/hada_bwd_split.cu",
+        "path": "train_loha_split",
+        "replaces": "lycoris_tpu/ops/hada.py:225",
+        "per": "the LoHa layers of one SDXL b4 train step (launches: the SD1.5 b8 split leg)",
     },
 }
 
+# what a kernel's times in the kernel line are summed over, unless its entry
+# names another denominator
+PER_SDXL_STEP = "one SDXL b4 train step (launches: the first SDXL leg that runs the kernel)"
+
 # ---------------------------------------------------------------------------
-# phases 4-6: the serving path
+# phases 5-8: the serving path
 # ---------------------------------------------------------------------------
 
 ADAPTER_FILL_STD = 0.02  # seeded values added to every trainable factor
@@ -853,17 +1118,27 @@ def build_unet(device, dtype, seed, config="sd15", remat=False):
     return model.eval()
 
 
-def adapter_state_dict(model, algo: str, device, seed: int) -> dict:
-    """A LyCORIS attn-mlp adapter (dim 8, alpha 4; LoKr factor 8) in the
-    reference key grammar, with seeded nonzero factors: LoKr's lokr_w2(_b)
-    and LoHa's hada_w2_a start at zero, which would make dW = 0."""
+# the kohya "full" UNet targets (config.py PRESET["full"]'s unet_* lists),
+# given to the standalone wrapper as target_module / target_name
+FULL_UNET_TARGETS = {
+    "target_module": ["Transformer2DModel", "ResnetBlock2D", "Downsample2D", "Upsample2D"],
+    "target_name": ["conv_in", "conv_out", "time_embedding.linear_1", "time_embedding.linear_2"],
+}
+
+
+def adapter_state_dict(model, algo: str, device, seed: int, preset=None) -> dict:
+    """A LyCORIS adapter (dim 8, alpha 4; LoKr factor 8; 3x3 convs conv_dim 8,
+    conv_alpha 4) on the attn-mlp targets, or ``preset``, in the reference
+    key grammar, with seeded nonzero factors: LoKr's lokr_w2(_b), LoHa's
+    hada_w2_a and LoRA's lora_up start at zero, which would make dW = 0."""
     import torch
     from lycoris_tpu_torch import LycorisNetwork, create_lycoris
 
-    LycorisNetwork.apply_preset({"target_module": ["Transformer2DModel"]})
+    LycorisNetwork.apply_preset(preset or {"target_module": ["Transformer2DModel"]})
     try:
-        src = create_lycoris(model, 1.0, linear_dim=8, linear_alpha=4.0, algo=algo, factor=8,
-                             device=device, seed=seed)
+        src = create_lycoris(model, 1.0, linear_dim=LORA_RANK, linear_alpha=4.0, algo=algo,
+                             factor=8, conv_dim=LORA_RANK, conv_alpha=4.0, device=device,
+                             seed=seed)
     finally:
         LycorisNetwork.reset_preset()
     gen = torch.Generator(device=device).manual_seed(seed + 1)
@@ -875,24 +1150,27 @@ def adapter_state_dict(model, algo: str, device, seed: int) -> dict:
 
 def reset_counts():
     from lycoris_tpu_torch.functional import merged
-    from lycoris_tpu_torch.ops import flash, geglu, group_norm, hada, layer_norm
+    from lycoris_tpu_torch.ops import flash, geglu, group_norm, hada, layer_norm, lora_fused
 
     flash.launches = layer_norm.launches = hada.launches = group_norm.launches = 0
     flash.bwd_launches = layer_norm.bwd_launches = hada.bwd_launches = 0
     group_norm.bwd_launches = geglu.bwd_launches = group_norm.copies = 0
+    lora_fused.launches = lora_fused.dx_launches = hada.split_launches = 0
     merged.applications = 0
 
 
 def read_counts() -> dict:
     """Launches of every kernel, and factored layer applications."""
     from lycoris_tpu_torch.functional import merged
-    from lycoris_tpu_torch.ops import flash, geglu, group_norm, hada, layer_norm
+    from lycoris_tpu_torch.ops import flash, geglu, group_norm, hada, layer_norm, lora_fused
 
     return {"flash_fwd": flash.launches, "layer_norm_fwd": layer_norm.launches,
             "hada_fwd": hada.launches, "group_norm_fwd": group_norm.launches,
             "flash_bwd": flash.bwd_launches, "layer_norm_bwd": layer_norm.bwd_launches,
             "hada_bwd": hada.bwd_launches, "group_norm_bwd": group_norm.bwd_launches,
-            "geglu_bwd": geglu.bwd_launches, "factored": merged.applications}
+            "geglu_bwd": geglu.bwd_launches, "lora_fused_nt": lora_fused.launches,
+            "lora_fused_nn": lora_fused.dx_launches, "hada_bwd_split": hada.split_launches,
+            "factored": merged.applications}
 
 
 def gn_copies() -> int:
@@ -1029,22 +1307,25 @@ def phase_e2e(model, sd):
 
 
 # ---------------------------------------------------------------------------
-# phases 7-12: the training paths
+# phases 9-16: the training paths
 # ---------------------------------------------------------------------------
 
 
-def train(model, algo, sd, batch, want, steps, results, card, tag, main_path):
+def train(model, algo, sd, batch, want, steps, results, card, tag, path=None, adapted=None):
     """``steps`` AdamW steps of ``DiffusionTrainer`` on the adapter in ``sd``
     (the first a warm-up); per step: launches of every kernel and factored
     layer (``want``), finite loss; then every adapter parameter changed and
-    the base weights bit-identical. On the ``main_path`` the launches go
-    into the kernel table."""
+    the base weights bit-identical. ``adapted``: the adapter-module count
+    the network must have. The launches of the kernels whose ``path`` is
+    ``path`` go into the kernel table."""
     import torch
     from lycoris_tpu_torch import create_lycoris_from_weights
     from lycoris_tpu_torch.trainer import DiffusionTrainer
 
     dev = torch.device("cuda")
     net, _ = create_lycoris_from_weights(1.0, None, model, weights_sd=sd)
+    if adapted is not None and len(net.loras) != adapted:
+        fail(f"{tag} {len(net.loras)} adapter modules, want {adapted}")
     tr = DiffusionTrainer(model, net, lr=1e-4, weight_dtype=torch.bfloat16,
                           generator=torch.Generator(device=dev).manual_seed(21))
     base = [p.detach().clone() for p in model.parameters()]
@@ -1069,10 +1350,9 @@ def train(model, algo, sd, batch, want, steps, results, card, tag, main_path):
             fail(f"{tag} loss {losses[-1]} at step {len(losses)}")
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"{tag} launches per step {want} over {steps} steps; GroupNorm input copies {copies}")
-    if main_path:
-        for name in KERNELS:
-            if want.get(name) and not results[name]["launches"]:
-                results[name]["launches"] = totals[name]
+    for name, meta in KERNELS.items():
+        if meta["path"] == path and want.get(name) and not results[name]["launches"]:
+            results[name]["launches"] = totals[name]
     unchanged = [k for k, p in net.named_parameters() if torch.equal(p.detach(), before[k])]
     if unchanged:
         fail(f"{tag} {len(unchanged)} adapter parameters did not change, e.g. {unchanged[:3]}")
@@ -1115,8 +1395,57 @@ def sdxl_batch():
     }
 
 
+def phase_loha_split(model, sd, batch, results, card):
+    """LoHa at b8 with ``ops.hada.BWD = "split"``: 3 train steps whose LoHa
+    backwards all take the split kernels (hada_bwd 0, hada_bwd_split 192 a
+    step), then one loss and every adapter gradient under split against
+    fused1 on the same batch, noise and timesteps (rel 1e-3: the two forms
+    differ in summation order, and cuDNN's backward may differ run to
+    run). The selection is reset in a ``finally``."""
+    import torch
+    from lycoris_tpu_torch import create_lycoris_from_weights
+    from lycoris_tpu_torch.models.unet import sd15_config
+    from lycoris_tpu_torch.ops import hada
+    from lycoris_tpu_torch.trainer import DiffusionTrainer
+
+    want = checked_counts(sd15_config(), TRAIN_BATCH, 64, "loha", True, False, SD15_STEP,
+                          SD15_ADAPTED, SD15_FACTORED, split=True)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(23)
+    noise = torch.randn(batch["latents"].shape, generator=gen, device=dev)
+    t = torch.randint(0, 1000, (TRAIN_BATCH,), generator=gen, device=dev)
+    got = {}
+    try:
+        hada.BWD = "split"
+        train(model, "loha", sd, batch, want, 3, results, card, "[train_loha_split]",
+              path="train_loha_split")
+        for mode in ("split", "fused1"):
+            hada.BWD = mode
+            net, _ = create_lycoris_from_weights(1.0, None, model, weights_sd=sd)
+            tr = DiffusionTrainer(model, net, weight_dtype=torch.bfloat16)
+            loss = tr.loss_fn(batch["latents"], batch["context"], noise, t)
+            loss.backward()
+            grads = torch.cat([p.grad.float().reshape(-1)
+                               for _, sub in sorted(net.trainable_params().items())
+                               for _, p in sorted(sub.items())])
+            got[mode] = (float(loss.detach()), grads)
+            net.restore()
+            del tr, net, loss
+    finally:
+        hada.BWD = "fused1"
+    (loss_s, g_s), (loss_f, g_f) = got["split"], got["fused1"]
+    loss_rel, grad_rel = abs(loss_s - loss_f) / abs(loss_f), rel_l2(g_s, g_f)
+    log(f"[train_loha_split] b{TRAIN_BATCH} loss split {loss_s:.6f} vs fused1 {loss_f:.6f}: rel "
+        f"{loss_rel:.3e}; adapter gradient ({g_f.numel()} values) rel L2 {grad_rel:.3e} "
+        f"(bounds 1e-3)")
+    if not (loss_rel <= 1e-3 and grad_rel <= 1e-3 and bool(torch.isfinite(g_s).all())):
+        fail(f"[train_loha_split] split vs fused1: loss rel {loss_rel:.3e}, gradient rel L2 "
+             f"{grad_rel:.3e}")
+    torch.cuda.empty_cache()
+
+
 def phase_train_e2e(model, sd, cfg_cpu, tag, ctx_dim=768, added_dim=None):
-    """One eps-MSE loss and every LoKr adapter gradient at full width,
+    """One eps-MSE loss and every adapter gradient (LoKr or LoRA) at full width,
     batch 1, 64x64 latents: the card (bf16, kernels, factored backward)
     against the port on the CPU (fp32, plain versions), with the same noise
     and timestep."""
@@ -1205,6 +1534,8 @@ def main() -> int:
         phase_kernels(results)
     with phase("kernels_bwd"):
         phase_kernels_bwd(results)
+    with phase("lora_fused_op"):
+        phase_lora_fused_op(results)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -1213,26 +1544,38 @@ def main() -> int:
     log(f"[unet] SD1.5 full width, bf16, {sum(p.numel() for p in model.parameters())} "
         f"params drawn on the card in {time.perf_counter() - t0:.2f} s")
     with torch.no_grad():
-        sd_lokr = adapter_state_dict(model, "lokr", dev, seed=1)
-        sd_loha = adapter_state_dict(model, "loha", dev, seed=2)
-    with phase("lokr"):
-        serve(model, "lokr", sd_lokr, requests=3, steps=20, results=results, card=card)
-    with phase("loha"):
-        serve(model, "loha", sd_loha, requests=3, steps=10, results=results, card=card)
+        sds = {"lokr": adapter_state_dict(model, "lokr", dev, seed=1),
+               "loha": adapter_state_dict(model, "loha", dev, seed=2),
+               "lora": adapter_state_dict(model, "lora", dev, seed=6)}
+        sd_conv = adapter_state_dict(model, "locon", dev, seed=7, preset=FULL_UNET_TARGETS)
+    for algo, steps in (("lokr", 20), ("loha", 10), ("lora", 20)):
+        with phase(algo):
+            serve(model, algo, sds[algo], requests=3, steps=steps, results=results, card=card)
     with phase("e2e"):
-        phase_e2e(model, sd_lokr)
+        phase_e2e(model, sds["lokr"])
     batch = sd15_batch()
-    for algo, steps in (("lokr", 5), ("loha", 3)):
+    for algo, steps in (("lokr", 5), ("loha", 3), ("lora", 5)):
         with phase(f"train_{algo}"):
             want = checked_counts(sd15_config(), TRAIN_BATCH, 64, algo, True, False, SD15_STEP,
                                   SD15_ADAPTED, SD15_FACTORED)
-            train(model, algo, sd_lokr if algo == "lokr" else sd_loha, batch, want, steps,
-                  results, card, f"[train_{algo}]", main_path=False)
-    with phase("train_e2e"):
-        phase_train_e2e(model, sd_lokr, sd15_config(torch.float32), "[train_e2e]")
+            train(model, algo, sds[algo], batch, want, steps, results, card, f"[train_{algo}]")
+    with phase("train_locon_conv"):
+        full = path_shapes(sd15_config(), TRAIN_BATCH, 64)["full_adapted"]
+        if full != SD15_FULL_ADAPTED:
+            fail(f"the UNet census gives {full} layers under the full targets, the hand count "
+                 f"{SD15_FULL_ADAPTED}")
+        want = checked_counts(sd15_config(), TRAIN_BATCH, 64, "locon", True, False,
+                              SD15_STEP_FULL, SD15_ADAPTED, SD15_FACTORED, full=True)
+        train(model, "locon", sd_conv, batch, want, 3, results, card, "[train_locon_conv]",
+              adapted=SD15_FULL_ADAPTED)
+    with phase("train_loha_split"):
+        phase_loha_split(model, sds["loha"], batch, results, card)
+    for algo, tag in (("lokr", "[train_e2e]"), ("lora", "[train_e2e_lora]")):
+        with phase(tag.strip("[]")):
+            phase_train_e2e(model, sds[algo], sd15_config(torch.float32), tag)
 
     # SDXL: the SD1.5 model freed first
-    del model, sd_lokr, sd_loha, batch
+    del model, sds, sd_conv, batch
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -1241,24 +1584,26 @@ def main() -> int:
         f"{sum(p.numel() for p in model.parameters())} params drawn on the card in "
         f"{time.perf_counter() - t0:.2f} s")
     with torch.no_grad():
-        sd_lokr = adapter_state_dict(model, "lokr", dev, seed=4)
-        sd_loha = adapter_state_dict(model, "loha", dev, seed=5)
+        sds = {"lora": adapter_state_dict(model, "lora", dev, seed=8),
+               "lokr": adapter_state_dict(model, "lokr", dev, seed=4),
+               "loha": adapter_state_dict(model, "loha", dev, seed=5)}
     batch = sdxl_batch()
-    for algo, steps in (("lokr", 4), ("loha", 3)):
+    for algo, steps in (("lora", 4), ("lokr", 4), ("loha", 3)):
         with phase(f"train_sdxl_{algo}"):
             want = checked_counts(sdxl_config(), SDXL_BATCH, SDXL_HW, algo, True, True,
                                   SDXL_STEP, SDXL_ADAPTED, SDXL_FACTORED)
-            train(model, algo, sd_lokr if algo == "lokr" else sd_loha, batch, want, steps,
-                  results, card, f"[train_sdxl_{algo}]", main_path=True)
+            train(model, algo, sds[algo], batch, want, steps, results, card,
+                  f"[train_sdxl_{algo}]", path="train_sdxl")
     del batch
     torch.cuda.empty_cache()
-    with phase("train_sdxl_e2e"):
-        phase_train_e2e(model, sd_lokr, sdxl_config(torch.float32), "[train_sdxl_e2e]",
-                        ctx_dim=2048, added_dim=SDXL_ADDED)
+    for algo, tag in (("lokr", "[train_sdxl_e2e]"), ("lora", "[train_sdxl_e2e_lora]")):
+        with phase(tag.strip("[]")):
+            phase_train_e2e(model, sds[algo], sdxl_config(torch.float32), tag, ctx_dim=2048,
+                            added_dim=SDXL_ADDED)
 
-    for name in KERNELS:
+    for name, meta in KERNELS.items():
         if results[name]["launches"] <= 0:
-            fail(f"{name} was never launched on the main path")
+            fail(f"{name} was never launched on its path ({meta['path']})")
     log(f"[serving] {json.dumps(results['serving'])}")
     log(f"[training] {json.dumps(results['training'])}")
     log(f"[total] {time.perf_counter() - t_start:.2f} s")
@@ -1274,7 +1619,8 @@ def main() -> int:
     for name, meta in KERNELS.items():
         r = results[name]
         table.append({"name": name, "route": meta["route"], "source": meta["source"],
-                      "replaces": meta["replaces"], "launches": r["launches"],
+                      "replaces": meta["replaces"], "path": meta["path"],
+                      "per": meta.get("per", PER_SDXL_STEP), "launches": r["launches"],
                       "max_abs_err": r["max_abs_err"], **sums(r["sdxl"]), "sd15": sums(r["sd15"])})
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

@@ -1,14 +1,17 @@
 """lycoris_tpu_torch -- the PyTorch/CUDA port of lycoris_tpu.
 
 The port so far: the SD1.5/SDXL UNet (:mod:`.models.unet`, with whole-block
-checkpointing), LoKr and LoHa adapters (:mod:`.modules`) targeted and
+checkpointing), LoRA/LoCon (the default), LoKr and LoHa adapters
+(:mod:`.modules`) targeted and
 applied by :class:`LycorisNetwork`, DDIM sampling with CFG
 (:mod:`.sampler`), and adapter training by :class:`DiffusionTrainer`
 (:mod:`.trainer`) with the factored merged backward
 (:mod:`.functional.merged`). Flash attention, LayerNorm, the LoHa delta
 weight and GroupNorm(+SiLU) run hand-written CUDA kernels on the card,
-forward and backward, and so does the GEGLU backward (:mod:`.ops`); on the
-CPU each runs its plain PyTorch version. The package never imports JAX.
+forward and backward, and so does the GEGLU backward (:mod:`.ops`), beside
+the opt-in split LoHa backward and the fused LoRA matmul
+(:func:`.ops.lora_fused.fused_lora_matmul`); on the CPU each runs its plain
+PyTorch version. The package never imports JAX.
 """
 
 __version__ = "0.1.0"
@@ -16,6 +19,7 @@ __version__ = "0.1.0"
 from . import functional, modules
 from .graph import ModelGraph
 from .logging import logger
+from .modules.locon import LoConModule
 from .modules.loha import LohaModule
 from .modules.lokr import LokrModule
 from .trainer import DiffusionTrainer
@@ -30,6 +34,7 @@ __all__ = [
     "create_lycoris",
     "create_lycoris_from_weights",
     "DiffusionTrainer",
+    "LoConModule",
     "LohaModule",
     "LokrModule",
 ]

@@ -1,7 +1,7 @@
-"""Stateless math of the port: shared ops (:mod:`.general`), LoKr
-(:mod:`.lokr`), LoHa (:mod:`.loha`) and the factored merged backward
-(:mod:`.merged`)."""
+"""Stateless math of the port: shared ops (:mod:`.general`), LoRA/LoCon
+(:mod:`.locon`), LoKr (:mod:`.lokr`), LoHa (:mod:`.loha`) and the factored
+merged backward (:mod:`.merged`)."""
 
-from . import general, loha, lokr, merged
+from . import general, locon, loha, lokr, merged
 
-__all__ = ["general", "loha", "lokr", "merged"]
+__all__ = ["general", "locon", "loha", "lokr", "merged"]

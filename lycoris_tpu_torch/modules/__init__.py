@@ -1,10 +1,10 @@
 """Adapter module registry (counterpart of ``lycoris_tpu/modules/__init__.py``).
 
 ``MODULE_LIST`` keeps the JAX package's detection order (first
-``algo_check`` hit wins). LoKr and LoHa are ported; every other algorithm
-is detected by its keys and then raises ``NotImplementedError`` naming
-itself, so a file of an unported kind fails loudly instead of loading
-without its adapters.
+``algo_check`` hit wins). LoRA/LoCon, LoKr and LoHa are ported; every
+other algorithm is detected by its keys and then raises
+``NotImplementedError`` naming itself, so a file of an unported kind fails
+loudly instead of loading without its adapters.
 """
 
 from __future__ import annotations
@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from .base import LayerInfo, LycorisBaseModule
+from .locon import LoConModule
 from .loha import LohaModule
 from .lokr import LokrModule
 
@@ -49,7 +50,6 @@ def _unported(name: str, det: list, ndim: int | None = None):
                 {"name": name, "weight_list_det": det, "det_ndim": ndim})
 
 
-LoConModule = _unported("locon", ["lora_up.weight"])
 IA3Module = _unported("ia3", ["on_input"])
 FullModule = _unported("full", ["diff"])
 NormModule = _unported("norm", ["w_norm"])
@@ -102,6 +102,7 @@ def make_module(module_class, params, lora_name, layer: LayerInfo, dtype=torch.f
 __all__ = [
     "LayerInfo",
     "LycorisBaseModule",
+    "LoConModule",
     "LohaModule",
     "LokrModule",
     "MODULE_LIST",

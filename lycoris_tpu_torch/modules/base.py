@@ -138,28 +138,45 @@ class LycorisBaseModule(nn.Module):
         self.trainable: set[str] = set()
 
     # -- tensors under their reference keys ----------------------------------
+    def _owner(self, key: str, create: bool = False):
+        """(module, name) that holds ``key``: a dotted key (``lora_up.weight``)
+        lives on a child module named by its prefix, as in the reference, so
+        ``named_parameters()`` gives the state-dict key."""
+        if "." not in key:
+            return self, key
+        child, name = key.split(".", 1)
+        mod = self._modules.get(child)
+        if mod is None and create:
+            mod = nn.Module()
+            self.add_module(child, mod)
+        return mod, name
+
     def _set(self, key: str, value: torch.Tensor, trainable: bool | None = None):
         """Register ``value`` under ``key``: a Parameter if trainable, else a buffer."""
-        if key in self._parameters:
-            del self._parameters[key]
-        if key in self._buffers:
-            del self._buffers[key]
+        mod, name = self._owner(key, create=True)
+        if name in mod._parameters:
+            del mod._parameters[name]
+        if name in mod._buffers:
+            del mod._buffers[name]
         if trainable is None:
             trainable = key in self.trainable
         if trainable:
-            self.register_parameter(key, nn.Parameter(value, requires_grad=True))
+            mod.register_parameter(name, nn.Parameter(value, requires_grad=True))
         else:
-            self.register_buffer(key, value)
+            mod.register_buffer(name, value)
 
     def _p(self, key):
-        if key in self._parameters:
-            return self._parameters[key]
-        return self._buffers.get(key)
+        mod, name = self._owner(key)
+        if mod is None:
+            return None
+        if name in mod._parameters:
+            return mod._parameters[name]
+        return mod._buffers.get(name)
 
     @property
     def params(self) -> dict:
         """Every tensor of the adapter by key (parameters and buffers)."""
-        return {**dict(self._buffers), **dict(self._parameters)}
+        return {**dict(self.named_buffers()), **dict(self.named_parameters())}
 
     @property
     def module_type(self) -> str:

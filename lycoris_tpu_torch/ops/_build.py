@@ -41,6 +41,9 @@ _SIGNATURES = {
     "lyc_gn_fwd": [_P] * 8 + [_I] * 6 + [_F, _I, _I, _I, _P],
     "lyc_gn_bwd": [_P] * 14 + [_I] * 9 + [_P],
     "lyc_geglu_bwd": [_P] * 3 + [_I] * 4 + [_P],
+    "lyc_lora_fused_nt": [_P] * 5 + [_I] * 4 + [_F, _I, _I, _P],
+    "lyc_lora_fused_nn": [_P] * 5 + [_I] * 4 + [_F, _I, _I, _P],
+    "lyc_hada_bwd_split": [_P] * 9 + [_I, _I, _I, _F, _I, _P],
 }
 
 

@@ -13,10 +13,10 @@ puts an adapted forward in place of each targeted layer's ``forward`` and
 ``W + dW`` (the JAX interceptor's merged path, wrapper.py:646-718);
 otherwise, and always for bypass modules, it is delta over base. With
 grad enabled, a linear layer whose adapter has a factored cotangent
-(LoKr) and whose harmonic dimension passes ``worth_factoring`` trains
-through the factored backward of ``functional/merged.py``, which never
-forms the dense weight gradient; every other layer trains by autograd
-through ``W + dW``.
+(LoRA/LoCon, LoKr) and whose harmonic dimension passes ``worth_factoring``
+trains through the factored backward of ``functional/merged.py``, which
+never forms the dense weight gradient; every other layer trains by
+autograd through ``W + dW``.
 :meth:`~LycorisNetwork.merge_to` folds the adapters into the layers'
 weights in place. State dicts use the reference key grammar; file I/O
 (safetensors) is not ported yet, so they pass in memory.
@@ -37,6 +37,7 @@ from .functional import merged as fm
 from .graph import ModelGraph
 from .logging import logger
 from .modules import get_module, make_module
+from .modules.locon import LoConModule
 from .modules.loha import LohaModule
 from .modules.lokr import LokrModule
 from .utils import str_bool
@@ -58,11 +59,13 @@ VALID_PRESET_KEYS = [
 ]
 
 network_module_dict = {
+    "lora": LoConModule,
+    "locon": LoConModule,
     "loha": LohaModule,
     "lokr": LokrModule,
 }
 # algorithms of the JAX package that the port does not have yet
-UNPORTED_ALGOS = ("lora", "locon", "dylora", "glora", "full", "ia3", "diag-oft", "boft")
+UNPORTED_ALGOS = ("dylora", "glora", "full", "ia3", "diag-oft", "boft")
 
 deprecated_arg_dict = {
     "disable_conv_cp": "use_tucker",
@@ -448,7 +451,8 @@ class LycorisNetwork(nn.Module):
         """The layer through ``factored_merged_apply`` (dense-dW-free
         backward), or None where that path does not apply: no grad wanted,
         not a linear layer, below the ``worth_factoring`` threshold, or an
-        adapter without a factored cotangent."""
+        adapter without a factored cotangent (LoHa; LoRA/LoCon and LoKr
+        decline convolutions, tucker and rank dropout)."""
         out_dim, in_dim = lyco.shape[0], lyco.shape[1]
         fns_of = getattr(lyco, "factored_merged_fns", None)
         if (fns_of is None or not torch.is_grad_enabled() or lyco.module_type != "linear"

@@ -4,14 +4,15 @@
     python3 profile_train.py
 
 Uses ``chip_smoke.py``'s SD1.5 UNet (full width, bf16, seeded random
-weights) and its seeded LoKr and LoHa attn-mlp adapters, trained by
+weights) and its seeded LoKr, LoHa and LoRA attn-mlp adapters, trained by
 ``DiffusionTrainer`` at batch 8, 64x64 latents, 77 context tokens. Legs:
-LoKr (its 12 widest layers through the factored backward), LoHa, and LoKr
+LoKr (its 12 widest layers through the factored backward), LoHa, LoKr
 with the factored backward off (``FACTORED_MIN`` above every layer, so all
-192 layers train by autograd through W + dW); then, the SD1.5 model freed,
-``sdxl_lokr``: the SDXL UNet (``remat="transformer"``) with a LoKr adapter
-at batch 4, 128x128 latents, context (4, 77, 2048) and ``added_cond``
-(4, 2816). For each leg:
+192 layers train by autograd through W + dW), and LoRA (dim 8, the same 12
+layers factored); then, the SD1.5 model freed, ``sdxl_lokr`` and
+``sdxl_lora``: the SDXL UNet (``remat="transformer"``) with a LoKr or a
+LoRA adapter at batch 4, 128x128 latents, context (4, 77, 2048) and
+``added_cond`` (4, 2816). For each leg:
 
 1. host clock per step over 5 steps after 2 warm-up steps, every step
    ending in ``torch.cuda.synchronize()``;
@@ -64,9 +65,10 @@ def main() -> int:
 
     sds = {}
     with torch.no_grad():
-        for seed, algo in enumerate(("lokr", "loha"), start=1):
+        for seed, algo in ((1, "lokr"), (2, "loha"), (6, "lora")):
             sds[algo] = chip_smoke.adapter_state_dict(model, algo, dev, seed=seed)
-    legs = [("lokr", "lokr"), ("loha", "loha"), ("lokr_dense", "lokr"), ("sdxl_lokr", "lokr")]
+    legs = [("lokr", "lokr"), ("loha", "loha"), ("lokr_dense", "lokr"), ("lora", "lora"),
+            ("sdxl_lokr", "lokr"), ("sdxl_lora", "lora")]
     for leg, algo in legs:
         if leg == "sdxl_lokr":  # the SD1.5 model freed first
             del model, sds, batch
@@ -74,7 +76,8 @@ def main() -> int:
             model = chip_smoke.build_unet(dev, torch.bfloat16, seed=3, config="sdxl",
                                           remat="transformer")
             with torch.no_grad():
-                sds = {algo: chip_smoke.adapter_state_dict(model, algo, dev, seed=4)}
+                sds = {"lokr": chip_smoke.adapter_state_dict(model, "lokr", dev, seed=4),
+                       "lora": chip_smoke.adapter_state_dict(model, "lora", dev, seed=8)}
             batch = chip_smoke.sdxl_batch()
         net, _ = create_lycoris_from_weights(1.0, None, model, weights_sd=sds[algo])
         merged.FACTORED_MIN = 1 << 30 if leg == "lokr_dense" else factored_min

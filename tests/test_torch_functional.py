@@ -152,6 +152,7 @@ def test_port_never_imports_jax():
         "import sys, lycoris_tpu_torch, lycoris_tpu_torch.sampler, lycoris_tpu_torch.models.unet, "
         "lycoris_tpu_torch.ops.attention, lycoris_tpu_torch.ops.flash, lycoris_tpu_torch.ops.hada, "
         "lycoris_tpu_torch.ops.layer_norm, lycoris_tpu_torch.ops._build, lycoris_tpu_torch.trainer, "
+        "lycoris_tpu_torch.ops.lora_fused, lycoris_tpu_torch.modules.locon, "
         "lycoris_tpu_torch.functional.merged, chip_smoke, profile_train; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'lycoris_tpu')]; "
         "print(bad); sys.exit(1 if bad else 0)"

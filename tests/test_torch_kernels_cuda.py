@@ -21,6 +21,7 @@ from lycoris_tpu_torch.ops import geglu as tgeglu
 from lycoris_tpu_torch.ops import group_norm as tgn
 from lycoris_tpu_torch.ops import hada as thada
 from lycoris_tpu_torch.ops import layer_norm as tln
+from lycoris_tpu_torch.ops import lora_fused as tlf
 
 
 @pytest.fixture()
@@ -131,6 +132,65 @@ def test_cuda_hada_bwd_kernel(cuda, dtype):
             _check(a, w, dtype)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_hada_bwd_split_kernel(cuda, dtype, monkeypatch):
+    """The split backward against its plain version and against the fused1
+    kernel on the same inputs (fp32: rel L2 1e-5, the sums differ only in
+    order), and HadaWeightFunction's backward following ``hada.BWD``."""
+    g = torch.Generator(device=cuda).manual_seed(8)
+    for o, i, r in ((320, 320, 8), (10240, 1280, 8), (1280, 5120, 8), (100, 130, 40)):
+        w1d, w2d = (torch.randn(r, i, device=cuda, generator=g).to(dtype) for _ in range(2))
+        w1u, w2u = ((0.1 * torch.randn(o, r, device=cuda, generator=g)).to(dtype) for _ in range(2))
+        gr = (torch.randn(o, i, device=cuda, generator=g) * 1e-3).to(dtype)
+        want = thada.hada_weight_bwd_split_plain(w1d, w1u, w2d, w2u, 0.5, gr)
+        n = thada.split_launches
+        got = thada.hada_bwd_split(w1d, w1u, w2d, w2u, 0.5, gr)
+        assert thada.split_launches == n + 1
+        fused = thada.hada_bwd(w1d, w1u, w2d, w2u, 0.5, gr)
+        for a, w, f in zip(got, want, fused):
+            _check(a, w, dtype)
+            if dtype == torch.float32:
+                assert float((a - f).norm() / f.norm()) <= 1e-5
+            else:
+                _check(a, f, dtype)
+    monkeypatch.setattr(thada, "BWD", "split")
+    leaves = [t.detach().clone().requires_grad_(True) for t in (w1d, w1u, w2d, w2u)]
+    n, n1 = thada.split_launches, thada.bwd_launches
+    (thada.hada_weight(*leaves, 0.5).float() * gr.float()).sum().backward()
+    assert (thada.split_launches, thada.bwd_launches) == (n + 1, n1)
+    for leaf, w in zip(leaves, thada.hada_weight_bwd_split_plain(w1d, w1u, w2d, w2u, 0.5, gr)):
+        _check(leaf.grad, w, dtype)
+
+
+# (M, N, K): attn2 k/v at SD1.5 b8 and SDXL b4 (ragged M = batch * 77), the
+# SD1.5 320-level ff net_0 and the SDXL 1280-level ff net_2, and a shape
+# ragged in every dimension
+LORA_SHAPES = ((616, 320, 768), (308, 1280, 2048), (32768, 2560, 320), (4096, 1280, 5120),
+               (37, 130, 200))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w_dtype", ["same", "float32"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_lora_fused_kernels(cuda, dtype, w_dtype):
+    g = torch.Generator(device=cuda).manual_seed(7)
+    for m, n, k in LORA_SHAPES:
+        x = torch.randn(m, k, device=cuda, generator=g).to(dtype)
+        w = (torch.randn(n, k, device=cuda, generator=g) * k**-0.5).to(
+            dtype if w_dtype == "same" else torch.float32)
+        down = torch.randn(8, k, device=cuda, generator=g) * k**-0.5
+        up = torch.randn(n, 8, device=cuda, generator=g) * 0.1
+        gy = torch.randn(m, n, device=cuda, generator=g).to(dtype)
+        n0, d0 = tlf.launches, tlf.dx_launches
+        y = tlf.lora_fused_nt(x, w, down, up, 0.5)
+        dx = tlf.lora_fused_nn(gy, w, down, up, 0.5)
+        assert (tlf.launches, tlf.dx_launches) == (n0 + 1, d0 + 1)
+        assert y.shape == (m, n) and dx.shape == (m, k) and y.dtype == dx.dtype == dtype
+        _check(y, tlf.fused_lora_matmul_plain(x, w, down, up, 0.5), dtype)
+        _check(dx, tlf.fused_lora_dx_plain(gy, w, down, up, 0.5), dtype)
+
+
 # (N, C, H, W, groups): SDXL's 320- and 960-channel levels (cg = 10, 30),
 # SD1.5's mid block, and an odd spatial size that takes the scalar loads
 GN_SHAPES = ((4, 320, 128, 128, 32), (4, 960, 64, 64, 32), (8, 1280, 8, 8, 32), (3, 60, 7, 5, 4))
@@ -218,6 +278,17 @@ def test_cuda_functions_match_autograd_of_plain(cuda, dtype):
 
     h_full = (torch.randn(2, 256, 2560, device=cuda, generator=g) * 2).to(dtype)
     _grads_match(tgeglu.geglu_mul, tgeglu.geglu_fwd_plain, (h_full,), dtype)
+
+    # x scaled so that the factor gradients (sums over 616 tokens) are O(1)
+    # and the absolute MSE bound means what it does for the other outputs
+    x = (torch.randn(2, 308, 640, device=cuda, generator=g) * 0.05).to(dtype)
+    w = (torch.randn(1280, 640, device=cuda, generator=g) * 640**-0.5).to(dtype)
+    down = torch.randn(8, 640, device=cuda, generator=g) * 640**-0.5
+    up = torch.randn(1280, 8, device=cuda, generator=g) * 0.1
+    n0 = tlf.dx_launches
+    _grads_match(lambda *a: tlf.fused_lora_matmul(a[0], w, *a[1:], 0.5),
+                 lambda *a: tlf.fused_lora_matmul_plain(a[0], w, *a[1:], 0.5), (x, down, up), dtype)
+    assert tlf.dx_launches == n0 + 1
 
 
 @pytest.mark.cuda

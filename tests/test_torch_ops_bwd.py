@@ -1,8 +1,9 @@
 """The port's backward math on the CPU against the JAX package: each plain
 backward against the Pallas backward kernel it stands beside (interpret
-mode), the autograd Functions against autograd of the plain forwards, the
-LoHa custom-vjp Functions, and the factored merged cotangents
-(``functional/merged.py``, ``LokrModule.factored_merged_fns``).
+mode; the LoHa fused1 and split forms, the fused LoRA matmul), the autograd
+Functions against autograd of the plain forwards, the LoHa custom-vjp
+Functions, and the factored merged cotangents (``functional/merged.py``,
+``LokrModule.factored_merged_fns``).
 
 Inputs are drawn with numpy from a seed and fed to both packages.
 Tolerance: fp32 atol/rtol 1e-5 per op (summation order differs), 2e-4
@@ -25,6 +26,7 @@ from lycoris_tpu_torch.modules import LayerInfo, LokrModule
 from lycoris_tpu_torch.ops import flash as tflash
 from lycoris_tpu_torch.ops import hada as thada
 from lycoris_tpu_torch.ops import layer_norm as tln
+from lycoris_tpu_torch.ops import lora_fused as tlf
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 GRAD_TOL = dict(atol=1e-5, rtol=2e-4)
@@ -104,6 +106,71 @@ def test_hada_bwd_plain_matches_jax_fused1(interpret_pallas, shape):
     got = thada.hada_weight_bwd_plain(*_t(*ws), 0.5, torch.from_numpy(g))
     for a, b in zip(got, want):
         _close(a, b, atol=1e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("shape", [(64, 256, 8), (128, 384, 4), (64, 320, 8)])
+def test_hada_bwd_split_plain_matches_jax_split(interpret_pallas, monkeypatch, shape):
+    """The split plain backward against ``_hada_bwd_pallas`` with
+    ``LYCORIS_TPU_HADA_BWD=split`` (the u- and d-kernels), and the port's
+    Function following ``ops.hada.BWD`` on the CPU."""
+    from lycoris_tpu.ops import hada as jhada
+
+    monkeypatch.setenv("LYCORIS_TPU_HADA_BWD", "split")
+    o, i, r = shape
+    rng = np.random.default_rng(9)
+    ws = [_rand(rng, r, i), _rand(rng, o, r, std=0.1), _rand(rng, r, i), _rand(rng, o, r, std=0.1)]
+    g = _rand(rng, o, i)
+    want = jhada._hada_bwd_pallas(*map(jnp.asarray, ws), 0.5, jnp.asarray(g))
+    got = thada.hada_weight_bwd_split_plain(*(torch.tensor(w) for w in ws), 0.5, torch.tensor(g))
+    for a, b in zip(got, want):
+        _close(a, b, atol=1e-5, rtol=2e-5)
+    monkeypatch.setattr(thada, "BWD", "split")
+    grads = _grads(lambda *z: thada.hada_weight(*z, 0.5), [torch.tensor(w) for w in ws],
+                   torch.tensor(g))
+    for a, b in zip(grads, want):
+        _close(a, b, atol=1e-5, rtol=2e-5)
+    monkeypatch.setattr(thada, "BWD", "fused")
+    with pytest.raises(ValueError, match="fused1"):
+        thada.hada_weight_bwd(*(torch.tensor(w) for w in ws), 0.5, torch.tensor(g))
+
+
+# the shapes of the JAX package's own test (tests/test_ops.py): K = 4096 and
+# N = 2560 tile the contraction of the nt and the nn kernel in two steps
+@pytest.mark.parametrize("shape", [(64, 256, 384, 8), (32, 128, 512, 4), (16, 128, 4096, 8),
+                                   (16, 2560, 256, 8)])
+def test_fused_lora_matmul_matches_jax(interpret_pallas, shape):
+    """The port's op (plain versions on the CPU) against the JAX custom_vjp
+    (Pallas interpret mode): y and the gradients of x, down and up.
+    Tolerance: 1e-5 of the largest magnitude (fp32; K up to 4096 terms)."""
+    from lycoris_tpu.ops import lora_fused as jlf
+
+    m, n, k, r = shape
+    rng = np.random.default_rng(10)
+    x, w, down, up = _rand(rng, m, k), _rand(rng, n, k), _rand(rng, r, k), _rand(rng, n, r)
+    g = _rand(rng, m, n)
+    jx, jw, jd, ju, jg = map(jnp.asarray, (x, w, down, up, g))
+    import jax
+
+    want_y = jlf.fused_lora_matmul(jx, jw, jd, ju, 0.25)
+    want = jax.grad(lambda *a: jnp.sum(jlf.fused_lora_matmul(a[0], jw, a[1], a[2], 0.25) * jg),
+                    argnums=(0, 1, 2))(jx, jd, ju)
+    leaves = [torch.tensor(v).requires_grad_(True) for v in (x, down, up)]
+    y = tlf.fused_lora_matmul(leaves[0], torch.tensor(w), leaves[1], leaves[2], 0.25)
+    got = torch.autograd.grad((y * torch.tensor(g)).sum(), leaves)
+    assert tlf.supported(x.shape, w.shape)
+    for a, b in zip((y, *got), (want_y, *want)):
+        b = np.asarray(b)
+        _close(a, b, atol=1e-5 * float(np.abs(b).max()), rtol=1e-5)
+
+
+def test_fused_lora_supported_keeps_the_jax_minimums():
+    from lycoris_tpu.ops import lora_fused as jlf
+
+    for xs, ws in (((8, 128), (128, 128)), ((7, 128), (128, 128)), ((2, 4, 320), (127, 320)),
+                   ((616, 768), (320, 768)), ((8, 100), (256, 100))):
+        assert tlf.supported(xs, ws) == (np.prod(xs[:-1]) >= 8 and ws[0] >= 128 and ws[1] >= 128)
+    # where the TPU tiles divide, the two gates agree
+    assert tlf.supported((64, 384), (256, 384)) and jlf.supported((64, 384), (256, 384))
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
 """The training slice as a whole, port vs JAX package on the tiny UNet: the
-trainer's loss and every adapter gradient (LoKr and LoHa, the merged
+trainer's loss and every adapter gradient (LoKr, LoHa and LoRA, the merged
 forward), the factored merged backward through the wrapper, one AdamW step
 against ``optax.adamw``, and what the trainer leaves alone.
 
@@ -113,7 +113,7 @@ def _assert_grads_close(got, want):
     assert np.linalg.norm(g - w) <= REL * np.linalg.norm(w)
 
 
-@pytest.mark.parametrize("algo", ["lokr", "loha"])
+@pytest.mark.parametrize("algo", ["lokr", "loha", "lora"])
 def test_trainer_loss_and_grads_match_jax(algo):
     model, variables, net, m, tnet, d = _setup(algo)
     want_loss, want_grads = _jax_loss_and_grads(model, variables, net, d)
@@ -146,13 +146,13 @@ def test_trainer_grads_through_flash_match_jax():
     _assert_grads_close(grads, want_grads)
 
 
-def test_factored_backward_through_the_wrapper(monkeypatch):
+def _check_factored_through_the_wrapper(monkeypatch, algo):
     """worth_factoring threshold 0: every adapted linear layer of the tiny
     UNet trains through factored_merged_apply on the port and through the
     JAX package's factored custom_vjp; the grads agree with each other and
     with the port's plain autograd through W + dW."""
     monkeypatch.setenv("LYCORIS_TPU_FACTORED_MIN", "0")
-    model, variables, net, m, tnet, d = _setup("lokr")
+    model, variables, net, m, tnet, d = _setup(algo)
     want_loss, want_grads = _jax_loss_and_grads(model, variables, net, d)
 
     monkeypatch.setattr(tmerged, "FACTORED_MIN", 0)
@@ -173,6 +173,16 @@ def test_factored_backward_through_the_wrapper(monkeypatch):
     np.testing.assert_allclose(dense_loss, loss, rtol=1e-6)
     _assert_grads_close(grads, {ln: {k: g.numpy() for k, g in sub.items()}
                                 for ln, sub in dense.items()})
+
+
+def test_factored_backward_through_the_wrapper(monkeypatch):
+    _check_factored_through_the_wrapper(monkeypatch, "lokr")
+
+
+def test_factored_lora_backward_through_the_wrapper(monkeypatch):
+    """LoRA's factored cotangents (``LoConModule.factored_merged_fns``), the
+    path of SD1.5's 12 widest layers, through the wrapper."""
+    _check_factored_through_the_wrapper(monkeypatch, "lora")
 
 
 def test_adamw_step_matches_optax():

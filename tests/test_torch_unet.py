@@ -90,7 +90,7 @@ def test_tiny_unet_forward_matches():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **UNET_TOL)
 
 
-@pytest.mark.parametrize("algo", ["lokr", "loha"])
+@pytest.mark.parametrize("algo", ["lokr", "loha", "lora"])
 @pytest.mark.parametrize("preset", [ATTN_MLP, None], ids=["attn-mlp", "full"])
 def test_targeting_names_and_shapes_match(algo, preset):
     x, t, ctx = _inputs()
@@ -108,7 +108,7 @@ def test_targeting_names_and_shapes_match(algo, preset):
         assert tuple(tsd[k].shape) == tuple(np.shape(jsd[k])), k
 
 
-@pytest.mark.parametrize("algo", ["lokr", "loha"])
+@pytest.mark.parametrize("algo", ["lokr", "loha", "lora"])
 def test_state_dict_round_trip_both_ways(algo):
     x, t, ctx = _inputs()
     model, variables = _jax_unet(x, t, ctx)
@@ -144,7 +144,7 @@ def test_state_dict_round_trip_both_ways(algo):
         np.testing.assert_array_equal(tsd2[k].numpy(), np.asarray(jsd[k]), err_msg=k)
 
 
-@pytest.mark.parametrize("algo", ["lokr", "loha"])
+@pytest.mark.parametrize("algo", ["lokr", "loha", "lora"])
 @pytest.mark.parametrize("merged_forward", [True, False])
 def test_live_adapters_and_merge_match(algo, merged_forward):
     x, t, ctx = _inputs()
@@ -195,9 +195,9 @@ def test_unported_algorithms_name_themselves():
     x, t, ctx = _inputs()
     _, variables = _jax_unet(x, t, ctx)
     m = _torch_unet(variables)
-    with pytest.raises(NotImplementedError, match="'locon'"):
-        tl.create_lycoris(m, 1.0, 4, 2.0, algo="locon", device="cpu")
-    sd = {"lycoris_conv_in.lora_up.weight": torch.zeros(32, 4, 1, 1),
-          "lycoris_conv_in.lora_down.weight": torch.zeros(4, 4, 3, 3)}
-    with pytest.raises(NotImplementedError, match="'locon'"):
+    with pytest.raises(NotImplementedError, match="'glora'"):
+        tl.create_lycoris(m, 1.0, 4, 2.0, algo="glora", device="cpu")
+    sd = {"lycoris_conv_in.a1.weight": torch.zeros(4, 4, 3, 3),
+          "lycoris_conv_in.a2.weight": torch.zeros(32, 4, 1, 1)}
+    with pytest.raises(NotImplementedError, match="'glora'"):
         tl.create_lycoris_from_weights(1.0, None, m, weights_sd=sd, device="cpu")
