@@ -7,8 +7,9 @@ Phases, each printing its own lines and its wall time; the first failure
 ends the run with a nonzero exit code, and no phase falls back to the CPU:
 
 1. build  -- compile the CUDA kernels from ``lycoris_tpu_torch/csrc`` (one
-   ``nvcc`` per source, all at once) and print the card's name and power
-   limit (nvidia-smi);
+   ``nvcc`` per source, all at once), print each flash kernel's registers
+   and spilled bytes from the ptxas report (a spill fails the run), and
+   print the card's name and power limit (nvidia-smi);
 2. kernels -- each forward kernel against its plain PyTorch version at the
    shapes of two paths: SD1.5 serving (UNet batch 4, 64x64 latents; bf16
    and fp32) and SDXL training (batch 4, 128x128 latents; the path's
@@ -17,6 +18,9 @@ ends the run with a nonzero exit code, and no phase falls back to the CPU:
    CUDA events) of the kernel, its plain version and the PyTorch library
    call where one computes the same function, and the wrapper's
    host-clocked time beside.
+   Flash is checked on the UNet's layout (q, k, v head-split views of a
+   (B, T, H*D) tensor; its times fill the row, with the share of the bound
+   and the ratio to SDPA) and on contiguous inputs (kernel time logged).
    The fused LoRA matmul (nt) at every adapted linear shape (M, N, K) of
    the SD1.5 b8 and SDXL b4 LoRA training legs, bf16 and fp32, its
    library time the merged route the path runs (W + dW merged in fp32,
@@ -60,6 +64,9 @@ ends the run with a nonzero exit code, and no phase falls back to the CPU:
 16. train_sdxl_e2e, train_sdxl_e2e_lora -- phase 13 on the SDXL model at
    64x64 latents.
 
+Every serving and training leg fails if a flash input took the padded
+copy (``flash.pad_copies``): the UNets' layouts are read by TMA in place.
+
 The line before the last is the kernel table as JSON. Each kernel names the
 path its launches are read from (``path``): SDXL training (the first SDXL
 leg that runs it) for the kernels of the adapter path, ``lora_fused_op`` for
@@ -79,6 +86,7 @@ import contextlib
 import gc
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -228,8 +236,38 @@ def phase_build():
     for line in _build.build_log.splitlines():
         if "registers" in line or ("spill" in line and "0 bytes spill stores" not in line):
             log(f"[build] ptxas: {line.strip()}")
+    flash = flash_ptxas(_build.build_log)
+    if not flash:
+        fail("no flash kernel in the ptxas report")
+    for name, regs, spill in flash:
+        log(f"[build] {name}: {regs} registers, {spill} bytes spilled")
+    spilled = [name for name, _, spill in flash if spill]
+    if spilled:
+        fail(f"flash kernels spill registers: {spilled}")
     log(card)
     return card
+
+
+def flash_ptxas(build_log: str) -> list:
+    """(kernel, registers, spill bytes stored + loaded) of every flash kernel
+    in the ptxas report (``-Xptxas -v``), the template argument in <>."""
+    out, name, spill = [], None, 0
+    for line in build_log.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            m = re.search(r"\d+(flash_[a-z0-9_]+?)I(?:Li(\d+)E|13__nv_(bfloat16)|(f))E",
+                          entry.group(1))
+            name = m and f"{m.group(1)}<{m.group(2) or m.group(3) or 'float'}>"
+            spill = 0
+            continue
+        st = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if st and name:
+            spill = int(st.group(1)) + int(st.group(2))
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs and name:
+            out.append((name, int(regs.group(1)), spill))
+            name = None
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -553,6 +591,13 @@ def _times(kernel, plain, it, bnd, lib=None, plain_iters=None, plain_replays=3):
             None if lib is None else lib(it), bnd)
 
 
+def flash_ratios(name, path, bh, t, d, times):
+    """Log a flash timing's share of its bound and its ratio to SDPA."""
+    ms, _, _, lib, (bnd, _) = times
+    log(f"[kernels] {name} {path} ({bh},{t},{d}): {bnd / ms:.1%} of its bound, "
+        f"{ms / lib:.2f}x SDPA ({ms:.4f} against {lib:.4f} ms)")
+
+
 class Checks:
     """Each kernel against its plain version on seeded inputs at one shape;
     ``timed`` (the path's dtype) adds the timings of :func:`_times`."""
@@ -564,34 +609,55 @@ class Checks:
         self.dev = torch.device("cuda")
         self.rnd = _rnd(torch.Generator(device=self.dev).manual_seed(seed), self.dev)
 
+    def _flash_inputs(self, layout, b, h, t, d, dtype, n):
+        """``n`` (B, H, T, D) operands: "strided", head-split views of (B, T,
+        H*D) tensors as the UNet's attention projections give them (the
+        path's layout), or "contiguous"."""
+        if layout == "strided":
+            return [self.rnd((b, t, h * d), dtype).unflatten(-1, (h, d)).transpose(1, 2)
+                    for _ in range(n)]
+        return [self.rnd((b, h, t, d), dtype) for _ in range(n)]
+
     def flash_fwd(self, path, bh, t, d, dtype, per_call, timed):
+        """Checked on the path's strided layout and on contiguous inputs; the
+        strided one's times go into the kernel's row, the contiguous kernel
+        time is logged beside."""
         import torch
         import torch.nn.functional as F
         from lycoris_tpu_torch.ops import flash
 
         b = UNET_BATCH if path == "sd15" else SDXL_BATCH
-        q, k, v = (self.rnd((b, bh // b, t, d), dtype) for _ in range(3))
         sm = 1.0 / d**0.5
-        with torch.no_grad():
-            o, lse = flash.flash_attention(q, k, v, sm)
-            o_ref, lse_ref = flash.flash_attention_plain(q, k, v, sm)
-        torch.cuda.synchronize()
-        ok, *stats = compare(dtype, o, o_ref)
-        lse_err = float((lse - lse_ref).abs().max())
-        log(f"[kernels] flash_fwd {path} lse max_abs {lse_err:.3e} (bound 1e-3)")
-        times = None
-        if timed:
-            es = q.element_size()
-            nbytes = 4 * bh * t * d * es + 4 * bh * t
+        for layout in ("strided", "contiguous"):
+            q, k, v = self._flash_inputs(layout, b, bh // b, t, d, dtype, 3)
             with torch.no_grad():
-                times = _times(
-                    lambda: flash.flash_attention(q, k, v, sm),
-                    lambda: flash.flash_attention_plain(q, k, v, sm), 10 if t >= 4096 else 30,
-                    bound(4.0 * bh * t * t * d, nbytes, str(dtype)[6:]),
-                    lambda it: graph_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=sm),
-                                        it))
-        record(self.results, "flash_fwd", path, (ok and lse_err <= 1e-3, *stats),
-               f"({bh},{t},{d})", times, per_call)
+                o, lse = flash.flash_attention(q, k, v, sm)
+                o_ref, lse_ref = flash.flash_attention_plain(q, k, v, sm)
+            torch.cuda.synchronize()
+            ok, *stats = compare(dtype, o, o_ref)
+            lse_err = float((lse - lse_ref).abs().max())
+            log(f"[kernels] flash_fwd {path} {layout} lse max_abs {lse_err:.3e} (bound 1e-3)")
+            del o, o_ref, lse, lse_ref
+            times = None
+            if timed and layout == "strided":
+                es = q.element_size()
+                nbytes = 4 * bh * t * d * es + 4 * bh * t
+                with torch.no_grad():
+                    times = _times(
+                        lambda: flash.flash_attention(q, k, v, sm),
+                        lambda: flash.flash_attention_plain(q, k, v, sm),
+                        10 if t >= 4096 else 30,
+                        bound(4.0 * bh * t * t * d, nbytes, str(dtype)[6:]),
+                        lambda it: graph_ms(
+                            lambda: F.scaled_dot_product_attention(q, k, v, scale=sm), it))
+                flash_ratios("flash_fwd", path, bh, t, d, times)
+            elif timed:
+                with torch.no_grad():
+                    ms = graph_ms(lambda: flash.flash_attention(q, k, v, sm),
+                                  10 if t >= 4096 else 30)
+                log(f"[kernels] flash_fwd {path} contiguous ({bh},{t},{d}): kernel {ms:.4f} ms")
+            record(self.results, "flash_fwd", path, (ok and lse_err <= 1e-3, *stats),
+                   f"({bh},{t},{d}) {layout}", times, per_call if layout == "strided" else 0)
 
     def layer_norm_fwd(self, path, rows, c, dtype, per_call, timed):
         import torch
@@ -664,33 +730,42 @@ class Checks:
                f"({n},{c},{hw},{hw}) act={act}", times, per_call)
 
     def flash_bwd(self, path, bh, t, d, dtype, per_call, timed):
+        """As :meth:`flash_fwd`: the strided layout's times go into the row."""
         import torch
         import torch.nn.functional as F
         from lycoris_tpu_torch.ops import flash
 
         b = TRAIN_BATCH if path == "sd15" else SDXL_BATCH
-        q, k, v, do = (self.rnd((b, bh // b, t, d), dtype) for _ in range(4))
         sm = 1.0 / d**0.5
-        o, lse = flash.flash_fwd(q, k, v, sm)
-        got = flash.flash_bwd(q, k, v, o, lse, do, sm)
-        want = flash.flash_attention_bwd_plain(q, k, v, o, lse, do, sm)
-        torch.cuda.synchronize()
-        stats = compare_all(dtype, got, want)
-        del got, want
-        times = None
-        if timed:
-            es = q.element_size()
-            # five matmuls (S, dP, dV, dK, dQ) of 2*T*T*D each per head; q, k,
-            # v, o, dO, lse, di read and dq, dk, dv written once
-            nbytes = 8 * bh * t * d * es + 8 * bh * t
-            times = _times(
-                lambda: flash.flash_bwd(q, k, v, o, lse, do, sm),
-                lambda: flash.flash_attention_bwd_plain(q, k, v, o, lse, do, sm),
-                5 if t >= 4096 else 20, bound(10.0 * bh * t * t * d, nbytes, str(dtype)[6:]),
-                lambda it: _library_bwd_ms(
-                    lambda *xs: F.scaled_dot_product_attention(*xs, scale=sm), (q, k, v), do, it),
-                plain_iters=3 if t >= 4096 else 10, plain_replays=1)
-        record(self.results, "flash_bwd", path, stats, f"({bh},{t},{d})", times, per_call)
+        for layout in ("strided", "contiguous"):
+            q, k, v, do = self._flash_inputs(layout, b, bh // b, t, d, dtype, 4)
+            o, lse = flash.flash_fwd(q, k, v, sm)
+            got = flash.flash_bwd(q, k, v, o, lse, do, sm)
+            want = flash.flash_attention_bwd_plain(q, k, v, o, lse, do, sm)
+            torch.cuda.synchronize()
+            stats = compare_all(dtype, got, want)
+            del got, want
+            times = None
+            if timed and layout == "strided":
+                es = q.element_size()
+                # five matmuls (S, dP, dV, dK, dQ) of 2*T*T*D each per head; q, k,
+                # v, o, dO, lse read and dq, dk, dv written once
+                nbytes = 8 * bh * t * d * es + 4 * bh * t
+                times = _times(
+                    lambda: flash.flash_bwd(q, k, v, o, lse, do, sm),
+                    lambda: flash.flash_attention_bwd_plain(q, k, v, o, lse, do, sm),
+                    5 if t >= 4096 else 20, bound(10.0 * bh * t * t * d, nbytes, str(dtype)[6:]),
+                    lambda it: _library_bwd_ms(
+                        lambda *xs: F.scaled_dot_product_attention(*xs, scale=sm), (q, k, v), do,
+                        it),
+                    plain_iters=3 if t >= 4096 else 10, plain_replays=1)
+                flash_ratios("flash_bwd", path, bh, t, d, times)
+            elif timed:
+                ms = graph_ms(lambda: flash.flash_bwd(q, k, v, o, lse, do, sm),
+                              5 if t >= 4096 else 20)
+                log(f"[kernels] flash_bwd {path} contiguous ({bh},{t},{d}): kernel {ms:.4f} ms")
+            record(self.results, "flash_bwd", path, stats, f"({bh},{t},{d}) {layout}", times,
+                   per_call if layout == "strided" else 0)
 
     def layer_norm_bwd(self, path, rows, c, dtype, per_call, timed):
         import torch
@@ -1154,7 +1229,7 @@ def reset_counts():
 
     flash.launches = layer_norm.launches = hada.launches = group_norm.launches = 0
     flash.bwd_launches = layer_norm.bwd_launches = hada.bwd_launches = 0
-    group_norm.bwd_launches = geglu.bwd_launches = group_norm.copies = 0
+    group_norm.bwd_launches = geglu.bwd_launches = group_norm.copies = flash.pad_copies = 0
     lora_fused.launches = lora_fused.dx_launches = hada.split_launches = 0
     merged.applications = 0
 
@@ -1178,6 +1253,15 @@ def gn_copies() -> int:
     from lycoris_tpu_torch.ops import group_norm
 
     return group_norm.copies
+
+
+def check_no_pad_copies(tag: str) -> None:
+    """Fail if a flash input needed the padded copy since the last reset:
+    the UNets' head-split layouts are read by TMA in place."""
+    from lycoris_tpu_torch.ops import flash
+
+    if flash.pad_copies:
+        fail(f"{tag} {flash.pad_copies} flash inputs were copied for TMA (want 0)")
 
 
 def rel_l2(a, b) -> float:
@@ -1225,8 +1309,9 @@ def serve(model, algo, sd, requests, steps, results, card):
     counts = read_counts()
     calls = requests * steps
     want = {k: v * calls for k, v in per_call.items()}
+    check_no_pad_copies(tag)
     log(f"{tag} launches {counts} over {calls} UNet calls (want {want}); GroupNorm input "
-        f"copies {gn_copies()}")
+        f"copies {gn_copies()}; flash pad copies 0")
     if counts != want:
         fail(f"{tag} launch counts {counts} != {want}")
     for o in outs:
@@ -1286,8 +1371,10 @@ def phase_e2e(model, sd):
 
     net, _ = create_lycoris_from_weights(1.0, None, model, weights_sd=sd)
     net.apply_to(merged_forward=True)
+    reset_counts()
     with torch.no_grad():
         got = model(x, t, ctx).float().cpu()
+    check_no_pad_copies("[e2e]")
     net.restore()
 
     cpu = cpu_copy(model, sd15_config(torch.float32))
@@ -1344,12 +1431,14 @@ def train(model, algo, sd, batch, want, steps, results, card, tag, path=None, ad
         copies += gn_copies()
         if counts != want:
             fail(f"{tag} launch counts per step {counts} != {want}")
+        check_no_pad_copies(tag)
         totals.update(counts)
         losses.append(float(loss))
         if not math.isfinite(losses[-1]):
             fail(f"{tag} loss {losses[-1]} at step {len(losses)}")
     peak = torch.cuda.max_memory_allocated() / 2**30
-    log(f"{tag} launches per step {want} over {steps} steps; GroupNorm input copies {copies}")
+    log(f"{tag} launches per step {want} over {steps} steps; GroupNorm input copies {copies}; "
+        f"flash pad copies 0")
     for name, meta in KERNELS.items():
         if meta["path"] == path and want.get(name) and not results[name]["launches"]:
             results[name]["launches"] = totals[name]
@@ -1472,7 +1561,9 @@ def phase_train_e2e(model, sd, cfg_cpu, tag, ctx_dim=768, added_dim=None):
         return float(loss.detach()), grads
 
     net, _ = create_lycoris_from_weights(1.0, None, model, weights_sd=sd)
+    reset_counts()
     got_loss, got = loss_and_grads(model, net, torch.bfloat16, (lat, ctx, noise, t, added))
+    check_no_pad_copies(tag)
     del net
     torch.cuda.empty_cache()
 
@@ -1622,6 +1713,13 @@ def main() -> int:
                       "replaces": meta["replaces"], "path": meta["path"],
                       "per": meta.get("per", PER_SDXL_STEP), "launches": r["launches"],
                       "max_abs_err": r["max_abs_err"], **sums(r["sdxl"]), "sd15": sums(r["sd15"])})
+    for row in table:
+        if row["name"].startswith("flash"):
+            for where, r in (("SDXL step", row), ("SD1.5 " + ("call" if "fwd" in row["name"]
+                                                             else "b8 step"), row["sd15"])):
+                log(f"[kernels] {row['name']} per {where}: {r['ms']:.3f} ms, "
+                    f"{r['bound_ms'] / r['ms']:.1%} of its bound, "
+                    f"{r['ms'] / r['library_ms']:.2f}x SDPA ({r['library_ms']:.3f} ms)")
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

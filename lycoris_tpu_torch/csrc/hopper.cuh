@@ -1,0 +1,188 @@
+// Hopper building blocks shared by the flash kernels: mbarriers, TMA tile
+// loads, wgmma shared-memory descriptors and fences, and the host-side
+// encoding of the tensor maps.
+//
+// Tile layout. Every bf16 tile a flash kernel stages is R rows (tokens) by
+// DP head-dim columns, loaded by one TMA box of a 5-D tensor map
+// (8 columns, T rows, D/8 column chunks, H heads, B batches) whose box is
+// (8, R, DP/8, 1, 1). TMA writes the box with its first dimension fastest,
+// so shared memory holds [DP/8 chunks][R rows][8 columns]: every 8 rows x
+// 16 bytes are one contiguous 128-byte core matrix, the no-swizzle layout
+// wgmma reads directly. Chunks past ceil(D/8) and rows past T are out of
+// the tensor's bounds and TMA fills them with zeros: that pads D = 40 to
+// the MMA depth 48 and masks ragged T without a copy.
+
+#pragma once
+#include <cuda.h>
+#include <cuda_runtime.h>
+#include <cudaTypedefs.h>
+#include <stdint.h>
+
+namespace hop {
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// --- mbarriers -----------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Wait until the phase of parity ``parity`` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_addr(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// --- TMA -----------------------------------------------------------------
+
+// The tile of rows [row0, row0 + R) of head (b, h) (one box of the 5-D
+// tensor map, see the note above) into shared memory; completion is
+// reported to ``bar`` as transaction bytes.
+__device__ __forceinline__ void tma_tile(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                         int row0, int h, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6, %7}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(0), "r"(row0), "r"(0),
+      "r"(h), "r"(b)
+      : "memory");
+}
+
+// --- wgmma ---------------------------------------------------------------
+
+// Descriptor of a no-swizzle operand: start address, LBO (the stride
+// between core matrices along the contraction) and SBO (along M or N), in
+// bytes.
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32);
+}
+
+// A [chunks][R][8] tile contracted over its head dim (K-major), rows
+// [r0, ...) of it, depth step kk (16 columns = two chunks).
+template <int R>
+__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int r0, int kk) {
+  return desc(tile + kk * 2 * R * 16 + r0 * 16, R * 16, 128);
+}
+
+// A [chunks][R][8] tile contracted over its rows (MN-major: the head dim is
+// the N of the product), depth step kk (16 rows).
+template <int R>
+__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int kk) {
+  return desc(tile + kk * 16 * 16, 128, R * 16);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keep the compiler from moving reads or writes of an accumulator across
+// the asynchronous wgmma that owns it.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// Hand registers from the producer warpgroup to the consumers (setmaxnreg):
+// with 384 threads launched at 168 registers each, a producer at 24 frees
+// exactly the 2 x 128 x 72 registers the consumers take to reach 240.
+template <int R>
+__device__ __forceinline__ void reg_dealloc() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+template <int R>
+__device__ __forceinline__ void reg_alloc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
+// --- host: tensor maps ---------------------------------------------------
+
+inline PFN_cuTensorMapEncodeTiled_v12000 encode_fn() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                         &q) != cudaSuccess)
+      return nullptr;
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) !=
+        cudaSuccess)
+      return nullptr;
+#endif
+    if (q != cudaDriverEntryPointSuccess) return nullptr;
+    fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
+  }
+  return fn;
+}
+
+// The tensor map of a bf16 (B, H, T, D) operand with head dim contiguous and
+// element strides st_b, st_h, st_t, read in boxes of ``rows`` rows by ``dp``
+// columns (a multiple of 16). The caller guarantees ceil(D/8)*8 readable
+// columns (zeros past D), a 16-byte aligned base and strides that are
+// multiples of 8 elements. Returns false if the driver refuses the map.
+inline bool make_map(CUtensorMap* map, const void* base, int B, int H, int T, int D,
+                     long long st_b, long long st_h, long long st_t, int rows, int dp) {
+  PFN_cuTensorMapEncodeTiled_v12000 enc = encode_fn();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[5] = {8, static_cast<cuuint64_t>(T), static_cast<cuuint64_t>((D + 7) / 8),
+                              static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(B)};
+  // a dimension of extent 1 is only ever read at index 0: any legal stride
+  const cuuint64_t strides[4] = {static_cast<cuuint64_t>(T > 1 ? st_t * 2 : 16), 16,
+                                 static_cast<cuuint64_t>(H > 1 ? st_h * 2 : 16),
+                                 static_cast<cuuint64_t>(B > 1 ? st_b * 2 : 16)};
+  const cuuint32_t box[5] = {8, static_cast<cuuint32_t>(rows), static_cast<cuuint32_t>(dp / 8), 1,
+                             1};
+  const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<void*>(base), dims, strides, box,
+             elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+}  // namespace hop

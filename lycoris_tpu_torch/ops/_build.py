@@ -28,7 +28,7 @@ NVCC_FLAGS = [
 ]
 
 _LIB = None
-build_log = ""  # compiler output of the last build (ptxas register/spill report)
+build_log = ""  # compiler output of this library's build (ptxas register/spill report)
 
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 _SIGNATURES = {
@@ -36,7 +36,7 @@ _SIGNATURES = {
     "lyc_hada_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
     "lyc_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.POINTER(_L), _F, _I, _P],
     "lyc_ln_bwd": [_P] * 8 + [_I, _I, _I, _F, _I, _P],
-    "lyc_flash_bwd": [_P] * 9 + [_I] * 4 + [ctypes.POINTER(_L), _F, _I, _P],
+    "lyc_flash_bwd": [_P] * 10 + [_I] * 4 + [ctypes.POINTER(_L), _F, _I, _P],
     "lyc_hada_bwd": [_P] * 13 + [_I, _I, _I, _I, _F, _I, _P],
     "lyc_gn_fwd": [_P] * 8 + [_I] * 6 + [_F, _I, _I, _I, _P],
     "lyc_gn_bwd": [_P] * 14 + [_I] * 9 + [_P],
@@ -66,7 +66,7 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sorted(CSRC.glob("*.cu*")):  # the sources and their headers
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
@@ -76,7 +76,9 @@ def build() -> Path:
     """Compile the kernels if this tree's library is not built yet; return its path."""
     global build_log
     out = BUILD_DIR / f"liblycoris_kernels_{_digest()}.so"
+    log = out.with_suffix(".log")
     if out.exists():
+        build_log = log.read_text() if log.exists() else ""
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc, tag = _nvcc(), f"{out.stem}.{os.getpid()}"
@@ -102,8 +104,8 @@ def build() -> Path:
         raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{res.stdout}{res.stderr}")
     for obj in objs:
         obj.unlink()
+    log.write_text(build_log)
     os.replace(tmp, out)
-    (BUILD_DIR / "build.log").write_text(build_log)
     return out
 
 

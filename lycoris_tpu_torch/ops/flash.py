@@ -8,13 +8,19 @@ the head-split projections feed them without a copy, and write O, dq, dk
 and dv into (B, T, H, D) buffers that the projections read, or take the
 gradient of, as (B, T, C).
 
+The bf16 kernels load their tiles by TMA, which needs a 16-byte aligned
+base, strides that are multiples of 8 elements and a head dim that is a
+multiple of 8. Every self-attention of the UNets meets this as the
+head-split projections produce it; an input that does not
+(:func:`needs_pad`) is copied into a zero-padded (B, T, H, Dp) buffer
+(:func:`pad_head_dim`), counted in ``pad_copies``.
+
 :func:`flash_attention` is a :class:`FlashAttentionFunction`: its forward
-saves q, k, v, o and the fp32 logsumexp; its backward forms
-di = rowsum(dO * O) in plain torch (as the JAX package does outside its
-kernel) and runs the backward kernel. Each direction takes its plain
-version (:func:`flash_attention_plain`, :func:`flash_attention_bwd_plain`)
-only for tensors on the CPU; for CUDA tensors it launches the kernel or
-raises.
+saves q, k, v, o and the fp32 logsumexp; its backward runs the backward
+kernels, whose C entry also forms di = rowsum(dO * O) in fp32. Each
+direction takes its plain version (:func:`flash_attention_plain`,
+:func:`flash_attention_bwd_plain`) only for tensors on the CPU; for CUDA
+tensors it launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ from . import _build
 
 launches = 0  # forward kernel launches since the last reset (chip_smoke counts these)
 bwd_launches = 0  # backward kernel launches, likewise
+pad_copies = 0  # bf16 inputs copied into a padded buffer for TMA (0 on the UNet paths)
 
 
 def flash_attention_plain(q, k, v, sm_scale: float):
@@ -57,6 +64,34 @@ def _bthd_empty(like):
     return torch.empty((b, t, h, d), dtype=like.dtype, device=like.device).transpose(1, 2)
 
 
+def needs_pad(x) -> bool:
+    """True if the bf16 kernels' TMA cannot read the (B, H, T, D) operand
+    ``x`` in place: a head dim that is not contiguous or not a multiple of
+    8, a base that is not 16-byte aligned, or a batch/head/token stride
+    (of an extent above 1) that is not a multiple of 8 elements."""
+    if x.stride(-1) != 1 or x.shape[-1] % 8 or x.data_ptr() % 16:
+        return True
+    return any(s % 8 for s, n in zip(x.stride()[:3], x.shape[:3]) if n > 1)
+
+
+def pad_head_dim(x):
+    """``x`` (B, H, T, D) as a (B, H, T, Dp) view of a new (B, T, H, Dp)
+    buffer, Dp = D rounded up to 8, zero past D; counted in ``pad_copies``."""
+    global pad_copies
+    b, h, t, d = x.shape
+    out = x.new_zeros((b, t, h, -(-d // 8) * 8)).transpose(1, 2)
+    out[..., :d] = x
+    pad_copies += 1
+    return out
+
+
+def _tma_ready(*xs):
+    """bf16 operands as the kernels' TMA reads them: padded where needed."""
+    if xs[0].dtype != torch.bfloat16:
+        return xs
+    return tuple(pad_head_dim(x) if needs_pad(x) else x for x in xs)
+
+
 def _check(name, q, k, v):
     _build.check_cuda_inputs(name, q, k, v)
     if q.ndim != 4 or k.shape != q.shape or v.shape != q.shape:
@@ -76,11 +111,12 @@ def flash_fwd(q, k, v, sm_scale: float):
     b, h, t, d = q.shape
     o = _bthd_empty(q)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+    qp, kp, vp = _tma_ready(q, k, v)
     strides = (ctypes.c_longlong * 12)(
-        *[s for x in (q, k, v, o) for s in x.stride()[:3]]
+        *[s for x in (qp, kp, vp, o) for s in x.stride()[:3]]
     )
     rc = _build.lib().lyc_flash_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+        qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), o.data_ptr(), lse.data_ptr(),
         b, h, t, d, strides, float(sm_scale), _build.dtype_code(q), _build.stream_ptr(q),
     )
     _build.check(rc, "lyc_flash_fwd")
@@ -94,22 +130,24 @@ def flash_bwd(q, k, v, o, lse, do, sm_scale: float):
     global bwd_launches
     if q.device.type != "cuda":
         raise RuntimeError(f"flash_attention_bwd: no kernel for device {q.device}")
-    if do.stride(-1) != 1:
-        do = do.contiguous()
+    do, o = (x if x.stride(-1) == 1 else x.contiguous() for x in (do, o))
     _check("flash_attention_bwd", q, k, v)
-    _build.check_cuda_inputs("flash_attention_bwd", q, do)
-    if do.shape != q.shape or lse.shape != q.shape[:3]:
-        raise ValueError(f"flash_attention_bwd: dO {tuple(do.shape)} lse {tuple(lse.shape)}")
+    _build.check_cuda_inputs("flash_attention_bwd", q, o, do)
+    if do.shape != q.shape or o.shape != q.shape or lse.shape != q.shape[:3]:
+        raise ValueError(f"flash_attention_bwd: o {tuple(o.shape)} dO {tuple(do.shape)} "
+                         f"lse {tuple(lse.shape)}")
     b, h, t, d = q.shape
-    di = (do.float() * o.float()).sum(-1).contiguous()
     lse = lse.float().contiguous()
+    di = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     dq, dk, dv = _bthd_empty(q), _bthd_empty(q), _bthd_empty(q)
-    strides = (ctypes.c_longlong * 21)(
-        *[s for x in (q, k, v, do, dq, dk, dv) for s in x.stride()[:3]]
+    qp, kp, vp, dop = _tma_ready(q, k, v, do)
+    strides = (ctypes.c_longlong * 24)(
+        *[s for x in (qp, kp, vp, dop, dq, dk, dv, o) for s in x.stride()[:3]]
     )
     rc = _build.lib().lyc_flash_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        di.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, t, d, strides,
+        qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), o.data_ptr(), dop.data_ptr(),
+        lse.data_ptr(), di.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        b, h, t, d, strides,
         float(sm_scale), _build.dtype_code(q), _build.stream_ptr(q),
     )
     _build.check(rc, "lyc_flash_bwd")

@@ -31,7 +31,7 @@ PROFILED_CALLS = 3
 # kernel kinds, matched in order against the lower-cased kernel name
 KINDS = (
     ("flash_fwd (ours)", ("flash_fwd",)),
-    ("flash_bwd (ours)", ("flash_bwd",)),
+    ("flash_bwd (ours)", ("flash_bwd", "flash_di")),  # with its di = rowsum(dO * O) kernel
     ("LayerNorm (ours)", ("ln_fwd_kernel",)),
     ("LayerNorm bwd (ours)", ("ln_bwd",)),
     ("hada (ours)", ("hada_fwd_kernel",)),

@@ -54,6 +54,35 @@ def test_cuda_layer_norm_kernel(cuda, dtype):
         _check(y, tln.layer_norm_plain(x, w, b, 1e-5), dtype)
 
 
+def _heads(b, h, t, d, g, dtype, dev):
+    """A (B, H, T, D) head-split view of a (B, T, H*D) tensor: the layout the
+    UNet's attention projections give the flash kernels."""
+    return torch.randn(b, t, h * d, device=dev, generator=g).to(dtype).unflatten(
+        -1, (h, d)).transpose(1, 2)
+
+
+# (B, H, T, D) of the head-split cases: the UNets' D 40, 64, 80 and a ragged T
+FLASH_STRIDED = ((2, 8, 4096, 40), (2, 8, 1024, 80), (2, 10, 4096, 64), (2, 3, 1000, 40))
+
+
+def _graph_matches_eager(fn):
+    """One call of ``fn`` captured in a CUDA graph and replayed equals the
+    eager call (the kernels are deterministic: bit for bit)."""
+    want = fn()
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=s):
+        got = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_flash_kernel(cuda, dtype):
@@ -65,6 +94,21 @@ def test_cuda_flash_kernel(cuda, dtype):
         o_ref, lse_ref = tflash.flash_attention_plain(q, k, v, d**-0.5)
         _check(o, o_ref, dtype)
         assert float((lse - lse_ref).abs().max()) < 1e-3
+    # the UNet's head-split layout is read in place; D = 100 takes the pad copy
+    for (b, h, t, d), copies in [(s, 0) for s in FLASH_STRIDED] + [((1, 2, 1000, 100), 3)]:
+        if d == 100:
+            q, k, v = (torch.randn(b, h, t, d, device=cuda, generator=g).to(dtype)
+                       for _ in range(3))
+        else:
+            q, k, v = (_heads(b, h, t, d, g, dtype, cuda) for _ in range(3))
+        n = tflash.pad_copies
+        o, lse = tflash.flash_attention(q, k, v, d**-0.5)
+        assert tflash.pad_copies == n + (copies if dtype == torch.bfloat16 else 0)
+        o_ref, lse_ref = tflash.flash_attention_plain(q, k, v, d**-0.5)
+        _check(o, o_ref, dtype)
+        assert float((lse - lse_ref).abs().max()) < 1e-3
+    q, k, v = (_heads(2, 10, 1024, 64, g, dtype, cuda) for _ in range(3))
+    _graph_matches_eager(lambda: tflash.flash_fwd(q, k, v, 0.125))
 
 
 @pytest.mark.cuda
@@ -101,19 +145,32 @@ def test_cuda_layer_norm_bwd_kernel(cuda, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_flash_bwd_kernel(cuda, dtype):
     g = torch.Generator(device=cuda).manual_seed(2)
-    for b, h, t, d in ((2, 8, 4096, 40), (2, 8, 1024, 80), (1, 2, 1000, 128), (4, 10, 4096, 64),
-                       (2, 20, 1024, 64)):
-        q, k, v, do = (torch.randn(b, h, t, d, device=cuda, generator=g).to(dtype)
-                       for _ in range(4))
+    cases = [((b, h, t, d), "contiguous", 0) for b, h, t, d in (
+        (2, 8, 4096, 40), (2, 8, 1024, 80), (1, 2, 1000, 128), (4, 10, 4096, 64), (2, 20, 1024, 64))]
+    # the UNet's head-split layout (dO as the output projection's gradient
+    # gives it: a (B, T, H, D) buffer) is read in place; D = 100 takes the
+    # pad copy of q, k, v and dO
+    cases += [(shape, "strided", 0) for shape in FLASH_STRIDED]
+    cases += [((1, 2, 1000, 100), "contiguous", 4)]
+    for (b, h, t, d), layout, copies in cases:
+        if layout == "strided":
+            q, k, v, do = (_heads(b, h, t, d, g, dtype, cuda) for _ in range(4))
+        else:
+            q, k, v, do = (torch.randn(b, h, t, d, device=cuda, generator=g).to(dtype)
+                           for _ in range(4))
         sm = d**-0.5
         o, lse = tflash.flash_fwd(q, k, v, sm)
         want = tflash.flash_attention_bwd_plain(q, k, v, o, lse, do, sm)
-        n = tflash.bwd_launches
+        n, n_pad = tflash.bwd_launches, tflash.pad_copies
         got = tflash.flash_bwd(q, k, v, o, lse, do, sm)
         assert tflash.bwd_launches == n + 1
+        assert tflash.pad_copies == n_pad + (copies if dtype == torch.bfloat16 else 0)
         for a, w in zip(got, want):
             assert a.shape == w.shape
             _check(a, w, dtype)
+    q, k, v, do = (_heads(2, 10, 1024, 64, g, dtype, cuda) for _ in range(4))
+    o, lse = tflash.flash_fwd(q, k, v, 0.125)
+    _graph_matches_eager(lambda: tflash.flash_bwd(q, k, v, o, lse, do, 0.125))
 
 
 @pytest.mark.cuda
@@ -262,6 +319,18 @@ def test_cuda_functions_match_autograd_of_plain(cuda, dtype):
     q, k, v = (torch.randn(1, 4, 1024, 40, device=cuda, generator=g).to(dtype) for _ in range(3))
     _grads_match(lambda *a: tflash.flash_attention(*a, 40**-0.5)[0],
                  lambda *a: tflash.flash_attention_plain(*a, 40**-0.5)[0], (q, k, v), dtype)
+    # head-split views of (B, T, H*D) leaves, as the UNet's projections give
+    # them (the gradients flow back through the views), D 40/64/80, ragged T,
+    # and D = 100 through the pad copy
+    for h, t, d in ((4, 1024, 40), (2, 1024, 64), (2, 1000, 80), (2, 300, 100)):
+        xs = [torch.randn(1, t, h * d, device=cuda, generator=g).to(dtype) for _ in range(3)]
+
+        def split(*a, h=h, d=d):
+            return [x.unflatten(-1, (h, d)).transpose(1, 2) for x in a]
+
+        _grads_match(lambda *a, d=d: tflash.flash_attention(*split(*a), d**-0.5)[0],
+                     lambda *a, d=d: tflash.flash_attention_plain(*split(*a), d**-0.5)[0], xs,
+                     dtype)
 
     w1d, w2d = (torch.randn(8, 1280, device=cuda, generator=g).to(dtype) for _ in range(2))
     w1u, w2u = ((0.1 * torch.randn(640, 8, device=cuda, generator=g)).to(dtype) for _ in range(2))
