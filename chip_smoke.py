@@ -26,7 +26,9 @@ ends the run with a nonzero exit code, and no phase falls back to the CPU:
    library time the merged route the path runs (W + dW merged in fp32,
    then one bf16 matmul);
 3. kernels_bwd -- each backward kernel likewise at SD1.5 training (batch 8)
-   and SDXL training (batch 4) shapes: flash dq/dk/dv, LayerNorm dx/dw/db,
+   and SDXL training (batch 4) shapes: flash dq/dk/dv, LayerNorm dx/dw/db
+   (every path shape through the vectorised variant; the dx-only call timed
+   against ``F.layer_norm``'s backward, the dw/db call once per dtype),
    LoHa's four grads (fused1, and the split form, fp32, also held to the
    fused1 kernel's grads), GroupNorm dx/dgamma/dbeta, GEGLU d_hfull, the
    fused LoRA matmul's dx (nn);
@@ -53,19 +55,26 @@ ends the run with a nonzero exit code, and no phase falls back to the CPU:
 12. train_loha_split -- LoHa with ``ops.hada.BWD = "split"``: the split
    kernels in place of fused1, then one loss and the adapter grads at b8
    held to fused1's;
-13. train_e2e, train_e2e_lora -- one loss and every adapter gradient (LoKr,
+13. train_lokr_dropout -- LoKr with rank dropout 0.25 and module dropout
+   0.1, 3 steps: every adapted layer takes its delta forward (the LoKr
+   launch counts with factored 0); the parameters of every module kept in
+   some step change, those of a module dropped in all stay; one step's
+   adapter gradients repeat for one drop seed and differ for another;
+14. train_e2e, train_e2e_lora -- one loss and every adapter gradient (LoKr,
    LoRA) at batch 1, card (bf16, kernels) against the port on the CPU
    (fp32, plain versions);
-14. train_sdxl_lora -- the SD1.5 model freed, a full-width SDXL UNet (bf16,
+15. train_sdxl_lora -- the SD1.5 model freed, a full-width SDXL UNet (bf16,
    random seeded weights, ``remat="transformer"``) trains LoRA at batch 4,
    128x128 latents, context (4, 77, 2048), ``added_cond`` (4, 2816): the
    checks of phase 9, and the peak memory;
-15. train_sdxl_lokr, train_sdxl_loha -- the same with LoKr and LoHa;
-16. train_sdxl_e2e, train_sdxl_e2e_lora -- phase 13 on the SDXL model at
+16. train_sdxl_lokr, train_sdxl_loha -- the same with LoKr and LoHa;
+17. train_sdxl_e2e, train_sdxl_e2e_lora -- phase 14 on the SDXL model at
    64x64 latents.
 
 Every serving and training leg fails if a flash input took the padded
 copy (``flash.pad_copies``): the UNets' layouts are read by TMA in place.
+Every training leg fails unless each LayerNorm backward took the
+vectorised variant.
 
 The line before the last is the kernel table as JSON. Each kernel names the
 path its launches are read from (``path``): SDXL training (the first SDXL
@@ -608,6 +617,7 @@ class Checks:
         self.results = results
         self.dev = torch.device("cuda")
         self.rnd = _rnd(torch.Generator(device=self.dev).manual_seed(seed), self.dev)
+        self.wb_timed = set()  # dtypes whose LayerNorm dw/db call is timed
 
     def _flash_inputs(self, layout, b, h, t, d, dtype, n):
         """``n`` (B, H, T, D) operands: "strided", head-split views of (B, T,
@@ -768,6 +778,11 @@ class Checks:
                    per_call if layout == "strided" else 0)
 
     def layer_norm_bwd(self, path, rows, c, dtype, per_call, timed):
+        """dx/dw/db and dx alone against the plain backward; the dx-only call
+        (the path's) must take the vectorised variant, and so must the dw/db
+        call in bf16 (fp32 dw/db at C = 1280 is over its register budget).
+        The dx-only call is timed against ``F.layer_norm``'s backward for dx,
+        and the dw/db call once per dtype against the library's dx/dw/db."""
         import torch
         import torch.nn.functional as F
         from lycoris_tpu_torch.ops import layer_norm
@@ -775,8 +790,14 @@ class Checks:
         x = self.rnd((rows, c), dtype, 2.0) + 0.5
         w = self.rnd((c,), dtype, 0.5) + 1.0
         dy = self.rnd((rows, c), dtype)
+        vec0 = layer_norm.bwd_vec_launches
         got = layer_norm.layer_norm_bwd(x, w, dy, 1e-5)
+        wb_vec = layer_norm.bwd_vec_launches - vec0
         dx_only = layer_norm.layer_norm_bwd(x, w, dy, 1e-5, want_wb=False)[0]
+        dx_vec = layer_norm.bwd_vec_launches - vec0 - wb_vec
+        if dx_vec != 1 or (dtype == torch.bfloat16 and wb_vec != 1):
+            fail(f"layer_norm_bwd {path} ({rows},{c}) {dtype}: the vectorised variant ran for "
+                 f"{dx_vec} of 1 dx-only and {wb_vec} of 1 dw/db calls")
         want = layer_norm.layer_norm_bwd_plain(x, w, dy, 1e-5)
         torch.cuda.synchronize()
         times = None
@@ -791,6 +812,29 @@ class Checks:
                            bound(12.0 * n, nbytes, str(dtype)[6:]),
                            lambda it: _library_bwd_ms(
                                lambda xl: F.layer_norm(xl, (c,), w, b, 1e-5), (x,), dy, it))
+            ms, lib, bnd = times[0], times[3], times[4][0]
+            verdict = "no slower than" if ms <= lib else "SLOWER than"
+            log(f"[kernels] layer_norm_bwd {path} ({rows},{c}) dx: kernel {ms:.4f} ms "
+                f"{verdict} F.layer_norm's backward {lib:.4f} ms ({ms / lib:.2f}x), "
+                f"{bnd / ms:.1%} of its bound")
+            self.results["layer_norm_bwd"].setdefault("shapes", []).append(
+                {"path": path, "shape": [rows, c], "ms": ms, "library_ms": lib,
+                 "bound_ms": bnd, "per": per_call})
+        if dtype not in self.wb_timed:
+            self.wb_timed.add(dtype)
+            n, es = x.numel(), x.element_size()
+            it = iters_for(3 * n * es)
+            b = self.rnd((c,), dtype, 0.5)
+            wb_ms = graph_ms(lambda: layer_norm.layer_norm_bwd(x, w, dy, 1e-5), it)
+            dx_ms = graph_ms(lambda: layer_norm.layer_norm_bwd(x, w, dy, 1e-5, want_wb=False), it)
+            lib_wb = _library_bwd_ms(lambda xl, wl, bl: F.layer_norm(xl, (c,), wl, bl, 1e-5),
+                                     (x, w, b), dy, it)
+            log(f"[kernels] layer_norm_bwd {path} ({rows},{c}) {str(dtype)[6:]}: dx+dw+db "
+                f"{wb_ms:.4f} ms beside dx only {dx_ms:.4f} ms; F.layer_norm's backward for "
+                f"dx, dw and db {lib_wb:.4f} ms")
+            self.results["layer_norm_bwd"].setdefault("with_dw_db", []).append(
+                {"path": path, "shape": [rows, c], "dtype": str(dtype)[6:], "ms": wb_ms,
+                 "dx_only_ms": dx_ms, "library_ms": lib_wb})
         record(self.results, "layer_norm_bwd", path,
                compare_all(dtype, (*got, dx_only), (*want, want[0])), f"({rows},{c})", times,
                per_call)
@@ -1231,6 +1275,7 @@ def reset_counts():
     flash.bwd_launches = layer_norm.bwd_launches = hada.bwd_launches = 0
     group_norm.bwd_launches = geglu.bwd_launches = group_norm.copies = flash.pad_copies = 0
     lora_fused.launches = lora_fused.dx_launches = hada.split_launches = 0
+    layer_norm.bwd_vec_launches = layer_norm.bwd_generic_launches = 0
     merged.applications = 0
 
 
@@ -1246,6 +1291,18 @@ def read_counts() -> dict:
             "geglu_bwd": geglu.bwd_launches, "lora_fused_nt": lora_fused.launches,
             "lora_fused_nn": lora_fused.dx_launches, "hada_bwd_split": hada.split_launches,
             "factored": merged.applications}
+
+
+def check_ln_vectorised(tag: str, counts: dict) -> None:
+    """Fail unless every LayerNorm backward since the last reset took the
+    vectorised variant (every width of the SD1.5 and SDXL paths does)."""
+    from lycoris_tpu_torch.ops import layer_norm
+
+    if (layer_norm.bwd_vec_launches != counts["layer_norm_bwd"]
+            or layer_norm.bwd_generic_launches):
+        fail(f"{tag} LayerNorm backward: {layer_norm.bwd_vec_launches} vectorised and "
+             f"{layer_norm.bwd_generic_launches} generic launches of "
+             f"{counts['layer_norm_bwd']}")
 
 
 def gn_copies() -> int:
@@ -1398,25 +1455,59 @@ def phase_e2e(model, sd):
 # ---------------------------------------------------------------------------
 
 
-def train(model, algo, sd, batch, want, steps, results, card, tag, path=None, adapted=None):
+def make_net(model, sd, algo=None, rates=None):
+    """The network of the adapter in ``sd``: loaded from it as a file would
+    be, or, with dropout ``rates``, built by ``create_lycoris`` with them on
+    the attn-mlp targets (as ``adapter_state_dict``) and given its values."""
+    from lycoris_tpu_torch import LycorisNetwork, create_lycoris, create_lycoris_from_weights
+
+    if not rates:
+        return create_lycoris_from_weights(1.0, None, model, weights_sd=sd)[0]
+    LycorisNetwork.apply_preset({"target_module": ["Transformer2DModel"]})
+    try:
+        net = create_lycoris(model, 1.0, linear_dim=LORA_RANK, linear_alpha=4.0, algo=algo,
+                             factor=8, **rates)
+    finally:
+        LycorisNetwork.reset_preset()
+    net.load_state_dict(sd, strict=True)
+    return net
+
+
+def train(model, algo, sd, batch, want, steps, results, card, tag, path=None, adapted=None,
+          rates=None, drop_seed=0):
     """``steps`` AdamW steps of ``DiffusionTrainer`` on the adapter in ``sd``
     (the first a warm-up); per step: launches of every kernel and factored
-    layer (``want``), finite loss; then every adapter parameter changed and
-    the base weights bit-identical. ``adapted``: the adapter-module count
-    the network must have. The launches of the kernels whose ``path`` is
-    ``path`` go into the kernel table."""
+    layer (``want``), every LayerNorm backward vectorised, finite loss; then
+    the base weights bit-identical and every adapter parameter changed, or
+    with module dropout in ``rates``, those of every module the trainer's
+    drop seeds keep in some step (a module dropped in every step gets zero
+    gradients, and AdamW's decay of 1e-8 rounds away in fp32).
+    ``adapted``: the adapter-module count the network must have. The
+    launches of the kernels whose ``path`` is ``path`` go into the kernel
+    table."""
     import torch
-    from lycoris_tpu_torch import create_lycoris_from_weights
+    from lycoris_tpu_torch.modules import base as mbase
     from lycoris_tpu_torch.trainer import DiffusionTrainer
 
     dev = torch.device("cuda")
-    net, _ = create_lycoris_from_weights(1.0, None, model, weights_sd=sd)
+    net = make_net(model, sd, algo, rates)
     if adapted is not None and len(net.loras) != adapted:
         fail(f"{tag} {len(net.loras)} adapter modules, want {adapted}")
     tr = DiffusionTrainer(model, net, lr=1e-4, weight_dtype=torch.bfloat16,
-                          generator=torch.Generator(device=dev).manual_seed(21))
+                          generator=torch.Generator(device=dev).manual_seed(21),
+                          drop_seed=drop_seed)
+    kept = set(net.lora_map)
+    if rates and rates.get("module_dropout"):
+        # the trainer's step seeds, then each module's keep flag per step
+        gen = torch.Generator().manual_seed(drop_seed)
+        seeds = [int(torch.randint(0, 2**62, (), generator=gen)) for _ in range(steps)]
+        kept = {ln for ln in net.lora_map if any(
+            float(mbase.module_keep(mbase.draw_generator(mbase.fold_in(s, ln), mbase.MODULE_SALT,
+                                                         dev), rates["module_dropout"]))
+            for s in seeds)}
     base = [p.detach().clone() for p in model.parameters()]
-    before = {k: p.detach().clone() for k, p in net.named_parameters()}
+    before = {(ln, k): p.detach().clone()
+              for ln, sub in net.trainable_params().items() for k, p in sub.items()}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     secs, losses, totals, copies = [], [], Counter(), 0
@@ -1432,19 +1523,30 @@ def train(model, algo, sd, batch, want, steps, results, card, tag, path=None, ad
         if counts != want:
             fail(f"{tag} launch counts per step {counts} != {want}")
         check_no_pad_copies(tag)
+        check_ln_vectorised(tag, counts)
         totals.update(counts)
         losses.append(float(loss))
         if not math.isfinite(losses[-1]):
             fail(f"{tag} loss {losses[-1]} at step {len(losses)}")
     peak = torch.cuda.max_memory_allocated() / 2**30
-    log(f"{tag} launches per step {want} over {steps} steps; GroupNorm input copies {copies}; "
-        f"flash pad copies 0")
+    log(f"{tag} launches per step {want} over {steps} steps, every LayerNorm backward "
+        f"vectorised; GroupNorm input copies {copies}; flash pad copies 0")
     for name, meta in KERNELS.items():
         if meta["path"] == path and want.get(name) and not results[name]["launches"]:
             results[name]["launches"] = totals[name]
-    unchanged = [k for k, p in net.named_parameters() if torch.equal(p.detach(), before[k])]
+            if name == "layer_norm_bwd":  # every one vectorised (checked per step)
+                results[name]["variants"] = {"vectorised": totals[name], "generic": 0}
+    changed = {(ln, k) for ln, sub in net.trainable_params().items() for k, p in sub.items()
+               if not torch.equal(p.detach(), before[ln, k])}
+    unchanged = [k for k in before if k not in changed and k[0] in kept]
     if unchanged:
         fail(f"{tag} {len(unchanged)} adapter parameters did not change, e.g. {unchanged[:3]}")
+    if len(kept) < len(net.lora_map):
+        stale = [k for k in changed if k[0] not in kept]
+        log(f"{tag} {len(net.lora_map) - len(kept)} modules dropped in all {steps} steps "
+            f"(module dropout), {len(stale)} of their parameters changed")
+        if stale:
+            fail(f"{tag} parameters of modules dropped in every step changed: {stale[:3]}")
     if not all(torch.equal(p, b) for p, b in zip(model.parameters(), base)):
         fail(f"{tag} the frozen base weights changed")
     steady = secs[1:]
@@ -1530,6 +1632,53 @@ def phase_loha_split(model, sd, batch, results, card):
     if not (loss_rel <= 1e-3 and grad_rel <= 1e-3 and bool(torch.isfinite(g_s).all())):
         fail(f"[train_loha_split] split vs fused1: loss rel {loss_rel:.3e}, gradient rel L2 "
              f"{grad_rel:.3e}")
+    torch.cuda.empty_cache()
+
+
+DROPOUT_RATES = {"rank_dropout": 0.25, "module_dropout": 0.1}
+
+
+def phase_dropout(model, sd, batch, results, card):
+    """LoKr at b8 with rank and module dropout: 3 train steps whose every
+    adapted layer leaves the merged and factored routes for its delta
+    forward (the LoKr launch counts with factored 0), then one step's
+    adapter gradients for drop seeds 5, 5 and 6: the same seed gives the
+    same gradients (rel L2 1e-3: cuDNN's backward may differ run to run),
+    another seed other masks and gradients far apart (rel L2 above 1e-2)."""
+    import torch
+    from lycoris_tpu_torch.models.unet import sd15_config
+    from lycoris_tpu_torch.trainer import DiffusionTrainer
+
+    tag = "[train_lokr_dropout]"
+    want = {**checked_counts(sd15_config(), TRAIN_BATCH, 64, "lokr", True, False, SD15_STEP,
+                             SD15_ADAPTED, SD15_FACTORED), "factored": 0}
+    train(model, "lokr", sd, batch, want, 3, results, card, tag, rates=DROPOUT_RATES,
+          drop_seed=5)
+    dev = torch.device("cuda")
+
+    def step_grads(drop_seed):
+        net = make_net(model, sd, "lokr", DROPOUT_RATES)
+        tr = DiffusionTrainer(model, net, lr=1e-4, weight_dtype=torch.bfloat16,
+                              generator=torch.Generator(device=dev).manual_seed(21),
+                              drop_seed=drop_seed)
+        loss = float(tr.train_step(batch))
+        grads = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).float()
+                           .reshape(-1) for _, sub in sorted(net.trainable_params().items())
+                           for _, p in sorted(sub.items())])
+        net.restore()
+        del tr, net
+        return loss, grads
+
+    (loss_a, g_a), (loss_r, g_r), (loss_b, g_b) = (step_grads(s) for s in (5, 5, 6))
+    same, other = rel_l2(g_r, g_a), rel_l2(g_b, g_a)
+    log(f"{tag} one step's adapter gradient ({g_a.numel()} values): drop seed 5 twice rel L2 "
+        f"{same:.3e} (bound 1e-3), seeds 5 and 6 rel L2 {other:.3e} (want above 1e-2); "
+        f"losses {loss_a:.6f} {loss_r:.6f} {loss_b:.6f}")
+    finite = all(math.isfinite(x) for x in (loss_a, loss_r, loss_b)) and all(
+        bool(torch.isfinite(g).all()) for g in (g_a, g_r, g_b))
+    if not (finite and same <= 1e-3 and other > 1e-2):
+        fail(f"{tag} dropout gradients: same seed rel L2 {same:.3e}, other seed {other:.3e}, "
+             f"finite {finite}")
     torch.cuda.empty_cache()
 
 
@@ -1661,6 +1810,8 @@ def main() -> int:
               adapted=SD15_FULL_ADAPTED)
     with phase("train_loha_split"):
         phase_loha_split(model, sds["loha"], batch, results, card)
+    with phase("train_lokr_dropout"):
+        phase_dropout(model, sds["lokr"], batch, results, card)
     for algo, tag in (("lokr", "[train_e2e]"), ("lora", "[train_e2e_lora]")):
         with phase(tag.strip("[]")):
             phase_train_e2e(model, sds[algo], sd15_config(torch.float32), tag)
@@ -1709,10 +1860,12 @@ def main() -> int:
     table = []
     for name, meta in KERNELS.items():
         r = results[name]
+        extra = {k: r[k] for k in ("variants", "shapes", "with_dw_db") if k in r}
         table.append({"name": name, "route": meta["route"], "source": meta["source"],
                       "replaces": meta["replaces"], "path": meta["path"],
                       "per": meta.get("per", PER_SDXL_STEP), "launches": r["launches"],
-                      "max_abs_err": r["max_abs_err"], **sums(r["sdxl"]), "sd15": sums(r["sd15"])})
+                      "max_abs_err": r["max_abs_err"], **sums(r["sdxl"]), "sd15": sums(r["sd15"]),
+                      **extra})
     for row in table:
         if row["name"].startswith("flash"):
             for where, r in (("SDXL step", row), ("SD1.5 " + ("call" if "fwd" in row["name"]
@@ -1720,6 +1873,16 @@ def main() -> int:
                 log(f"[kernels] {row['name']} per {where}: {r['ms']:.3f} ms, "
                     f"{r['bound_ms'] / r['ms']:.1%} of its bound, "
                     f"{r['ms'] / r['library_ms']:.2f}x SDPA ({r['library_ms']:.3f} ms)")
+        if row["name"] == "layer_norm_bwd":
+            for where, r in (("SDXL step", row), ("SD1.5 b8 step", row["sd15"])):
+                log(f"[kernels] layer_norm_bwd per {where}: {r['ms']:.3f} ms against "
+                    f"F.layer_norm's backward {r['library_ms']:.3f} ms "
+                    f"({r['ms'] / r['library_ms']:.2f}x), {r['bound_ms'] / r['ms']:.1%} of its "
+                    f"bound {r['bound_ms']:.3f} ms")
+            slower = [f"{sh['path']} {tuple(sh['shape'])}" for sh in row["shapes"]
+                      if sh["ms"] > sh["library_ms"]]
+            log(f"[kernels] layer_norm_bwd path shapes slower than F.layer_norm's backward: "
+                f"{slower or 'none'} of {len(row['shapes'])}")
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,19 +7,34 @@
 //   dw = sum over rows of dy*x^,  db = sum over rows of dy.
 //
 // Bound on the H100: memory. Each element of x and dy is read once and dx
-// written once (6 bytes in bf16) against ~10 FLOPs.
+// written once (6 bytes in bf16) against ~12 FLOPs.
 //
-// Design: one warp owns one row; a block of 4 warps walks rows with a grid
-// stride, so a few hundred blocks cover any row count. The TPU kernel sums
-// dw/db in VMEM across its sequential row grid; Hopper's blocks run in no
-// order, so each warp keeps its own fp32 column sums in shared memory (each
-// lane owns columns lane, lane+32, ...: no atomics), the block adds its
-// warps' sums in a fixed order into one partial row per block, and a second
-// small kernel adds the partial rows column by column. The result does not
-// depend on scheduling (deterministic), and the partial rows (<= 528 x C
-// fp32) are small beside x and dy. When the caller needs no dw/db (frozen
-// LayerNorm weights, as on the training path) both the shared sums and the
-// second kernel are skipped.
+// Two variants, chosen by the caller (ops/layer_norm.py `bwd_lanes`):
+//
+// Vectorised (every LayerNorm width of the SD1.5 and SDXL paths): a group
+// of L lanes of one warp owns a row, so a warp walks 32 / L rows at once.
+// Lane j holds the row's 16-byte vectors j, j + L, j + 2L, ... of x and dy
+// in registers, V of them (V * L * 8 = C in bf16: L = C / 40 and V = 5 at
+// C = 320, 640 and 1280; V <= 10, and V <= 5 with dw/db, beyond which
+// ptxas spills), loaded once with 16-byte loads, neighbouring lanes on
+// neighbouring addresses. The mean and mean(w*dy), then the centred
+// variance and mean(w*dy*x^), are two rounds of xor-shuffle reductions
+// inside the group, all from the registers, and dx is written with 16-byte
+// stores: device memory sees one read of x and dy and one write of dx.
+// Each lane loads its slice of w once for all the rows it walks. A block
+// has 8 warps, or fewer until the grid has 8 blocks an SM. A lane's columns are the same in every row, so with
+// dw/db it keeps their sums in registers; at the end the groups of a warp
+// are added by a fixed xor butterfly, the warps of a block in warp order
+// through shared memory into one partial row per block, and a second
+// kernel adds the partial rows in order: no atomics, so the result does
+// not depend on scheduling.
+//
+// Generic (any other width, or a tensor not 16-byte aligned; no path shape
+// takes it): one warp owns a row and re-reads it from L1 with scalar loads;
+// its dw/db sums live per warp in shared memory, one partial row per block.
+//
+// When the caller needs no dw/db (frozen LayerNorm weights, as on the
+// training path) the sums and the second kernel are skipped.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -40,14 +55,14 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-constexpr int kWarps = 4;
+constexpr int kWarps = 4;  // warps per block of the generic variant
 
 template <typename T>
 __global__ void __launch_bounds__(32 * kWarps)
-    ln_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy,
-                  const T* __restrict__ w, T* __restrict__ dx,
-                  float* __restrict__ dw_part, float* __restrict__ db_part, int rows,
-                  int cols, float eps) {
+    ln_bwd_generic_kernel(const T* __restrict__ x, const T* __restrict__ dy,
+                          const T* __restrict__ w, T* __restrict__ dx,
+                          float* __restrict__ dw_part, float* __restrict__ db_part, int rows,
+                          int cols, float eps) {
   extern __shared__ float sums[];  // [kWarps][2][cols] when dw/db are wanted
   const int warp = threadIdx.y, lane = threadIdx.x;
   const bool want_wb = dw_part != nullptr;
@@ -138,41 +153,323 @@ __global__ void __launch_bounds__(1024)
 }
 
 template <typename T>
-int launch(const void* x, const void* dy, const void* w, void* dx, float* dw_part,
-           float* db_part, int rows, int cols, int nparts, float eps, cudaStream_t st) {
+int launch_generic(const void* x, const void* dy, const void* w, void* dx, float* dw_part,
+                   float* db_part, int rows, int cols, int nparts, float eps, cudaStream_t st) {
   const size_t smem = dw_part ? (size_t)kWarps * 2 * cols * sizeof(float) : 0;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        ln_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        ln_bwd_generic_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  ln_bwd_kernel<T><<<nparts, dim3(32, kWarps), smem, st>>>(
+  ln_bwd_generic_kernel<T><<<nparts, dim3(32, kWarps), smem, st>>>(
       static_cast<const T*>(x), static_cast<const T*>(dy), static_cast<const T*>(w),
       static_cast<T*>(dx), dw_part, db_part, rows, cols, eps);
   return 0;
 }
 
+// ---------------------------------------------------------------------------
+// vectorised variant
+// ---------------------------------------------------------------------------
+
+constexpr int kMaxWarps = 8;   // warps per block, fewer where the rows would not fill the SMs
+constexpr int kBlocksPerSm = 8;  // blocks an SM that a grid of fewer warps a block aims for
+constexpr int kMaxVecs = 10;   // 16-byte vectors of x (and of dy) per lane
+constexpr int kMaxVecsWB = 5;  // with dw/db in registers too (no spills up to 5)
+
+// the E = 16 / sizeof(T) values of one 16-byte vector as floats
+__device__ __forceinline__ void unpack(const uint4& v, float (&f)[4]) {
+  f[0] = __uint_as_float(v.x);
+  f[1] = __uint_as_float(v.y);
+  f[2] = __uint_as_float(v.z);
+  f[3] = __uint_as_float(v.w);
+}
+__device__ __forceinline__ void unpack(const uint4& v, float (&f)[8]) {
+  const unsigned u[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(u[i] << 16);
+    f[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
+  }
+}
+__device__ __forceinline__ uint4 pack(const float (&f)[4]) {
+  return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]), __float_as_uint(f[2]),
+                    __float_as_uint(f[3]));
+}
+__device__ __forceinline__ unsigned pack2(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&h);
+}
+__device__ __forceinline__ uint4 pack(const float (&f)[8]) {
+  return make_uint4(pack2(f[0], f[1]), pack2(f[2], f[3]), pack2(f[4], f[5]),
+                    pack2(f[6], f[7]));
+}
+
+// sums of a and of b over the `lanes` lanes of this lane's group (groups
+// are aligned runs of `lanes` lanes; every lane of the warp takes part),
+// the two shuffle chains interleaved
+__device__ __forceinline__ void group_sum2(float& a, float& b, int lanes) {
+  for (int o = lanes >> 1; o > 0; o >>= 1) {
+    a += __shfl_xor_sync(0xffffffffu, a, o);
+    b += __shfl_xor_sync(0xffffffffu, b, o);
+  }
+}
+
+template <typename T, int V, bool WB>
+__global__ void __launch_bounds__(32 * kMaxWarps)
+    ln_bwd_vec_kernel(const T* __restrict__ x, const T* __restrict__ dy,
+                      const T* __restrict__ w, T* __restrict__ dx, float* __restrict__ dw_part,
+                      float* __restrict__ db_part, int rows, int cols, int lanes, float eps) {
+  constexpr int E = 16 / sizeof(T);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int warps = blockDim.x >> 5;
+  const int j = lane & (lanes - 1);          // this lane's place in its group
+  const int groups = 32 / lanes;             // rows a warp walks at once
+  const int group = lane / lanes;
+  const int rows_per_block = warps * groups;
+  const float inv_c = 1.f / cols;
+
+  uint4 wv[V];
+#pragma unroll
+  for (int v = 0; v < V; ++v)
+    wv[v] = __ldg(reinterpret_cast<const uint4*>(w) + v * lanes + j);
+  float dws[WB ? V * E : 1], dbs[WB ? V * E : 1];
+  if constexpr (WB) {
+#pragma unroll
+    for (int i = 0; i < V * E; ++i) dws[i] = dbs[i] = 0.f;
+  }
+
+  // the loop bound is the same for every lane of a warp (the shuffles need
+  // them all); a group past the last row computes on zeros and stores nothing
+  for (int base = blockIdx.x * rows_per_block + warp * groups; base < rows;
+       base += gridDim.x * rows_per_block) {
+    const int row = base + group;
+    const bool valid = row < rows;
+    const long long off = (long long)(valid ? row : 0) * cols / E;
+    uint4 xv[V], gv[V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      xv[v] = valid ? __ldg(reinterpret_cast<const uint4*>(x) + off + v * lanes + j)
+                    : make_uint4(0, 0, 0, 0);
+      gv[v] = valid ? __ldg(reinterpret_cast<const uint4*>(dy) + off + v * lanes + j)
+                    : make_uint4(0, 0, 0, 0);
+    }
+    // two rounds of group sums: (sum x, sum w*dy), then, from the mean,
+    // (sum (x - mean)^2, sum w*dy*(x - mean)); each lane keeps one partial
+    // sum per vector element so that its adds do not form one long chain
+    float sp[E], ap[E];
+#pragma unroll
+    for (int e = 0; e < E; ++e) sp[e] = ap[e] = 0.f;
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      float xf[E], gf[E], wf[E];
+      unpack(xv[v], xf);
+      unpack(gv[v], gf);
+      unpack(wv[v], wf);
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        sp[e] += xf[e];
+        ap[e] += gf[e] * wf[e];
+      }
+    }
+    float s = 0.f, a2 = 0.f;
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      s += sp[e];
+      a2 += ap[e];
+    }
+    group_sum2(s, a2, lanes);
+    const float mean = s * inv_c, c2 = a2 * inv_c;
+#pragma unroll
+    for (int e = 0; e < E; ++e) sp[e] = ap[e] = 0.f;
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      float xf[E], gf[E], wf[E];
+      unpack(xv[v], xf);
+      unpack(gv[v], gf);
+      unpack(wv[v], wf);
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        const float d = xf[e] - mean;
+        sp[e] += d * d;
+        ap[e] += gf[e] * wf[e] * d;
+      }
+    }
+    float ss = 0.f, a1 = 0.f;
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      ss += sp[e];
+      a1 += ap[e];
+    }
+    group_sum2(ss, a1, lanes);
+    const float rstd = rsqrtf(ss * inv_c + eps);
+    const float c1 = a1 * rstd * inv_c;  // mean(w*dy*x^)
+    if (!valid) continue;
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      float xf[E], gf[E], wf[E], out[E];
+      unpack(xv[v], xf);
+      unpack(gv[v], gf);
+      unpack(wv[v], wf);
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        const float xh = (xf[e] - mean) * rstd;
+        out[e] = (gf[e] * wf[e] - xh * c1 - c2) * rstd;
+        if constexpr (WB) {
+          dws[v * E + e] += gf[e] * xh;
+          dbs[v * E + e] += gf[e];
+        }
+      }
+      reinterpret_cast<uint4*>(dx)[off + v * lanes + j] = pack(out);
+    }
+  }
+  if constexpr (WB) {
+    // the groups of the warp hold the same columns: a fixed butterfly adds
+    // them, leaving every lane with the warp's sums for its columns
+    for (int o = lanes; o < 32; o <<= 1) {
+#pragma unroll
+      for (int i = 0; i < V * E; ++i) {
+        dws[i] += __shfl_xor_sync(0xffffffffu, dws[i], o);
+        dbs[i] += __shfl_xor_sync(0xffffffffu, dbs[i], o);
+      }
+    }
+    // the warps of the block, added in warp order by the first group of each
+    extern __shared__ float sums[];  // [2][cols]
+    float* sdw = sums;
+    float* sdb = sums + cols;
+    for (int k = 0; k < warps; ++k) {
+      if (warp == k && lane < lanes) {
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+#pragma unroll
+          for (int e = 0; e < E; ++e) {
+            const int c = (v * lanes + j) * E + e;
+            sdw[c] = (k ? sdw[c] : 0.f) + dws[v * E + e];
+            sdb[c] = (k ? sdb[c] : 0.f) + dbs[v * E + e];
+          }
+        }
+      }
+      __syncthreads();
+    }
+    for (int c = threadIdx.x; c < cols; c += blockDim.x) {
+      dw_part[(long long)blockIdx.x * cols + c] = sdw[c];
+      db_part[(long long)blockIdx.x * cols + c] = sdb[c];
+    }
+  }
+}
+
+int sm_count() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      sms = 132;
+  }
+  return sms;
+}
+
+template <typename T, int V>
+int launch_vec_v(const void* x, const void* dy, const void* w, void* dx, float* dw_part,
+                 float* db_part, int rows, int cols, int lanes, int* nparts, float eps,
+                 cudaStream_t st) {
+  // fewer warps a block until the grid has 8 blocks an SM: smaller blocks
+  // fill the SMs more evenly at the path's sizes (the most rows, 32768 at
+  // C = 320, keep 4 warps), and the fewest rows, SD1.5's (512, 1280),
+  // still reach every SM
+  const int groups = 32 / lanes;
+  int warps = kMaxWarps;
+  while (warps > 1 && (rows + warps * groups - 1) / (warps * groups) < kBlocksPerSm * sm_count())
+    warps >>= 1;
+  long long grid = (rows + warps * groups - 1) / (warps * groups);
+  const dim3 block(32 * warps);
+  if (dw_part == nullptr) {
+    ln_bwd_vec_kernel<T, V, false><<<(unsigned)grid, block, 0, st>>>(
+        static_cast<const T*>(x), static_cast<const T*>(dy), static_cast<const T*>(w),
+        static_cast<T*>(dx), nullptr, nullptr, rows, cols, lanes, eps);
+    return 0;
+  }
+  if constexpr (V <= kMaxVecsWB) {
+    // with dw/db: at most nparts blocks (the partial rows the caller gave),
+    // and no more than the card holds at once, so each block walks many rows
+    const size_t smem = 2 * (size_t)cols * sizeof(float);
+    int per_sm = 0;
+    const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, ln_bwd_vec_kernel<T, V, true>, (int)block.x, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const long long resident = (long long)sm_count() * (per_sm > 0 ? per_sm : 1);
+    if (grid > resident) grid = resident;
+    if (grid > *nparts) grid = *nparts;
+    *nparts = (int)grid;
+    ln_bwd_vec_kernel<T, V, true><<<(unsigned)grid, block, smem, st>>>(
+        static_cast<const T*>(x), static_cast<const T*>(dy), static_cast<const T*>(w),
+        static_cast<T*>(dx), dw_part, db_part, rows, cols, lanes, eps);
+    return 0;
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);  // over the register budget
+  }
+}
+
+template <typename T>
+int launch_vec(const void* x, const void* dy, const void* w, void* dx, float* dw_part,
+               float* db_part, int rows, int cols, int lanes, int* nparts, float eps,
+               cudaStream_t st) {
+  constexpr int E = 16 / sizeof(T);
+  const bool lanes_ok = lanes >= 1 && lanes <= 32 && (lanes & (lanes - 1)) == 0;
+  if (!lanes_ok || cols % (lanes * E) != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned long long addr_bits =
+      reinterpret_cast<unsigned long long>(x) | reinterpret_cast<unsigned long long>(dy) |
+      reinterpret_cast<unsigned long long>(w) | reinterpret_cast<unsigned long long>(dx);
+  if (addr_bits % 16 != 0) return static_cast<int>(cudaErrorMisalignedAddress);
+#define LYC_LN_BWD_V(NV)                                                                   \
+  case NV:                                                                                 \
+    return launch_vec_v<T, NV>(x, dy, w, dx, dw_part, db_part, rows, cols, lanes, nparts, \
+                               eps, st);
+  switch (cols / (lanes * E)) {
+    LYC_LN_BWD_V(1)
+    LYC_LN_BWD_V(2)
+    LYC_LN_BWD_V(3)
+    LYC_LN_BWD_V(4)
+    LYC_LN_BWD_V(5)
+    LYC_LN_BWD_V(6)
+    LYC_LN_BWD_V(7)
+    LYC_LN_BWD_V(8)
+    LYC_LN_BWD_V(9)
+    LYC_LN_BWD_V(10)
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef LYC_LN_BWD_V
+}
+
 }  // namespace
 
 // x, dy, dx: (rows, cols) contiguous; w: (cols,); all one dtype
-// (0 = float32, 1 = bfloat16). nparts: the number of blocks (1..). With
-// dw == nullptr only dx is computed; otherwise dw_part/db_part are
-// (nparts, cols) fp32 scratch and dw/db (cols,) fp32 outputs.
+// (0 = float32, 1 = bfloat16). lanes: 0 for the generic variant, else the
+// lanes per row of the vectorised one (a power of two <= 32; cols a
+// multiple of lanes * 16 bytes, at most 10 vectors a lane, 5 with dw/db;
+// the four tensors 16-byte aligned). nparts: the generic variant's block count and
+// the partial rows of dw_part/db_part. With dw == nullptr only dx is
+// computed; otherwise dw_part/db_part are (nparts, cols) fp32 scratch and
+// dw/db (cols,) fp32 outputs.
 extern "C" int lyc_ln_bwd(const void* x, const void* dy, const void* w, void* dx,
                           float* dw_part, float* db_part, float* dw, float* db, int rows,
-                          int cols, int nparts, float eps, int dtype, void* stream) {
+                          int cols, int nparts, int lanes, float eps, int dtype, void* stream) {
   if (rows < 1 || cols < 1 || nparts < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool want_wb = dw != nullptr;
   float* wp = want_wb ? dw_part : nullptr;
   float* bp = want_wb ? db_part : nullptr;
   int rc;
-  if (dtype == 0) {
-    rc = launch<float>(x, dy, w, dx, wp, bp, rows, cols, nparts, eps, st);
-  } else if (dtype == 1) {
-    rc = launch<__nv_bfloat16>(x, dy, w, dx, wp, bp, rows, cols, nparts, eps, st);
+  if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (lanes == 0) {
+    rc = dtype == 0 ? launch_generic<float>(x, dy, w, dx, wp, bp, rows, cols, nparts, eps, st)
+                    : launch_generic<__nv_bfloat16>(x, dy, w, dx, wp, bp, rows, cols, nparts,
+                                                    eps, st);
   } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    rc = dtype == 0
+             ? launch_vec<float>(x, dy, w, dx, wp, bp, rows, cols, lanes, &nparts, eps, st)
+             : launch_vec<__nv_bfloat16>(x, dy, w, dx, wp, bp, rows, cols, lanes, &nparts,
+                                         eps, st);
   }
   if (rc != 0) return rc;
   if (want_wb) {

@@ -53,14 +53,19 @@ def diff_weight(*weights, gamma=1.0):
     return result.reshape(o_dim, i_dim, *k)
 
 
-def bypass_forward_diff(x, org_out, *weights, gamma=1.0, extra_args={}):
+def bypass_forward_diff(x, org_out, *weights, gamma=1.0, extra_args={}, rank_mask=None):
     """Low-rank bypass, channels-first for convolutions. ``org_out`` is
     unused (the uniform functional signature). ``extra_args`` (stride,
-    padding, ...) go to the down op, or to the mid core under tucker."""
+    padding, ...) go to the down op, or to the mid core under tucker.
+    ``rank_mask`` (r,), if given, scales the rank channels of the down
+    output (rank dropout)."""
     d, u, m = weights
     op = op_by_ndim(d.ndim)
     if m is not None:
         mid = convnd(op(x, d), m, **extra_args)
     else:
         mid = op(x, d, **extra_args)
+    if rank_mask is not None:
+        shape = (1, -1, *[1] * (mid.ndim - 2)) if d.ndim > 2 else (*[1] * (mid.ndim - 1), -1)
+        mid = mid * rank_mask.reshape(shape)
     return op_by_ndim(u.ndim)(mid, u) * gamma

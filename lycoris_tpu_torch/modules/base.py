@@ -7,14 +7,29 @@ state-dict keys (``lokr_w1``, ``hada_w1_a``, ...): trainable factors are
 layer's output; the network wrapper puts it in place of the layer's own
 forward (``LycorisNetwork.apply_to``), as the reference LyCORIS does.
 
-The forward is the inference forward (dropout off, as the JAX forward
-with ``train=False``); dropout, the parametrize API and max-norm wait for
-the training slice.
+In training (``train=True`` with a ``seed``) the forward applies the
+dropout trio as the JAX modules do: ``rank_dropout`` masks rows of the
+rebuilt dW (or LoCon's rank in bypass mode), ``dropout`` drops elements of
+the bypass output, ``module_dropout`` returns the base output alone. With
+``train`` off the forward is the inference forward. The parametrize API and
+max-norm are not ported yet.
+
+Random draws. The JAX package folds a PRNG key with a hash of the module's
+name and with a per-use salt (``0x72616E6B`` rank, ``0x64726F70``
+dropout, ``0x6D6F64`` module). The port does the same with integers: the
+module's ``seed`` (the train step's seed folded with its name by the
+wrapper) folded with the salt seeds a fresh ``torch.Generator`` on the
+tensors' device (:func:`draw_generator`). A draw thus depends on the step,
+the module and the use alone, never on a generator's state, so the
+recompute of a checkpointed block in the backward draws the same masks as
+its forward. The two packages' random streams differ: the tests fix the
+masks to compare them.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 
 import numpy as np
 import torch
@@ -95,6 +110,42 @@ class LayerInfo:
                 act=kw.get("act") if with_act else None,
             )
         raise ValueError(f"unsupported module_type {t}")
+
+
+# per-use salts of the dropout draws (the JAX modules' fold_in constants)
+RANK_SALT, DROP_SALT, MODULE_SALT = 0x72616E6B, 0x64726F70, 0x6D6F64
+
+
+def fold_in(seed: int, data) -> int:
+    """A 63-bit seed from ``seed`` and ``data`` (an int or a str), the
+    integer counterpart of ``jax.random.fold_in``."""
+    digest = hashlib.blake2b(f"{seed}/{data}".encode(), digest_size=8).digest()
+    return int.from_bytes(digest, "little") >> 1
+
+
+def draw_generator(seed: int, salt: int, device) -> torch.Generator:
+    """A generator on ``device`` seeded from ``seed`` and ``salt`` alone."""
+    return torch.Generator(device=device).manual_seed(fold_in(seed, salt))
+
+
+def rank_dropout_mask(gen, n: int, p: float, scale: bool, dtype, device):
+    """(n,) keep mask, 1 where ``uniform > p``; with ``scale`` divided by its
+    mean (at least 1e-6), as reference locon.py:198-219."""
+    drop = (torch.rand(n, generator=gen, device=device) > p).to(dtype)
+    if scale:
+        drop = drop / drop.mean().clamp(min=1e-6)
+    return drop
+
+
+def module_keep(gen, p: float):
+    """0-dim 0/1 keep flag of module dropout, 1 where ``uniform >= p``."""
+    return (torch.rand((), generator=gen, device=gen.device) >= p).float()
+
+
+def dropout(gen, x, p: float):
+    """Inverted dropout: ``x / (1 - p)`` where kept (probability 1 - p), else 0."""
+    keep = torch.rand(x.shape, generator=gen, device=x.device) < 1.0 - p
+    return torch.where(keep, x / (1.0 - p), 0.0).to(x.dtype)
 
 
 def as_float(alpha) -> float:
@@ -230,20 +281,52 @@ class LycorisBaseModule(nn.Module):
     def get_merged_weight(self, org_weight, org_bias=None, multiplier=1.0):
         raise NotImplementedError
 
-    def bypass_forward_diff(self, x, scale=1.0):
+    def bypass_forward_diff(self, x, scale=1.0, train=False, seed=None):
         raise NotImplementedError
 
-    def bypass_forward(self, x, scale=1.0, org_forward=None):
-        return org_forward(x) + self.bypass_forward_diff(x, scale=scale)
+    def _draws(self, train, seed, p) -> bool:
+        """Whether a training forward draws for a dropout of rate ``p``."""
+        return bool(train and p and seed is not None)
 
-    def forward(self, x, org_weight=None, org_bias=None, multiplier=None, org_forward=None):
-        """Delta over base: ``org_forward(x) + op(x, dW)`` (or the bypass path)."""
+    def _rank_mask(self, n: int, dtype, device, seed):
+        """The (n,) rank-dropout mask of this module's training forward."""
+        return rank_dropout_mask(draw_generator(seed, RANK_SALT, device), n, self.rank_dropout,
+                                 self.rank_dropout_scale, dtype, device)
+
+    def _rank_masked(self, weight, train, seed):
+        """``weight`` with its dim-0 rows masked by rank dropout in training."""
+        if not self._draws(train, seed, self.rank_dropout):
+            return weight
+        drop = self._rank_mask(weight.shape[0], weight.dtype, weight.device, seed)
+        return weight * drop.reshape(-1, *[1] * (weight.ndim - 1))
+
+    def _dropped(self, out, train, seed):
+        """``out`` through plain dropout in training."""
+        if not self._draws(train, seed, self.dropout):
+            return out
+        return dropout(draw_generator(seed, DROP_SALT, out.device), out, self.dropout)
+
+    def _module_dropout_mix(self, seed, train, base, full):
+        """Module dropout: ``base`` alone with probability p, else ``full``
+        (``base + (full - base) * keep``, JAX base.py:366-371)."""
+        if not self._draws(train, seed, self.module_dropout):
+            return full
+        keep = module_keep(draw_generator(seed, MODULE_SALT, base.device), self.module_dropout)
+        return base + (full - base) * keep.to(base.dtype)
+
+    def forward(self, x, org_weight=None, org_bias=None, multiplier=None, org_forward=None,
+                train=False, seed=None):
+        """Delta over base: ``org_forward(x) + op(x, dW)`` (or the bypass
+        path); in training (``train`` and an int ``seed``) with the dropout
+        trio applied."""
         multiplier = self.multiplier if multiplier is None else multiplier
         if org_forward is None:
             org_forward = lambda z: self.op(z, org_weight, org_bias)  # noqa: E731
-        if self.bypass_mode:
-            return self.bypass_forward(x, scale=multiplier, org_forward=org_forward)
         base = org_forward(x)
-        diff = self.get_weight().to(org_weight.dtype) * self._p("scalar")
-        new_weight = org_weight + diff * multiplier
-        return base + self.op(x, (new_weight - org_weight).to(x.dtype))
+        if self.bypass_mode:
+            full = base + self.bypass_forward_diff(x, scale=multiplier, train=train, seed=seed)
+        else:
+            diff = self.get_weight(train, seed).to(org_weight.dtype) * self._p("scalar")
+            new_weight = org_weight + diff * multiplier
+            full = base + self.op(x, (new_weight - org_weight).to(x.dtype))
+        return self._module_dropout_mix(seed, train, base, full)

@@ -11,8 +11,11 @@ folded into ``lora_up.weight`` in the saved state dict. The bypass path
 runs x through the down op with the layer's stride and padding only, as
 the JAX package does.
 
-DoRA (``weight_decompose``), dropout, rank dropout and module dropout wait
-for a later slice and raise ``NotImplementedError`` by name.
+In training, rank dropout masks the out-dim rows of the rebuilt dW, or in
+bypass mode the rank of the down output, and plain dropout applies to the
+bypass output only (JAX locon.py:186-194, 314-331); module dropout as in
+``modules/base.py``. DoRA (``weight_decompose``) waits for a later slice
+and raises ``NotImplementedError`` by name.
 """
 
 from __future__ import annotations
@@ -44,10 +47,6 @@ class LoConModule(LycorisBaseModule):
             raise ValueError(f"{self.module_type} is not supported in LoRA/LoCon algo.")
         if weight_decompose:
             raise NotImplementedError("LoCon weight_decompose (DoRA) is not ported yet")
-        for what, p in (("dropout", dropout), ("rank_dropout", rank_dropout),
-                        ("module_dropout", module_dropout)):
-            if p:
-                raise NotImplementedError(f"LoCon {what} is not ported yet")
         self.lora_dim = lora_dim
         self.tucker = False
         self.rs_lora = rs_lora
@@ -98,12 +97,14 @@ class LoConModule(LycorisBaseModule):
         return module
 
     # -- weight reconstruction ------------------------------------------------
-    def get_weight(self):
+    def get_weight(self, train=False, seed=None):
         """(alpha / r) * up @ down (or the tucker rebuild) in the layer's
-        shape, without the scalar (``functional.locon.diff_weight``)."""
-        return locon.diff_weight(self._p("lora_down.weight"), self._p("lora_up.weight"),
-                                 self._p("lora_mid.weight") if self.tucker else None,
-                                 gamma=self.scale).reshape(self.shape)
+        shape, without the scalar (``functional.locon.diff_weight``); its
+        rows rank-dropped in training."""
+        weight = locon.diff_weight(self._p("lora_down.weight"), self._p("lora_up.weight"),
+                                   self._p("lora_mid.weight") if self.tucker else None,
+                                   gamma=self.scale).reshape(self.shape)
+        return self._rank_masked(weight, train, seed)
 
     def get_diff_weight(self, multiplier=1.0):
         return self.get_weight() * self._p("scalar") * multiplier, None
@@ -152,16 +153,20 @@ class LoConModule(LycorisBaseModule):
         return recon_fn, dtheta_fn
 
     # -- forward paths ----------------------------------------------------------
-    def bypass_forward_diff(self, x, scale=1.0):
+    def bypass_forward_diff(self, x, scale=1.0, train=False, seed=None):
         """up(down(x)) * scalar * (alpha / r) * scale in x's dtype, never
         forming dW (``functional.locon.bypass_forward_diff``); the down op,
         or the mid core under tucker, carries the layer's stride and padding
-        only."""
+        only. In training the rank of the down output is masked and the
+        output goes through dropout."""
         kw = self.layer.kw if self.layer.is_conv else {}
         extra = {k: kw[k] for k in ("stride", "padding") if k in kw}
         mid = self._p("lora_mid.weight").to(x.dtype) if self.tucker else None
+        rank_mask = None
+        if self._draws(train, seed, self.rank_dropout):
+            rank_mask = self._rank_mask(self.lora_dim, x.dtype, x.device, seed)
         out = locon.bypass_forward_diff(
             x, None, self._p("lora_down.weight").to(x.dtype),
             self._p("lora_up.weight").to(x.dtype), mid,
-            gamma=self._p("scalar") * self.scale * scale, extra_args=extra)
-        return out.to(x.dtype)
+            gamma=self._p("scalar") * self.scale * scale, extra_args=extra, rank_mask=rank_mask)
+        return self._dropped(out.to(x.dtype), train, seed)

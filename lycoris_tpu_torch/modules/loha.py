@@ -3,7 +3,10 @@
 Keys ``hada_w1_a/b, hada_w2_a/b, hada_t1/t2, alpha``; non-tucker factors
 ``w1_a (O, r)`` / ``w1_b (r, I*prod(k))``. dW = (alpha / r) *
 (w1a @ w1b) * (w2a @ w2b) * scalar, formed by the LoHa kernel
-(``functional/loha.py`` -> ``ops/hada.py``). DoRA waits for a later slice.
+(``functional/loha.py`` -> ``ops/hada.py``). In training, rank dropout
+masks the out-dim rows of dW (in either mode) and plain dropout applies to
+the bypass output only (JAX loha.py:206-211, 264-265); module dropout as in
+``modules/base.py``. DoRA waits for a later slice.
 """
 
 from __future__ import annotations
@@ -90,7 +93,7 @@ class LohaModule(LycorisBaseModule):
         return module
 
     # -- weight reconstruction ------------------------------------------------
-    def get_weight(self):
+    def get_weight(self, train=False, seed=None):
         t1 = self._p("hada_t1") if self.tucker else None
         t2 = self._p("hada_t2") if self.tucker else None
         # make_weight's order is (w1d, w1u, w2d, w2u): the b factors are "down"
@@ -99,7 +102,7 @@ class LohaModule(LycorisBaseModule):
             self._p("hada_w2_b"), self._p("hada_w2_a"),
             t1, t2, gamma=self.scale,
         )
-        return weight.reshape(self.shape)
+        return self._rank_masked(weight.reshape(self.shape), train, seed)
 
     def get_diff_weight(self, multiplier=1.0):
         return self.get_weight() * self._p("scalar") * multiplier, None
@@ -122,6 +125,6 @@ class LohaModule(LycorisBaseModule):
             dest["hada_t2"] = src["hada_t2"]
         return {k: v.detach() for k, v in dest.items()}
 
-    def bypass_forward_diff(self, x, scale=1.0):
-        diff_weight = self.get_weight() * self._p("scalar") * scale
-        return self.op(x, diff_weight.to(x.dtype))
+    def bypass_forward_diff(self, x, scale=1.0, train=False, seed=None):
+        diff_weight = self.get_weight(train, seed) * self._p("scalar") * scale
+        return self._dropped(self.op(x, diff_weight.to(x.dtype)), train, seed)

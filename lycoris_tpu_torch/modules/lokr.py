@@ -4,8 +4,11 @@ Same keys, factorization branches, init table and checkpoint shape
 re-inference as the JAX module (reference lokr.py:31-342). dW is
 (alpha / r) * (w1 kron w2) * scalar; the bypass path is the grouped-matmul
 Kronecker product scaled the same way (the JAX package's documented
-deviations from the reference). DoRA (``weight_decompose``) waits for a
-later slice.
+deviations from the reference). In training, rank dropout masks the
+out-dim rows of dW (in either mode) and plain dropout applies to the bypass
+output only: the merged forward ignores it, as the JAX module does (JAX
+lokr.py:307-312, 446-447); module dropout as in ``modules/base.py``. DoRA
+(``weight_decompose``) waits for a later slice.
 """
 
 from __future__ import annotations
@@ -199,8 +202,9 @@ class LokrModule(LycorisBaseModule):
             return rebuild_tucker(self._p("lokr_t2"), a, b)
         return a @ b
 
-    def get_weight(self):
-        return make_kron(self._rebuild_w1(), self._rebuild_w2(), self.scale).reshape(self.shape)
+    def get_weight(self, train=False, seed=None):
+        weight = make_kron(self._rebuild_w1(), self._rebuild_w2(), self.scale).reshape(self.shape)
+        return self._rank_masked(weight, train, seed)
 
     def factored_merged_fns(self, multiplier):
         """(recon_fn, dtheta_fn) for the dense-dW-free merged backward
@@ -281,8 +285,9 @@ class LokrModule(LycorisBaseModule):
         return (self._p("lokr_w1"), self._p("lokr_w1_a"), self._p("lokr_w1_b"),
                 self._p("lokr_w2"), self._p("lokr_w2_a"), w2b, self._p("lokr_t2"))
 
-    def bypass_forward_diff(self, x, scale=1.0):
-        return bypass_diff_with_scale(
+    def bypass_forward_diff(self, x, scale=1.0, train=False, seed=None):
+        out = bypass_diff_with_scale(
             x, *self._functional_weights(), scale=self.scale * self._p("scalar") * scale,
             extra_args=self.layer.kw if self.layer.is_conv else {},
         )
+        return self._dropped(out, train, seed)

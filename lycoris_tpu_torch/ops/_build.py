@@ -35,7 +35,7 @@ _SIGNATURES = {
     "lyc_ln_fwd": [_P, _P, _P, _P, _I, _I, _F, _I, _P],
     "lyc_hada_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
     "lyc_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.POINTER(_L), _F, _I, _P],
-    "lyc_ln_bwd": [_P] * 8 + [_I, _I, _I, _F, _I, _P],
+    "lyc_ln_bwd": [_P] * 8 + [_I, _I, _I, _I, _F, _I, _P],
     "lyc_flash_bwd": [_P] * 10 + [_I] * 4 + [ctypes.POINTER(_L), _F, _I, _P],
     "lyc_hada_bwd": [_P] * 13 + [_I, _I, _I, _I, _F, _I, _P],
     "lyc_gn_fwd": [_P] * 8 + [_I] * 6 + [_F, _I, _I, _I, _P],

@@ -10,6 +10,9 @@ LayerNorm runs the kernels.
 w, its backward recomputes the row statistics. Each direction takes its
 plain version (:func:`layer_norm_plain`, :func:`layer_norm_bwd_plain`) only
 for tensors on the CPU; for CUDA tensors it launches the kernel or raises.
+The backward kernel has two variants (``csrc/ln_bwd.cu``): the vectorised
+one, a row held in registers by a group of lanes (:func:`bwd_lanes`; every
+width of the SD1.5 and SDXL paths), and a generic one for other widths.
 """
 
 from __future__ import annotations
@@ -22,8 +25,28 @@ from . import _build
 
 launches = 0  # forward kernel launches since the last reset (chip_smoke counts these)
 bwd_launches = 0  # backward kernel launches, likewise
+bwd_vec_launches = 0  # of those, launches of the vectorised variant
+bwd_generic_launches = 0  # and of the generic one
 
 _MAX_PARTS = 4 * 132  # dw/db partial rows: four blocks per SM of an H100
+_MAX_VECS = 10  # 16-byte vectors of x (and of dy) a lane of the vectorised variant holds
+_MAX_VECS_WB = 5  # the same with the dw/db sums in registers too (ptxas spills beyond)
+
+
+def bwd_lanes(c: int, element_size: int, want_wb: bool = False) -> int:
+    """Lanes per row of the vectorised backward for width ``c`` (the most,
+    up to a warp, that split the row's 16-byte vectors evenly with at most
+    ``_MAX_VECS`` each, ``_MAX_VECS_WB`` with dw/db), or 0 for the generic
+    variant. bf16 C = 320, 640, 1280 give 8, 16, 32 lanes of 5 vectors each."""
+    per_vec = 16 // element_size
+    if c % per_vec:
+        return 0
+    nvec = c // per_vec
+    most = _MAX_VECS_WB if want_wb else _MAX_VECS
+    for lanes in (32, 16, 8, 4, 2, 1):
+        if nvec % lanes == 0 and nvec // lanes <= most:
+            return lanes
+    return 0
 
 
 def layer_norm_plain(x, weight, bias, eps: float):
@@ -83,8 +106,10 @@ def layer_norm_fwd(x, weight, bias, eps: float):
 
 def layer_norm_bwd(x, weight, dy, eps: float, want_wb: bool = True):
     """The backward kernel on CUDA tensors: (dx, dw fp32, db fp32), or
-    (dx, None, None) when ``want_wb`` is False (frozen weight and bias)."""
-    global bwd_launches
+    (dx, None, None) when ``want_wb`` is False (frozen weight and bias).
+    The vectorised variant where :func:`bwd_lanes` allows it and the
+    tensors are 16-byte aligned, else the generic one."""
+    global bwd_launches, bwd_vec_launches, bwd_generic_launches
     if x.device.type != "cuda":
         raise RuntimeError(f"layer_norm_bwd: no kernel for device {x.device}")
     dy = dy.contiguous()
@@ -96,6 +121,9 @@ def layer_norm_bwd(x, weight, dy, eps: float, want_wb: bool = True):
     rows = x.numel() // c
     nparts = max(1, min(_MAX_PARTS, math.ceil(rows / 16)))
     dx = torch.empty_like(x)
+    lanes = bwd_lanes(c, x.element_size(), want_wb)
+    if any(t.data_ptr() % 16 for t in (x, dy, weight, dx)):
+        lanes = 0
     dw = db = parts = None
     if want_wb:
         f32 = dict(dtype=torch.float32, device=x.device)
@@ -105,11 +133,15 @@ def layer_norm_bwd(x, weight, dy, eps: float, want_wb: bool = True):
         x.data_ptr(), dy.data_ptr(), weight.data_ptr(), dx.data_ptr(),
         _build.ptr(None if parts is None else parts[0]),
         _build.ptr(None if parts is None else parts[1]),
-        _build.ptr(dw), _build.ptr(db), rows, c, nparts, float(eps),
+        _build.ptr(dw), _build.ptr(db), rows, c, nparts, lanes, float(eps),
         _build.dtype_code(x), _build.stream_ptr(x),
     )
     _build.check(rc, "lyc_ln_bwd")
     bwd_launches += 1
+    if lanes:
+        bwd_vec_launches += 1
+    else:
+        bwd_generic_launches += 1
     return dx, dw, db
 
 

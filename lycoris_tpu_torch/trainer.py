@@ -9,7 +9,12 @@
   weight decay 1e-4 (not torch's 1e-2);
 - the adapters live in the model's forward (``LycorisNetwork.apply_to``),
   merged into each layer's weight by default, so the wide LoKr layers take
-  the factored backward (``functional/merged.py``).
+  the factored backward (``functional/merged.py``);
+- each step draws a dropout seed (the JAX trainer's ``drop_rng``,
+  trainer.py:175) from a CPU generator of its own, seeded by ``drop_seed``,
+  and runs its forward and backward inside
+  ``LycorisNetwork.training_step(seed)``: adapters with dropout train with
+  it. The noise and timestep draws of ``generator`` are untouched by it.
 
 The trainer runs on the device of the model it is given and moves nothing
 to the CPU. It updates the network's own parameters in place, so
@@ -38,7 +43,8 @@ class DiffusionTrainer:
     MSE objective."""
 
     def __init__(self, model, net, lr: float = 1e-4, weight_dtype=torch.bfloat16,
-                 merged_forward: bool = True, generator: torch.Generator | None = None):
+                 merged_forward: bool = True, generator: torch.Generator | None = None,
+                 drop_seed: int = 0):
         self.model = model
         self.net = net
         self.weight_dtype = weight_dtype
@@ -51,6 +57,7 @@ class DiffusionTrainer:
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
         self.generator = generator
+        self.drop_generator = torch.Generator().manual_seed(drop_seed)
         params = [p for sub in net.trainable_params().values() for p in sub.values()]
         self.optimizer = torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
                                            weight_decay=WEIGHT_DECAY)
@@ -70,16 +77,19 @@ class DiffusionTrainer:
     def train_step(self, batch: dict):
         """One AdamW step on ``batch`` (``latents``, ``context``, optionally
         ``added_cond``), noise and timesteps drawn from the trainer's
-        generator. Returns the loss (a 0-dim tensor on the device)."""
+        generator, the adapters' dropout from the step's drop seed. Returns
+        the loss (a 0-dim tensor on the device)."""
         latents = batch["latents"]
         b = latents.shape[0]
         noise = torch.randn(latents.shape, generator=self.generator, device=self.device,
                             dtype=torch.float32)
         t = torch.randint(0, NUM_TRAIN_TIMESTEPS, (b,), generator=self.generator,
                           device=self.device)
-        loss = self.loss_fn(latents, batch["context"], noise, t, batch.get("added_cond"))
-        self.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        seed = int(torch.randint(0, 2**62, (), generator=self.drop_generator))
+        with self.net.training_step(seed):
+            loss = self.loss_fn(latents, batch["context"], noise, t, batch.get("added_cond"))
+            self.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
         self.optimizer.step()
         self.step += 1
         return loss.detach()

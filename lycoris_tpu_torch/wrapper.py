@@ -17,6 +17,13 @@ grad enabled, a linear layer whose adapter has a factored cotangent
 trains through the factored backward of ``functional/merged.py``, which
 never forms the dense weight gradient; every other layer trains by
 autograd through ``W + dW``.
+Inside :meth:`~LycorisNetwork.training_step` (``DiffusionTrainer.train_step``
+enters it around the forward and the backward) the forwards train: an
+adapter with a nonzero ``dropout``, ``rank_dropout`` or ``module_dropout``
+then leaves the merged and factored routes for its own delta-over-base
+forward with the dropout trio, its draws seeded from the step's seed and its
+``lora_name`` (the JAX interceptor's ``train=True, rng=...``,
+wrapper.py:635-651). Everywhere else the route is the one above.
 :meth:`~LycorisNetwork.merge_to` folds the adapters into the layers'
 weights in place. State dicts use the reference key grammar; file I/O
 (safetensors) is not ported yet, so they pass in memory.
@@ -24,6 +31,7 @@ weights in place. State dicts use the reference key grammar; file I/O
 
 from __future__ import annotations
 
+import contextlib
 import fnmatch
 import re
 import zlib
@@ -37,6 +45,7 @@ from .functional import merged as fm
 from .graph import ModelGraph
 from .logging import logger
 from .modules import get_module, make_module
+from .modules.base import fold_in
 from .modules.locon import LoConModule
 from .modules.loha import LohaModule
 from .modules.lokr import LokrModule
@@ -258,6 +267,7 @@ class LycorisNetwork(nn.Module):
         self.algo_table: dict[str, int] = {}
         self.merged_forward = False
         self._patched: dict[str, Any] = {}
+        self._drop_seed: int | None = None
         cls = type(self)
         self.enable_conv = cls.ENABLE_CONV
         self.target_replace_module = list(cls.TARGET_REPLACE_MODULE)
@@ -472,6 +482,18 @@ class LycorisNetwork(nn.Module):
             dy2d_fn=lambda g: node.from_native(g).reshape(-1, out_dim),
         )
 
+    @contextlib.contextmanager
+    def training_step(self, seed: int):
+        """Forwards inside the block are training forwards whose dropout
+        draws come from ``seed`` and each adapter's ``lora_name``. Keep the
+        backward inside it too: the recompute of a checkpointed block reads
+        the seed again and draws the same masks."""
+        prev, self._drop_seed = self._drop_seed, int(seed)
+        try:
+            yield self
+        finally:
+            self._drop_seed = prev
+
     def _adapted_forward(self, lora_name):
         lyco = self.lora_map[lora_name]
         node = self.node_map[lora_name]
@@ -480,7 +502,9 @@ class LycorisNetwork(nn.Module):
         def forward(x, *args, **kwargs):
             w, b = node.weights()
             mult = self.multiplier
-            if self.merged_forward and not lyco.bypass_mode and not lyco.not_supported:
+            train = self._drop_seed is not None
+            drops = train and bool(lyco.dropout or lyco.rank_dropout or lyco.module_dropout)
+            if self.merged_forward and not lyco.bypass_mode and not lyco.not_supported and not drops:
                 out = self._factored_apply(lyco, node, x, w, b, mult)
                 if out is not None:
                     return out
@@ -490,6 +514,7 @@ class LycorisNetwork(nn.Module):
             out = lyco.forward(
                 x, org_weight=w, org_bias=b, multiplier=mult,
                 org_forward=lambda z: node.from_native(org_forward(z, *args, **kwargs)),
+                train=train, seed=fold_in(self._drop_seed, lora_name) if train else None,
             )
             return node.to_native(out)
 

@@ -125,20 +125,37 @@ def test_cuda_hada_kernel(cuda, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_layer_norm_bwd_kernel(cuda, dtype):
+    """Every LayerNorm shape of SD1.5 b8 and SDXL b4 takes the vectorised
+    variant for dx (the path's call; with dw/db too in bf16, the path's
+    dtype); C = 100 and C = 2000 take the generic one."""
     g = torch.Generator(device=cuda).manual_seed(1)
-    for rows, c in ((8 * 4096, 320), (8 * 256, 1280), (7, 100), (3000, 2000)):
+    cases = [((8 * 4096, 320), True), ((8 * 1024, 640), True), ((8 * 256, 1280), True),
+             ((8 * 64, 1280), True), ((4 * 4096, 640), True), ((4 * 1024, 1280), True),
+             ((7, 100), False), ((3000, 2000), False)]
+    es = torch.tensor([], dtype=dtype).element_size()
+    for (rows, c), vec in cases:
         x = (torch.randn(rows, c, device=cuda, generator=g) * 2 + 0.5).to(dtype)
         w = (torch.randn(c, device=cuda, generator=g) * 0.5 + 1).to(dtype)
         dy = torch.randn(rows, c, device=cuda, generator=g).to(dtype)
         want = tln.layer_norm_bwd_plain(x, w, dy, 1e-5)
-        n = tln.bwd_launches
+        vec_wb = tln.bwd_lanes(c, es, want_wb=True) > 0
+        assert vec_wb == vec or (dtype == torch.float32 and c == 1280), (rows, c)
+        n, nv, ng = tln.bwd_launches, tln.bwd_vec_launches, tln.bwd_generic_launches
         got = tln.layer_norm_bwd(x, w, dy, 1e-5)
         assert tln.bwd_launches == n + 1
+        assert (tln.bwd_vec_launches - nv, tln.bwd_generic_launches - ng) == (
+            (1, 0) if vec_wb else (0, 1)), (rows, c)
         for a, b in zip(got, want):
             _check(a, b, dtype)
+        nv = tln.bwd_vec_launches
         dx, dw, db = tln.layer_norm_bwd(x, w, dy, 1e-5, want_wb=False)
         assert dw is None and db is None
         _check(dx, want[0], dtype)
+        assert tln.bwd_vec_launches - nv == (1 if vec else 0), (rows, c)
+        # deterministic: the dw/db sums do not depend on scheduling
+        again = tln.layer_norm_bwd(x, w, dy, 1e-5)
+        for a, b in zip(got, again):
+            assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

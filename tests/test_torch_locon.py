@@ -200,12 +200,22 @@ def test_factored_fns_decline_what_needs_autograd():
 
 
 def test_unported_options_name_themselves():
+    """DoRA is not ported and raises by name; the dropout trio is ported
+    (tests/test_torch_dropout.py) and accepted: each rate is stored and
+    changes the training forward of a bypass module, not its inference
+    forward."""
     li = LayerInfo.linear(24, 16)
-    for kw, what in ((dict(weight_decompose=True), "weight_decompose"),
-                     (dict(dropout=0.1), "dropout"), (dict(rank_dropout=0.1), "rank_dropout"),
-                     (dict(module_dropout=0.1), "module_dropout")):
-        with pytest.raises(NotImplementedError, match=what):
-            LoConModule("t", li, 1.0, 4, 1.0, **kw)
+    with pytest.raises(NotImplementedError, match="weight_decompose"):
+        LoConModule("t", li, 1.0, 4, 1.0, weight_decompose=True)
+    x, w = torch.randn(3, 16), torch.randn(24, 16)
+    for what in ("dropout", "rank_dropout", "module_dropout"):
+        m = LoConModule("t", li, 1.0, 4, 1.0, bypass_mode=True, **{what: 0.5})
+        assert getattr(m, what) == 0.5
+        with torch.no_grad():
+            m._p("lora_up.weight").normal_()
+        infer = m(x, w)
+        assert torch.equal(m(x, w), infer)
+        assert any(not torch.equal(m(x, w, train=True, seed=s), infer) for s in range(8)), what
     with pytest.raises(ValueError, match="not supported"):
         LoConModule("t", LayerInfo.layer_norm(16), 1.0, 4, 1.0)
 

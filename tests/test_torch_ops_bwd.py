@@ -329,6 +329,25 @@ def test_factored_fns_decline_what_needs_autograd():
     assert _noised_lokr(lora_dim=2).factored_merged_fns(1.0) is not None
 
 
+def test_layer_norm_bwd_variant_by_width():
+    """The vectorised LayerNorm backward takes every width of the SD1.5 and
+    SDXL paths (a row split evenly into 16-byte vectors over a group of
+    lanes, at most 10 vectors a lane); C = 100 and 2000 take the generic one."""
+    for c, lanes in ((320, 8), (640, 16), (1280, 32)):
+        assert tln.bwd_lanes(c, 2) == lanes  # bf16: 5 vectors a lane
+        assert tln.bwd_lanes(c, 2, want_wb=True) == lanes  # dw/db within the budget too
+        assert c // (8 * lanes) == 5
+        assert tln.bwd_lanes(c, 4) > 0  # fp32, dx only
+    assert tln.bwd_lanes(1280, 4, want_wb=True) == 0  # fp32 dw/db: 10 vectors, over budget
+    for c in (100, 2000):
+        assert tln.bwd_lanes(c, 2) == 0 and tln.bwd_lanes(c, 4) == 0
+    for c in range(8, 3000, 8):  # any lanes given split the row evenly
+        for wb, most in ((False, 10), (True, 5)):
+            lanes = tln.bwd_lanes(c, 2, wb)
+            if lanes:
+                assert 32 % lanes == 0 and (c // 8) % lanes == 0 and c // 8 // lanes <= most
+
+
 def test_hada_bwd_rows_per_block_fill_the_card():
     """The backward kernel's rows per block: a multiple of its 16-row tile in
     [16, 256], small layers spread thin, the widest at the cap."""
