@@ -28,7 +28,9 @@ ends the run with a nonzero exit code, and no phase falls back to the CPU:
 3. kernels_bwd -- each backward kernel likewise at SD1.5 training (batch 8)
    and SDXL training (batch 4) shapes: flash dq/dk/dv, LayerNorm dx/dw/db
    (every path shape through the vectorised variant; the dx-only call timed
-   against ``F.layer_norm``'s backward, the dw/db call once per dtype),
+   against ``F.layer_norm``'s backward, the dw/db call once per dtype, each
+   timed call on its own copy of x and dy, in turn, so that the inputs
+   come from HBM and not from L2),
    LoHa's four grads (fused1, and the split form, fp32, also held to the
    fused1 kernel's grads), GroupNorm dx/dgamma/dbeta, GEGLU d_hfull, the
    fused LoRA matmul's dx (nn);
@@ -129,6 +131,9 @@ LORA_RANK = 8  # every smoke adapter: dim 8, alpha 4
 # it must move (each input read once, each output written once) over HBM's rate
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 HBM_BYTES_PER_S = 3.35e12
+# inputs a rotating timing walks through in one pass: four times the H100's
+# 50 MB L2, so that each timed call reads its inputs from HBM, as on the path
+ROTATE_BYTES = 200e6
 
 
 def log(msg: str) -> None:
@@ -577,18 +582,38 @@ def _rnd(gen, dev):
     return rnd
 
 
-def _library_bwd_ms(fwd, inputs, dy, iters: int) -> float:
+def _library_bwd_ms(fwd, inputs, dy, iters: int, copies=None) -> float:
     """Device ms of the autograd backward of the library call ``fwd(*inputs)``
-    for the cotangent ``dy`` (:func:`graph_ms`). The forward runs on the
-    timing stream, so that its backward runs, and is captured, there."""
+    for the cotangent ``dy`` (:func:`graph_ms`); with ``copies``, a list of
+    (inputs, dy), the timed calls take them in turn (:func:`rotating`). The
+    forwards run on the timing stream, so that their backwards run, and are
+    captured, there."""
     import torch
 
     s = timing_stream()
     s.wait_stream(torch.cuda.current_stream())
-    leaves = [x.detach().requires_grad_(True) for x in inputs]
+    cases = []
     with torch.cuda.stream(s):
-        out = fwd(*leaves)
-    return graph_ms(lambda: torch.autograd.grad(out, leaves, dy, retain_graph=True), iters)
+        for ins, g in copies or [(inputs, dy)]:
+            leaves = [x.detach().requires_grad_(True) for x in ins]
+            cases.append((fwd(*leaves), leaves, g))
+    return graph_ms(rotating(lambda out, leaves, g: torch.autograd.grad(
+        out, leaves, g, retain_graph=True), cases), iters)
+
+
+def rotating(fn, cases):
+    """A callable that calls ``fn(*case)`` for each of ``cases`` in turn.
+    Captured in a timing graph, each call keeps its own case's buffers, so
+    copies of the inputs larger together than L2 (:data:`ROTATE_BYTES`)
+    make every call read its inputs from HBM."""
+    turn = [0]
+
+    def call():
+        case = cases[turn[0] % len(cases)]
+        turn[0] += 1
+        return fn(*case)
+
+    return call
 
 
 def _times(kernel, plain, it, bnd, lib=None, plain_iters=None, plain_replays=3):
@@ -778,11 +803,16 @@ class Checks:
                    per_call if layout == "strided" else 0)
 
     def layer_norm_bwd(self, path, rows, c, dtype, per_call, timed):
-        """dx/dw/db and dx alone against the plain backward; the dx-only call
-        (the path's) must take the vectorised variant, and so must the dw/db
-        call in bf16 (fp32 dw/db at C = 1280 is over its register budget).
-        The dx-only call is timed against ``F.layer_norm``'s backward for dx,
-        and the dw/db call once per dtype against the library's dx/dw/db."""
+        """dx/dw/db and dx alone against the plain backward; both calls must
+        take the variant :func:`layer_norm.bwd_lanes` names, the vectorised
+        one at every shape in bf16 (the path's dtype). The dx-only call (the
+        path's) is timed against ``F.layer_norm``'s backward for dx, and the
+        dw/db call once per dtype against the library's dx/dw/db. Every
+        timed call, the kernel's, the plain version's and the library's,
+        takes its own copy of x and dy in turn, the copies over 4x the L2
+        together (:func:`rotating`), so the times are those of inputs read
+        from HBM, as on the path, where the activations of other layers run
+        between two LayerNorm backwards."""
         import torch
         import torch.nn.functional as F
         from lycoris_tpu_torch.ops import layer_norm
@@ -795,46 +825,58 @@ class Checks:
         wb_vec = layer_norm.bwd_vec_launches - vec0
         dx_only = layer_norm.layer_norm_bwd(x, w, dy, 1e-5, want_wb=False)[0]
         dx_vec = layer_norm.bwd_vec_launches - vec0 - wb_vec
-        if dx_vec != 1 or (dtype == torch.bfloat16 and wb_vec != 1):
+        want_vec = int(layer_norm.bwd_lanes(c, x.element_size()) > 0)
+        if (dx_vec, wb_vec) != (want_vec, want_vec) or (dtype == torch.bfloat16
+                                                         and not want_vec):
             fail(f"layer_norm_bwd {path} ({rows},{c}) {dtype}: the vectorised variant ran for "
-                 f"{dx_vec} of 1 dx-only and {wb_vec} of 1 dw/db calls")
+                 f"{dx_vec} of 1 dx-only and {wb_vec} of 1 dw/db calls, want {want_vec}")
         want = layer_norm.layer_norm_bwd_plain(x, w, dy, 1e-5)
         torch.cuda.synchronize()
+        n, es = x.numel(), x.element_size()
+        b = self.rnd((c,), dtype, 0.5)
+        copies = [(x.clone(), dy.clone()) for _ in range(
+            max(2, math.ceil(ROTATE_BYTES / (2 * n * es))))] if timed or (
+            dtype not in self.wb_timed) else []
         times = None
         if timed:
-            n, es = x.numel(), x.element_size()
             nbytes = 3 * n * es + c * es
-            b = self.rnd((c,), dtype, 0.5)
+            it = max(iters_for(nbytes), len(copies))
             # the path needs dx only (frozen weights): that call is timed
-            times = _times(lambda: layer_norm.layer_norm_bwd(x, w, dy, 1e-5, want_wb=False),
-                           lambda: layer_norm.layer_norm_bwd_plain(x, w, dy, 1e-5),
-                           iters_for(nbytes),
-                           bound(12.0 * n, nbytes, str(dtype)[6:]),
+            kernel = rotating(lambda xc, gc: layer_norm.layer_norm_bwd(xc, w, gc, 1e-5,
+                                                                       want_wb=False), copies)
+            plain = rotating(lambda xc, gc: layer_norm.layer_norm_bwd_plain(xc, w, gc, 1e-5),
+                             copies)
+            times = _times(kernel, plain, it, bound(12.0 * n, nbytes, str(dtype)[6:]),
                            lambda it: _library_bwd_ms(
-                               lambda xl: F.layer_norm(xl, (c,), w, b, 1e-5), (x,), dy, it))
+                               lambda xl: F.layer_norm(xl, (c,), w, b, 1e-5), None, None, it,
+                               copies=[((xc,), gc) for xc, gc in copies]))
             ms, lib, bnd = times[0], times[3], times[4][0]
             verdict = "no slower than" if ms <= lib else "SLOWER than"
-            log(f"[kernels] layer_norm_bwd {path} ({rows},{c}) dx: kernel {ms:.4f} ms "
-                f"{verdict} F.layer_norm's backward {lib:.4f} ms ({ms / lib:.2f}x), "
-                f"{bnd / ms:.1%} of its bound")
+            share = (f"{bnd / ms:.1%} of its bound" if ms >= bnd else
+                     "UNDER its HBM bound: the timing did not reach HBM")
+            log(f"[kernels] layer_norm_bwd {path} ({rows},{c}) dx, {len(copies)} rotating "
+                f"copies: kernel {ms:.4f} ms {verdict} F.layer_norm's backward {lib:.4f} ms "
+                f"({ms / lib:.2f}x), {share}")
             self.results["layer_norm_bwd"].setdefault("shapes", []).append(
                 {"path": path, "shape": [rows, c], "ms": ms, "library_ms": lib,
                  "bound_ms": bnd, "per": per_call})
         if dtype not in self.wb_timed:
             self.wb_timed.add(dtype)
-            n, es = x.numel(), x.element_size()
-            it = iters_for(3 * n * es)
-            b = self.rnd((c,), dtype, 0.5)
-            wb_ms = graph_ms(lambda: layer_norm.layer_norm_bwd(x, w, dy, 1e-5), it)
-            dx_ms = graph_ms(lambda: layer_norm.layer_norm_bwd(x, w, dy, 1e-5, want_wb=False), it)
+            it = max(iters_for(3 * n * es), len(copies))
+            wb_ms = graph_ms(rotating(lambda xc, gc: layer_norm.layer_norm_bwd(
+                xc, w, gc, 1e-5), copies), it)
+            dx_ms = graph_ms(rotating(lambda xc, gc: layer_norm.layer_norm_bwd(
+                xc, w, gc, 1e-5, want_wb=False), copies), it)
             lib_wb = _library_bwd_ms(lambda xl, wl, bl: F.layer_norm(xl, (c,), wl, bl, 1e-5),
-                                     (x, w, b), dy, it)
-            log(f"[kernels] layer_norm_bwd {path} ({rows},{c}) {str(dtype)[6:]}: dx+dw+db "
-                f"{wb_ms:.4f} ms beside dx only {dx_ms:.4f} ms; F.layer_norm's backward for "
-                f"dx, dw and db {lib_wb:.4f} ms")
+                                     None, None, it,
+                                     copies=[((xc, w, b), gc) for xc, gc in copies])
+            log(f"[kernels] layer_norm_bwd {path} ({rows},{c}) {str(dtype)[6:]}, rotating "
+                f"copies: dx+dw+db {wb_ms:.4f} ms beside dx only {dx_ms:.4f} ms; "
+                f"F.layer_norm's backward for dx, dw and db {lib_wb:.4f} ms")
             self.results["layer_norm_bwd"].setdefault("with_dw_db", []).append(
                 {"path": path, "shape": [rows, c], "dtype": str(dtype)[6:], "ms": wb_ms,
                  "dx_only_ms": dx_ms, "library_ms": lib_wb})
+        del copies
         record(self.results, "layer_norm_bwd", path,
                compare_all(dtype, (*got, dx_only), (*want, want[0])), f"({rows},{c})", times,
                per_call)
@@ -1474,7 +1516,7 @@ def make_net(model, sd, algo=None, rates=None):
 
 
 def train(model, algo, sd, batch, want, steps, results, card, tag, path=None, adapted=None,
-          rates=None, drop_seed=0):
+          rates=None, drop_seed=None):
     """``steps`` AdamW steps of ``DiffusionTrainer`` on the adapter in ``sd``
     (the first a warm-up); per step: launches of every kernel and factored
     layer (``want``), every LayerNorm backward vectorised, finite loss; then
@@ -1484,7 +1526,8 @@ def train(model, algo, sd, batch, want, steps, results, card, tag, path=None, ad
     gradients, and AdamW's decay of 1e-8 rounds away in fp32).
     ``adapted``: the adapter-module count the network must have. The
     launches of the kernels whose ``path`` is ``path`` go into the kernel
-    table."""
+    table. ``drop_seed``, if given, reseeds the trainer's drop-seed
+    generator."""
     import torch
     from lycoris_tpu_torch.modules import base as mbase
     from lycoris_tpu_torch.trainer import DiffusionTrainer
@@ -1494,12 +1537,14 @@ def train(model, algo, sd, batch, want, steps, results, card, tag, path=None, ad
     if adapted is not None and len(net.loras) != adapted:
         fail(f"{tag} {len(net.loras)} adapter modules, want {adapted}")
     tr = DiffusionTrainer(model, net, lr=1e-4, weight_dtype=torch.bfloat16,
-                          generator=torch.Generator(device=dev).manual_seed(21),
-                          drop_seed=drop_seed)
+                          generator=torch.Generator(device=dev).manual_seed(21))
+    if drop_seed is not None:
+        tr.drop_generator.manual_seed(drop_seed)
     kept = set(net.lora_map)
     if rates and rates.get("module_dropout"):
         # the trainer's step seeds, then each module's keep flag per step
-        gen = torch.Generator().manual_seed(drop_seed)
+        gen = torch.Generator()
+        gen.set_state(tr.drop_generator.get_state())
         seeds = [int(torch.randint(0, 2**62, (), generator=gen)) for _ in range(steps)]
         kept = {ln for ln in net.lora_map if any(
             float(mbase.module_keep(mbase.draw_generator(mbase.fold_in(s, ln), mbase.MODULE_SALT,
@@ -1659,8 +1704,8 @@ def phase_dropout(model, sd, batch, results, card):
     def step_grads(drop_seed):
         net = make_net(model, sd, "lokr", DROPOUT_RATES)
         tr = DiffusionTrainer(model, net, lr=1e-4, weight_dtype=torch.bfloat16,
-                              generator=torch.Generator(device=dev).manual_seed(21),
-                              drop_seed=drop_seed)
+                              generator=torch.Generator(device=dev).manual_seed(21))
+        tr.drop_generator.manual_seed(drop_seed)
         loss = float(tr.train_step(batch))
         grads = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).float()
                            .reshape(-1) for _, sub in sorted(net.trainable_params().items())
@@ -1875,8 +1920,8 @@ def main() -> int:
                     f"{r['ms'] / r['library_ms']:.2f}x SDPA ({r['library_ms']:.3f} ms)")
         if row["name"] == "layer_norm_bwd":
             for where, r in (("SDXL step", row), ("SD1.5 b8 step", row["sd15"])):
-                log(f"[kernels] layer_norm_bwd per {where}: {r['ms']:.3f} ms against "
-                    f"F.layer_norm's backward {r['library_ms']:.3f} ms "
+                log(f"[kernels] layer_norm_bwd per {where} (rotating copies): {r['ms']:.3f} ms "
+                    f"against F.layer_norm's backward {r['library_ms']:.3f} ms "
                     f"({r['ms'] / r['library_ms']:.2f}x), {r['bound_ms'] / r['ms']:.1%} of its "
                     f"bound {r['bound_ms']:.3f} ms")
             slower = [f"{sh['path']} {tuple(sh['shape'])}" for sh in row["shapes"]

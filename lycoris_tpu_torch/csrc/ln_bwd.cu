@@ -14,24 +14,25 @@
 // Vectorised (every LayerNorm width of the SD1.5 and SDXL paths): a group
 // of L lanes of one warp owns a row, so a warp walks 32 / L rows at once.
 // Lane j holds the row's 16-byte vectors j, j + L, j + 2L, ... of x and dy
-// in registers, V of them (V * L * 8 = C in bf16: L = C / 40 and V = 5 at
-// C = 320, 640 and 1280; V <= 10, and V <= 5 with dw/db, beyond which
-// ptxas spills), loaded once with 16-byte loads, neighbouring lanes on
-// neighbouring addresses. The mean and mean(w*dy), then the centred
-// variance and mean(w*dy*x^), are two rounds of xor-shuffle reductions
-// inside the group, all from the registers, and dx is written with 16-byte
-// stores: device memory sees one read of x and dy and one write of dx.
-// Each lane loads its slice of w once for all the rows it walks. A block
-// has 8 warps, or fewer until the grid has 8 blocks an SM. A lane's columns are the same in every row, so with
-// dw/db it keeps their sums in registers; at the end the groups of a warp
-// are added by a fixed xor butterfly, the warps of a block in warp order
-// through shared memory into one partial row per block, and a second
-// kernel adds the partial rows in order: no atomics, so the result does
-// not depend on scheduling.
+// in registers, kVecs = 5 of them (5 * L * 8 = C in bf16: L = C / 40 at
+// C = 320, 640 and 1280; the caller picks L), loaded once with 16-byte
+// loads, neighbouring lanes on neighbouring addresses. The mean and
+// mean(w*dy), then the centred variance and mean(w*dy*x^), are two rounds
+// of xor-shuffle reductions inside the group, all from the registers, and
+// dx is written with 16-byte stores: device memory sees one read of x and
+// dy and one write of dx. Each lane loads its slice of w once for all the
+// rows it walks. A block has 8 warps, or fewer until the grid has 8 blocks
+// an SM. A lane's columns are the same in every row, so with dw/db it
+// keeps their sums in registers; at the end the groups of a warp are added
+// by a fixed xor butterfly, the warps of a block in warp order through
+// shared memory into one partial row per block, and a second kernel adds
+// the partial rows in order: no atomics, so the result does not depend on
+// scheduling.
 //
 // Generic (any other width, or a tensor not 16-byte aligned; no path shape
-// takes it): one warp owns a row and re-reads it from L1 with scalar loads;
-// its dw/db sums live per warp in shared memory, one partial row per block.
+// in bf16 takes it): one warp owns a row and re-reads it from L1 with
+// scalar loads; its dw/db sums live per warp in shared memory, one partial
+// row per block.
 //
 // When the caller needs no dw/db (frozen LayerNorm weights, as on the
 // training path) the sums and the second kernel are skipped.
@@ -173,8 +174,7 @@ int launch_generic(const void* x, const void* dy, const void* w, void* dx, float
 
 constexpr int kMaxWarps = 8;   // warps per block, fewer where the rows would not fill the SMs
 constexpr int kBlocksPerSm = 8;  // blocks an SM that a grid of fewer warps a block aims for
-constexpr int kMaxVecs = 10;   // 16-byte vectors of x (and of dy) per lane
-constexpr int kMaxVecsWB = 5;  // with dw/db in registers too (no spills up to 5)
+constexpr int kVecs = 5;  // 16-byte vectors of x (and of dy) a lane holds: the path's count
 
 // the E = 16 / sizeof(T) values of one 16-byte vector as floats
 __device__ __forceinline__ void unpack(const uint4& v, float (&f)[4]) {
@@ -214,12 +214,12 @@ __device__ __forceinline__ void group_sum2(float& a, float& b, int lanes) {
   }
 }
 
-template <typename T, int V, bool WB>
+template <typename T, bool WB>
 __global__ void __launch_bounds__(32 * kMaxWarps)
     ln_bwd_vec_kernel(const T* __restrict__ x, const T* __restrict__ dy,
                       const T* __restrict__ w, T* __restrict__ dx, float* __restrict__ dw_part,
                       float* __restrict__ db_part, int rows, int cols, int lanes, float eps) {
-  constexpr int E = 16 / sizeof(T);
+  constexpr int E = 16 / sizeof(T), V = kVecs;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int warps = blockDim.x >> 5;
   const int j = lane & (lanes - 1);          // this lane's place in its group
@@ -368,10 +368,17 @@ int sm_count() {
   return sms;
 }
 
-template <typename T, int V>
-int launch_vec_v(const void* x, const void* dy, const void* w, void* dx, float* dw_part,
-                 float* db_part, int rows, int cols, int lanes, int* nparts, float eps,
-                 cudaStream_t st) {
+template <typename T>
+int launch_vec(const void* x, const void* dy, const void* w, void* dx, float* dw_part,
+               float* db_part, int rows, int cols, int lanes, int* nparts, float eps,
+               cudaStream_t st) {
+  constexpr int E = 16 / sizeof(T);
+  const bool lanes_ok = lanes >= 1 && lanes <= 32 && (lanes & (lanes - 1)) == 0;
+  if (!lanes_ok || cols != lanes * kVecs * E) return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned long long addr_bits =
+      reinterpret_cast<unsigned long long>(x) | reinterpret_cast<unsigned long long>(dy) |
+      reinterpret_cast<unsigned long long>(w) | reinterpret_cast<unsigned long long>(dx);
+  if (addr_bits % 16 != 0) return static_cast<int>(cudaErrorMisalignedAddress);
   // fewer warps a block until the grid has 8 blocks an SM: smaller blocks
   // fill the SMs more evenly at the path's sizes (the most rows, 32768 at
   // C = 320, keep 4 warps), and the fewest rows, SD1.5's (512, 1280),
@@ -383,72 +390,36 @@ int launch_vec_v(const void* x, const void* dy, const void* w, void* dx, float* 
   long long grid = (rows + warps * groups - 1) / (warps * groups);
   const dim3 block(32 * warps);
   if (dw_part == nullptr) {
-    ln_bwd_vec_kernel<T, V, false><<<(unsigned)grid, block, 0, st>>>(
+    ln_bwd_vec_kernel<T, false><<<(unsigned)grid, block, 0, st>>>(
         static_cast<const T*>(x), static_cast<const T*>(dy), static_cast<const T*>(w),
         static_cast<T*>(dx), nullptr, nullptr, rows, cols, lanes, eps);
     return 0;
   }
-  if constexpr (V <= kMaxVecsWB) {
-    // with dw/db: at most nparts blocks (the partial rows the caller gave),
-    // and no more than the card holds at once, so each block walks many rows
-    const size_t smem = 2 * (size_t)cols * sizeof(float);
-    int per_sm = 0;
-    const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, ln_bwd_vec_kernel<T, V, true>, (int)block.x, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    const long long resident = (long long)sm_count() * (per_sm > 0 ? per_sm : 1);
-    if (grid > resident) grid = resident;
-    if (grid > *nparts) grid = *nparts;
-    *nparts = (int)grid;
-    ln_bwd_vec_kernel<T, V, true><<<(unsigned)grid, block, smem, st>>>(
-        static_cast<const T*>(x), static_cast<const T*>(dy), static_cast<const T*>(w),
-        static_cast<T*>(dx), dw_part, db_part, rows, cols, lanes, eps);
-    return 0;
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);  // over the register budget
-  }
-}
-
-template <typename T>
-int launch_vec(const void* x, const void* dy, const void* w, void* dx, float* dw_part,
-               float* db_part, int rows, int cols, int lanes, int* nparts, float eps,
-               cudaStream_t st) {
-  constexpr int E = 16 / sizeof(T);
-  const bool lanes_ok = lanes >= 1 && lanes <= 32 && (lanes & (lanes - 1)) == 0;
-  if (!lanes_ok || cols % (lanes * E) != 0) return static_cast<int>(cudaErrorInvalidValue);
-  const unsigned long long addr_bits =
-      reinterpret_cast<unsigned long long>(x) | reinterpret_cast<unsigned long long>(dy) |
-      reinterpret_cast<unsigned long long>(w) | reinterpret_cast<unsigned long long>(dx);
-  if (addr_bits % 16 != 0) return static_cast<int>(cudaErrorMisalignedAddress);
-#define LYC_LN_BWD_V(NV)                                                                   \
-  case NV:                                                                                 \
-    return launch_vec_v<T, NV>(x, dy, w, dx, dw_part, db_part, rows, cols, lanes, nparts, \
-                               eps, st);
-  switch (cols / (lanes * E)) {
-    LYC_LN_BWD_V(1)
-    LYC_LN_BWD_V(2)
-    LYC_LN_BWD_V(3)
-    LYC_LN_BWD_V(4)
-    LYC_LN_BWD_V(5)
-    LYC_LN_BWD_V(6)
-    LYC_LN_BWD_V(7)
-    LYC_LN_BWD_V(8)
-    LYC_LN_BWD_V(9)
-    LYC_LN_BWD_V(10)
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-#undef LYC_LN_BWD_V
+  // with dw/db: at most nparts blocks (the partial rows the caller gave),
+  // and no more than the card holds at once, so each block walks many rows
+  const size_t smem = 2 * (size_t)cols * sizeof(float);
+  int per_sm = 0;
+  const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, ln_bwd_vec_kernel<T, true>, (int)block.x, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long resident = (long long)sm_count() * (per_sm > 0 ? per_sm : 1);
+  if (grid > resident) grid = resident;
+  if (grid > *nparts) grid = *nparts;
+  *nparts = (int)grid;
+  ln_bwd_vec_kernel<T, true><<<(unsigned)grid, block, smem, st>>>(
+      static_cast<const T*>(x), static_cast<const T*>(dy), static_cast<const T*>(w),
+      static_cast<T*>(dx), dw_part, db_part, rows, cols, lanes, eps);
+  return 0;
 }
 
 }  // namespace
 
 // x, dy, dx: (rows, cols) contiguous; w: (cols,); all one dtype
 // (0 = float32, 1 = bfloat16). lanes: 0 for the generic variant, else the
-// lanes per row of the vectorised one (a power of two <= 32; cols a
-// multiple of lanes * 16 bytes, at most 10 vectors a lane, 5 with dw/db;
-// the four tensors 16-byte aligned). nparts: the generic variant's block count and
-// the partial rows of dw_part/db_part. With dw == nullptr only dx is
+// lanes per row of the vectorised one (a power of two <= 32 with cols =
+// lanes * kVecs 16-byte vectors; the four tensors 16-byte aligned).
+// nparts: the generic variant's block count and the partial rows of
+// dw_part/db_part. With dw == nullptr only dx is
 // computed; otherwise dw_part/db_part are (nparts, cols) fp32 scratch and
 // dw/db (cols,) fp32 outputs.
 extern "C" int lyc_ln_bwd(const void* x, const void* dy, const void* w, void* dx,

@@ -18,11 +18,11 @@ Random draws. The JAX package folds a PRNG key with a hash of the module's
 name and with a per-use salt (``0x72616E6B`` rank, ``0x64726F70``
 dropout, ``0x6D6F64`` module). The port does the same with integers: the
 module's ``seed`` (the train step's seed folded with its name by the
-wrapper) folded with the salt seeds a fresh ``torch.Generator`` on the
-tensors' device (:func:`draw_generator`). A draw thus depends on the step,
-the module and the use alone, never on a generator's state, so the
-recompute of a checkpointed block in the backward draws the same masks as
-its forward. The two packages' random streams differ: the tests fix the
+wrapper) folded with the salt reseeds the tensors' device's
+``torch.Generator`` just before each draw (:func:`draw_generator`). A draw
+thus depends on the step, the module and the use alone, never on what was
+drawn before it, so the recompute of a checkpointed block in the backward
+draws the same masks as its forward. The two packages' random streams differ: the tests fix the
 masks to compare them.
 """
 
@@ -123,9 +123,20 @@ def fold_in(seed: int, data) -> int:
     return int.from_bytes(digest, "little") >> 1
 
 
+_GENERATORS: dict = {}  # one per device, reseeded for every draw
+
+
 def draw_generator(seed: int, salt: int, device) -> torch.Generator:
-    """A generator on ``device`` seeded from ``seed`` and ``salt`` alone."""
-    return torch.Generator(device=device).manual_seed(fold_in(seed, salt))
+    """The generator of ``device`` seeded from ``seed`` and ``salt`` alone.
+    There is one per device, reseeded by each call (no generator is built
+    per draw), so it serves the draw it was called for and no later one."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    gen = _GENERATORS.get(device)
+    if gen is None:
+        gen = _GENERATORS[device] = torch.Generator(device=device)
+    return gen.manual_seed(fold_in(seed, salt))
 
 
 def rank_dropout_mask(gen, n: int, p: float, scale: bool, dtype, device):

@@ -29,24 +29,17 @@ bwd_vec_launches = 0  # of those, launches of the vectorised variant
 bwd_generic_launches = 0  # and of the generic one
 
 _MAX_PARTS = 4 * 132  # dw/db partial rows: four blocks per SM of an H100
-_MAX_VECS = 10  # 16-byte vectors of x (and of dy) a lane of the vectorised variant holds
-_MAX_VECS_WB = 5  # the same with the dw/db sums in registers too (ptxas spills beyond)
+VECS = 5  # 16-byte vectors of x (and of dy) a lane of the vectorised variant holds
 
 
-def bwd_lanes(c: int, element_size: int, want_wb: bool = False) -> int:
-    """Lanes per row of the vectorised backward for width ``c`` (the most,
-    up to a warp, that split the row's 16-byte vectors evenly with at most
-    ``_MAX_VECS`` each, ``_MAX_VECS_WB`` with dw/db), or 0 for the generic
-    variant. bf16 C = 320, 640, 1280 give 8, 16, 32 lanes of 5 vectors each."""
-    per_vec = 16 // element_size
-    if c % per_vec:
-        return 0
-    nvec = c // per_vec
-    most = _MAX_VECS_WB if want_wb else _MAX_VECS
-    for lanes in (32, 16, 8, 4, 2, 1):
-        if nvec % lanes == 0 and nvec // lanes <= most:
-            return lanes
-    return 0
+def bwd_lanes(c: int, element_size: int) -> int:
+    """Lanes per row of the vectorised backward for width ``c``: L, a power
+    of two up to a warp, with the row L * ``VECS`` 16-byte vectors (the one
+    count ``csrc/ln_bwd.cu`` is built for), or 0 for the generic variant.
+    bf16 C = 320, 640, 1280 give 8, 16, 32 lanes; fp32 C = 320, 640 give
+    16, 32."""
+    lanes, rest = divmod(c, VECS * (16 // element_size))
+    return lanes if rest == 0 and lanes and 32 % lanes == 0 else 0
 
 
 def layer_norm_plain(x, weight, bias, eps: float):
@@ -121,7 +114,7 @@ def layer_norm_bwd(x, weight, dy, eps: float, want_wb: bool = True):
     rows = x.numel() // c
     nparts = max(1, min(_MAX_PARTS, math.ceil(rows / 16)))
     dx = torch.empty_like(x)
-    lanes = bwd_lanes(c, x.element_size(), want_wb)
+    lanes = bwd_lanes(c, x.element_size())
     if any(t.data_ptr() % 16 for t in (x, dy, weight, dx)):
         lanes = 0
     dw = db = parts = None

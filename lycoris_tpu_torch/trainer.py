@@ -11,10 +11,11 @@
   merged into each layer's weight by default, so the wide LoKr layers take
   the factored backward (``functional/merged.py``);
 - each step draws a dropout seed (the JAX trainer's ``drop_rng``,
-  trainer.py:175) from a CPU generator of its own, seeded by ``drop_seed``,
-  and runs its forward and backward inside
-  ``LycorisNetwork.training_step(seed)``: adapters with dropout train with
-  it. The noise and timestep draws of ``generator`` are untouched by it.
+  trainer.py:175) from a CPU generator of its own, ``drop_generator``,
+  seeded with ``generator``'s seed, and runs its forward and backward
+  inside ``LycorisNetwork.training_step(seed)``: adapters with dropout
+  train with it. The noise and timestep draws of ``generator`` are
+  untouched by it.
 
 The trainer runs on the device of the model it is given and moves nothing
 to the CPU. It updates the network's own parameters in place, so
@@ -43,8 +44,7 @@ class DiffusionTrainer:
     MSE objective."""
 
     def __init__(self, model, net, lr: float = 1e-4, weight_dtype=torch.bfloat16,
-                 merged_forward: bool = True, generator: torch.Generator | None = None,
-                 drop_seed: int = 0):
+                 merged_forward: bool = True, generator: torch.Generator | None = None):
         self.model = model
         self.net = net
         self.weight_dtype = weight_dtype
@@ -57,7 +57,7 @@ class DiffusionTrainer:
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
         self.generator = generator
-        self.drop_generator = torch.Generator().manual_seed(drop_seed)
+        self.drop_generator = torch.Generator().manual_seed(generator.initial_seed())
         params = [p for sub in net.trainable_params().values() for p in sub.values()]
         self.optimizer = torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
                                            weight_decay=WEIGHT_DECAY)

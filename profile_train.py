@@ -8,8 +8,10 @@ weights) and its seeded LoKr, LoHa and LoRA attn-mlp adapters, trained by
 ``DiffusionTrainer`` at batch 8, 64x64 latents, 77 context tokens. Legs:
 LoKr (its 12 widest layers through the factored backward), LoHa, LoKr
 with the factored backward off (``FACTORED_MIN`` above every layer, so all
-192 layers train by autograd through W + dW), and LoRA (dim 8, the same 12
-layers factored); then, the SD1.5 model freed, ``sdxl_lokr`` and
+192 layers train by autograd through W + dW), LoKr with
+``chip_smoke.DROPOUT_RATES`` (rank and module dropout: every layer on its
+delta-over-base forward), and LoRA (dim 8, the same 12 layers factored);
+then, the SD1.5 model freed, ``sdxl_lokr`` and
 ``sdxl_lora``: the SDXL UNet (``remat="transformer"``) with a LoKr or a
 LoRA adapter at batch 4, 128x128 latents, context (4, 77, 2048) and
 ``added_cond`` (4, 2816). For each leg:
@@ -18,7 +20,11 @@ LoRA adapter at batch 4, 128x128 latents, context (4, 77, 2048) and
    ending in ``torch.cuda.synchronize()``;
 2. torch.profiler over 2 steps: device time per step by kind of kernel,
    kernels per step, and the device busy share (device time per step over
-   the unprofiled median host time per step).
+   the unprofiled median host time per step);
+3. for the dropout leg, the dropout draws per step and the host
+   microseconds of one draw's generator: reseeding the device's generator
+   (``modules.base.draw_generator``) beside building a fresh CUDA generator
+   for each draw.
 
 The full kernel lists go to ``chiprun_out/profile_train.json``.
 """
@@ -27,6 +33,7 @@ from __future__ import annotations
 
 import json
 import statistics
+import timeit
 import sys
 import time
 from pathlib import Path
@@ -47,7 +54,6 @@ def main() -> int:
         return 1
     import chip_smoke
     from profile_serving import kind_of
-    from lycoris_tpu_torch import create_lycoris_from_weights
     from lycoris_tpu_torch.functional import merged
     from lycoris_tpu_torch.trainer import DiffusionTrainer
 
@@ -67,8 +73,9 @@ def main() -> int:
     with torch.no_grad():
         for seed, algo in ((1, "lokr"), (2, "loha"), (6, "lora")):
             sds[algo] = chip_smoke.adapter_state_dict(model, algo, dev, seed=seed)
-    legs = [("lokr", "lokr"), ("loha", "loha"), ("lokr_dense", "lokr"), ("lora", "lora"),
-            ("sdxl_lokr", "lokr"), ("sdxl_lora", "lora")]
+    legs = [("lokr", "lokr"), ("loha", "loha"), ("lokr_dense", "lokr"),
+            ("lokr_dropout", "lokr"), ("lora", "lora"), ("sdxl_lokr", "lokr"),
+            ("sdxl_lora", "lora")]
     for leg, algo in legs:
         if leg == "sdxl_lokr":  # the SD1.5 model freed first
             del model, sds, batch
@@ -79,7 +86,8 @@ def main() -> int:
                 sds = {"lokr": chip_smoke.adapter_state_dict(model, "lokr", dev, seed=4),
                        "lora": chip_smoke.adapter_state_dict(model, "lora", dev, seed=8)}
             batch = chip_smoke.sdxl_batch()
-        net, _ = create_lycoris_from_weights(1.0, None, model, weights_sd=sds[algo])
+        net = chip_smoke.make_net(model, sds[algo], algo,
+                                  chip_smoke.DROPOUT_RATES if leg == "lokr_dropout" else None)
         merged.FACTORED_MIN = 1 << 30 if leg == "lokr_dense" else factored_min
         tr = DiffusionTrainer(model, net, lr=1e-4, weight_dtype=torch.bfloat16)
         torch.cuda.reset_peak_memory_stats()
@@ -96,6 +104,8 @@ def main() -> int:
             for _ in range(PROFILED_STEPS):
                 tr.train_step(batch)
             torch.cuda.synchronize()
+        if leg == "lokr_dropout":
+            report["draws"] = draw_costs(tr, batch, card)
         net.restore()
         del tr, net
 
@@ -138,6 +148,36 @@ def main() -> int:
     out.mkdir(exist_ok=True)
     (out / "profile_train.json").write_text(json.dumps(report, indent=1))
     return 0
+
+
+def draw_costs(tr, batch, card) -> dict:
+    """Dropout draws in one train step of ``tr``, and host us per draw of
+    its generator: the device's generator reseeded, as the modules draw,
+    beside a fresh CUDA generator built and seeded."""
+    import torch
+    from lycoris_tpu_torch.modules import base
+
+    draw_generator, draws = base.draw_generator, [0]
+
+    def counted(*args):
+        draws[0] += 1
+        return draw_generator(*args)
+
+    base.draw_generator = counted
+    try:
+        tr.train_step(batch)
+        torch.cuda.synchronize()
+    finally:
+        base.draw_generator = draw_generator
+    dev = torch.device("cuda", torch.cuda.current_device())
+    n = 2000
+    reseed_us = timeit.timeit(lambda: draw_generator(7, base.RANK_SALT, dev), number=n) / n * 1e6
+    fresh_us = timeit.timeit(lambda: torch.Generator(device=dev).manual_seed(
+        base.fold_in(7, base.RANK_SALT)), number=n) / n * 1e6
+    print(f"[draws] lokr_dropout: {draws[0]} draws per train step; host us per draw's "
+          f"generator: reseeded {reseed_us:.2f}, built fresh {fresh_us:.2f} ({card})",
+          flush=True)
+    return {"per_step": draws[0], "reseed_us": reseed_us, "fresh_us": fresh_us}
 
 
 if __name__ == "__main__":

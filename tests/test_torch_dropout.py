@@ -335,6 +335,20 @@ def test_training_draws_depend_on_seed_and_name_only():
     assert not torch.equal(outs[1][0], outs[2][0])
 
 
+def test_trainer_seeds_its_drop_generator_from_its_generator():
+    """The trainer's drop seeds come from a CPU generator of its own, seeded
+    with the noise generator's seed: no knob of their own, and the noise
+    generator's state is not drawn from by them."""
+    for seed in (3, 4):
+        m, net = _net("lokr", **RATES)
+        gen = torch.Generator().manual_seed(seed)
+        tr = DiffusionTrainer(m, net, weight_dtype=torch.float32, generator=gen)
+        assert tr.drop_generator is not gen
+        assert tr.drop_generator.initial_seed() == seed
+        assert torch.equal(gen.get_state(), torch.Generator().manual_seed(seed).get_state())
+        net.restore()
+
+
 # ---------------------------------------------------------------------------
 # the trainer: checkpointing, drop seeds, and parity with rates 0
 # ---------------------------------------------------------------------------
@@ -346,12 +360,14 @@ TINY_SDXL = dict(block_out_channels=(32, 64), layers_per_block=1, transformer_de
 
 def _step_grads(m, net, start, batch, drop_seed):
     """The adapter gradients of one train step from the adapter values
-    ``start``, with noise and timesteps from generator seed 0."""
+    ``start``, with noise and timesteps from generator seed 0 and the drop
+    seed drawn from ``drop_seed``."""
     with torch.no_grad():
         for k, p in net.named_parameters():
             p.copy_(start[k])
     tr = DiffusionTrainer(m, net, lr=1e-3, weight_dtype=torch.float32,
-                          generator=torch.Generator().manual_seed(0), drop_seed=drop_seed)
+                          generator=torch.Generator().manual_seed(0))
+    tr.drop_generator.manual_seed(drop_seed)
     loss = tr.train_step(batch)
     return float(loss), torch.cat([p.grad.reshape(-1) for _, p in sorted(net.named_parameters())])
 

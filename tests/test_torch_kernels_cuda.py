@@ -126,8 +126,8 @@ def test_cuda_hada_kernel(cuda, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_layer_norm_bwd_kernel(cuda, dtype):
     """Every LayerNorm shape of SD1.5 b8 and SDXL b4 takes the vectorised
-    variant for dx (the path's call; with dw/db too in bf16, the path's
-    dtype); C = 100 and C = 2000 take the generic one."""
+    variant in bf16, the path's dtype (fp32 too, but for C = 1280), with
+    and without dw/db; C = 100 and C = 2000 take the generic one."""
     g = torch.Generator(device=cuda).manual_seed(1)
     cases = [((8 * 4096, 320), True), ((8 * 1024, 640), True), ((8 * 256, 1280), True),
              ((8 * 64, 1280), True), ((4 * 4096, 640), True), ((4 * 1024, 1280), True),
@@ -138,13 +138,13 @@ def test_cuda_layer_norm_bwd_kernel(cuda, dtype):
         w = (torch.randn(c, device=cuda, generator=g) * 0.5 + 1).to(dtype)
         dy = torch.randn(rows, c, device=cuda, generator=g).to(dtype)
         want = tln.layer_norm_bwd_plain(x, w, dy, 1e-5)
-        vec_wb = tln.bwd_lanes(c, es, want_wb=True) > 0
-        assert vec_wb == vec or (dtype == torch.float32 and c == 1280), (rows, c)
+        vec = vec and not (dtype == torch.float32 and c == 1280)
+        assert (tln.bwd_lanes(c, es) > 0) == vec, (rows, c)
         n, nv, ng = tln.bwd_launches, tln.bwd_vec_launches, tln.bwd_generic_launches
         got = tln.layer_norm_bwd(x, w, dy, 1e-5)
         assert tln.bwd_launches == n + 1
         assert (tln.bwd_vec_launches - nv, tln.bwd_generic_launches - ng) == (
-            (1, 0) if vec_wb else (0, 1)), (rows, c)
+            (1, 0) if vec else (0, 1)), (rows, c)
         for a, b in zip(got, want):
             _check(a, b, dtype)
         nv = tln.bwd_vec_launches

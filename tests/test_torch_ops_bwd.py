@@ -332,20 +332,19 @@ def test_factored_fns_decline_what_needs_autograd():
 def test_layer_norm_bwd_variant_by_width():
     """The vectorised LayerNorm backward takes every width of the SD1.5 and
     SDXL paths (a row split evenly into 16-byte vectors over a group of
-    lanes, at most 10 vectors a lane); C = 100 and 2000 take the generic one."""
+    lanes, 5 vectors a lane); C = 100 and 2000 take the generic one."""
     for c, lanes in ((320, 8), (640, 16), (1280, 32)):
-        assert tln.bwd_lanes(c, 2) == lanes  # bf16: 5 vectors a lane
-        assert tln.bwd_lanes(c, 2, want_wb=True) == lanes  # dw/db within the budget too
-        assert c // (8 * lanes) == 5
-        assert tln.bwd_lanes(c, 4) > 0  # fp32, dx only
-    assert tln.bwd_lanes(1280, 4, want_wb=True) == 0  # fp32 dw/db: 10 vectors, over budget
+        assert tln.bwd_lanes(c, 2) == lanes  # bf16, the path's dtype
+        assert c // (8 * lanes) == tln.VECS == 5
+    assert (tln.bwd_lanes(320, 4), tln.bwd_lanes(640, 4)) == (16, 32)  # fp32
+    assert tln.bwd_lanes(1280, 4) == 0  # fp32: 10 vectors a lane, not built
     for c in (100, 2000):
         assert tln.bwd_lanes(c, 2) == 0 and tln.bwd_lanes(c, 4) == 0
-    for c in range(8, 3000, 8):  # any lanes given split the row evenly
-        for wb, most in ((False, 10), (True, 5)):
-            lanes = tln.bwd_lanes(c, 2, wb)
+    for c in range(8, 3000, 8):  # any lanes given split the row into 5 vectors a lane
+        for es in (2, 4):
+            lanes = tln.bwd_lanes(c, es)
             if lanes:
-                assert 32 % lanes == 0 and (c // 8) % lanes == 0 and c // 8 // lanes <= most
+                assert 32 % lanes == 0 and c * es == 16 * tln.VECS * lanes
 
 
 def test_hada_bwd_rows_per_block_fill_the_card():
