@@ -33,7 +33,13 @@ ends the run with a nonzero exit code, and no phase falls back to the CPU:
    come from HBM and not from L2),
    LoHa's four grads (fused1, and the split form, fp32, also held to the
    fused1 kernel's grads), GroupNorm dx/dgamma/dbeta, GEGLU d_hfull, the
-   fused LoRA matmul's dx (nn);
+   fused LoRA matmul's dx (nn). Every LoHa path shape must take the fast
+   (rank-8) variant of the forward and the fused backward; their rows are
+   timed as the LayerNorm backward's, on rotating copies of the factors
+   and g with the outputs held, so inputs and outputs are not in L2. The
+   phase ends with LoHa at rank 128 (1280, 1280) through the generic
+   forward and fused backward and the split backward, against their plain
+   versions;
 4. lora_fused_op -- the public differentiable op ``fused_lora_matmul`` at
    those shapes, forward and backward (bf16), against autograd of its
    plain version: the path its kernels' launches are read from (neither
@@ -76,7 +82,8 @@ ends the run with a nonzero exit code, and no phase falls back to the CPU:
 Every serving and training leg fails if a flash input took the padded
 copy (``flash.pad_copies``): the UNets' layouts are read by TMA in place.
 Every training leg fails unless each LayerNorm backward took the
-vectorised variant.
+vectorised variant, and every LoHa leg (serving and training) unless each
+LoHa forward and fused backward took the fast variant.
 
 The line before the last is the kernel table as JSON. Each kernel names the
 path its launches are read from (``path``): SDXL training (the first SDXL
@@ -601,26 +608,36 @@ def _library_bwd_ms(fwd, inputs, dy, iters: int, copies=None) -> float:
         out, leaves, g, retain_graph=True), cases), iters)
 
 
-def rotating(fn, cases):
+def rotating(fn, cases, hold=False):
     """A callable that calls ``fn(*case)`` for each of ``cases`` in turn.
     Captured in a timing graph, each call keeps its own case's buffers, so
     copies of the inputs larger together than L2 (:data:`ROTATE_BYTES`)
-    make every call read its inputs from HBM."""
+    make every call read its inputs from HBM. With ``hold``, each call's
+    result is kept until its case comes round again, so the outputs rotate
+    over as many buffers (a freed output would be the next call's, still in
+    L2)."""
     turn = [0]
+    held = [None] * len(cases)
 
     def call():
-        case = cases[turn[0] % len(cases)]
+        k = turn[0] % len(cases)
         turn[0] += 1
-        return fn(*case)
+        out = fn(*cases[k])
+        if hold:
+            held[k] = out
+        return out
 
     return call
 
 
-def _times(kernel, plain, it, bnd, lib=None, plain_iters=None, plain_replays=3):
+def _times(kernel, plain, it, bnd, lib=None, plain_iters=None, plain_replays=3, host=None):
     """(kernel, host, plain, library, bound) ms of one launch, each timing
     over ``it`` calls; ``lib`` is a callable of ``it`` returning the
-    library's device ms, or None."""
-    return (graph_ms(kernel, it), time_ms(kernel, it),
+    library's device ms, or None; ``host``, if given, is the call whose
+    host-clocked ms is taken in place of ``kernel``'s (one on the same
+    inputs each time, where ``kernel`` holds rotating outputs whose first
+    round would time their allocation)."""
+    return (graph_ms(kernel, it), time_ms(host or kernel, it),
             graph_ms(plain, plain_iters or it, replays=plain_replays),
             None if lib is None else lib(it), bnd)
 
@@ -716,22 +733,64 @@ class Checks:
         record(self.results, "layer_norm_fwd", path, compare(dtype, y, y_ref), f"({rows},{c})",
                times, per_call)
 
+    def _hada_factors(self, o_, i_, r, dtype):
+        """w1d, w1u, w2d, w2u of rank ``r`` and a cotangent g (O, I)."""
+        return (self.rnd((r, i_), dtype), self.rnd((o_, r), dtype, 0.1), self.rnd((r, i_), dtype),
+                self.rnd((o_, r), dtype, 0.1), self.rnd((o_, i_), dtype, 1e-3))
+
+    def _hada_copies(self, o_, i_, dtype, nbytes):
+        """Copies of rank-8 factors and g, over :data:`ROTATE_BYTES` together
+        at ``nbytes`` a case, for a rotating timing."""
+        return [self._hada_factors(o_, i_, 8, dtype)
+                for _ in range(max(2, math.ceil(ROTATE_BYTES / nbytes)))]
+
+    def _hada_variant(self, name, counter, fn):
+        """Run ``fn`` and fail unless it launched the fast variant (counted
+        in ``ops.hada.<counter>``): every LoHa layer of the paths is rank 8."""
+        from lycoris_tpu_torch.ops import hada
+
+        n = getattr(hada, counter)
+        out = fn()
+        if getattr(hada, counter) != n + 1:
+            fail(f"{name}: a path shape took the generic variant")
+        return out
+
+    def _hada_share(self, name, path, o_, i_, times, per_call):
+        """Log a hada timing's share of its bound and keep the shape's row."""
+        ms, host, plain, _, (bnd, by) = times
+        share = (f"{bnd / ms:.1%} of its bound" if ms >= bnd else
+                 "UNDER its bound: the timing did not reach HBM")
+        log(f"[kernels] {name} {path} ({o_},{i_}) fast variant, rotating copies: kernel "
+            f"{ms:.4f} ms, {share} {bnd:.4f} ms ({by}); plain {plain:.4f} ms; the wrapper's "
+            f"host-clocked {host:.4f} ms")
+        self.results[name].setdefault("shapes", []).append(
+            {"path": path, "shape": [o_, i_], "ms": ms, "host_ms": host, "plain_ms": plain,
+             "bound_ms": bnd, "per": per_call})
+
     def hada_fwd(self, path, o_, i_, dtype, per_call, timed):
+        """The forward, fast variant, against its plain version. Timed on
+        rotating copies of the factors with the outputs held, so each call
+        writes a buffer that is not in L2."""
         import torch
         from lycoris_tpu_torch.ops import hada
 
-        w1d, w2d = self.rnd((8, i_), dtype), self.rnd((8, i_), dtype)
-        w1u, w2u = self.rnd((o_, 8), dtype, 0.1), self.rnd((o_, 8), dtype, 0.1)
-        out = hada.hada_weight(w1d, w1u, w2d, w2u, 0.5)
+        w1d, w1u, w2d, w2u, _ = self._hada_factors(o_, i_, 8, dtype)
+        out = self._hada_variant("hada_fwd", "fast_launches",
+                                 lambda: hada.hada_weight(w1d, w1u, w2d, w2u, 0.5))
         ref = hada.hada_weight_plain(w1d, w1u, w2d, w2u, 0.5)
         torch.cuda.synchronize()
         times = None
         if timed:
-            nbytes = (o_ * i_ + 2 * 8 * (o_ + i_)) * w1d.element_size()
-            times = _times(lambda: hada.hada_weight(w1d, w1u, w2d, w2u, 0.5),
-                           lambda: hada.hada_weight_plain(w1d, w1u, w2d, w2u, 0.5),
-                           iters_for(nbytes),
-                           bound(2.0 * o_ * i_ * (2 * 8 + 2), nbytes, "float32"))
+            es = w1d.element_size()
+            nbytes = (o_ * i_ + 2 * 8 * (o_ + i_)) * es
+            copies = [c[:4] for c in self._hada_copies(o_, i_, dtype, nbytes)]
+            it = max(iters_for(nbytes), len(copies))
+            times = _times(rotating(lambda *f: hada.hada_weight(*f, 0.5), copies, hold=True),
+                           rotating(lambda *f: hada.hada_weight_plain(*f, 0.5), copies, hold=True),
+                           it, bound(2.0 * o_ * i_ * (2 * 8 + 2), nbytes, "float32"),
+                           host=lambda: hada.hada_weight(w1d, w1u, w2d, w2u, 0.5))
+            self._hada_share("hada_fwd", path, o_, i_, times, per_call)
+            del copies
         record(self.results, "hada_fwd", path, compare(dtype, out, ref), f"({o_},{i_})", times,
                per_call)
 
@@ -882,26 +941,61 @@ class Checks:
                per_call)
 
     def hada_bwd(self, path, o_, i_, dtype, per_call, timed):
+        """The fused backward, fast variant, against its plain version.
+        Timed on rotating copies of g and the factors, over 4x the L2
+        together, with the outputs held, so that each call reads its inputs
+        from HBM, as on the path (the kernel, the plain version alike)."""
         import torch
         from lycoris_tpu_torch.ops import hada
 
-        w1d, w2d = self.rnd((8, i_), dtype), self.rnd((8, i_), dtype)
-        w1u, w2u = self.rnd((o_, 8), dtype, 0.1), self.rnd((o_, 8), dtype, 0.1)
-        g = self.rnd((o_, i_), dtype, 1e-3)
-        got = hada.hada_bwd(w1d, w1u, w2d, w2u, 0.5, g)
+        w1d, w1u, w2d, w2u, g = self._hada_factors(o_, i_, 8, dtype)
+        got = self._hada_variant("hada_bwd", "bwd_fast_launches",
+                                 lambda: hada.hada_bwd(w1d, w1u, w2d, w2u, 0.5, g))
         want = hada.hada_weight_bwd_plain(w1d, w1u, w2d, w2u, 0.5, g)
         torch.cuda.synchronize()
         times = None
         if timed:
-            nbytes = (o_ * i_ + 4 * 8 * (o_ + i_)) * g.element_size()
+            es = g.element_size()
+            nbytes = (o_ * i_ + 4 * 8 * (o_ + i_)) * es
+            copies = self._hada_copies(o_, i_, dtype, nbytes)
+            it = max(iters_for(nbytes), len(copies))
             # per element of g, 6 R multiply-adds: R for each of the two
             # products and R for each of the four contractions; g and the
             # factors read, the four grads written
-            times = _times(lambda: hada.hada_bwd(w1d, w1u, w2d, w2u, 0.5, g),
-                           lambda: hada.hada_weight_bwd_plain(w1d, w1u, w2d, w2u, 0.5, g),
-                           iters_for(nbytes), bound(2.0 * 6 * 8 * o_ * i_, nbytes, "float32"))
+            times = _times(
+                rotating(lambda *f: hada.hada_bwd(*f[:4], 0.5, f[4]), copies, hold=True),
+                rotating(lambda *f: hada.hada_weight_bwd_plain(*f[:4], 0.5, f[4]), copies,
+                         hold=True),
+                it, bound(2.0 * 6 * 8 * o_ * i_, nbytes, "float32"),
+                host=lambda: hada.hada_bwd(w1d, w1u, w2d, w2u, 0.5, g))
+            self._hada_share("hada_bwd", path, o_, i_, times, per_call)
+            del copies
         record(self.results, "hada_bwd", path, compare_all(dtype, got, want), f"({o_},{i_})",
                times, per_call)
+
+    def hada_any_rank(self, o_, i_, r):
+        """Rank ``r`` (not the fast variants' 8) through the generic forward
+        and fused backward, and through the split backward, against their
+        plain versions (fp32)."""
+        import torch
+        from lycoris_tpu_torch.ops import hada
+
+        w1d, w1u, w2d, w2u, g = self._hada_factors(o_, i_, r, torch.float32)
+        n = (hada.generic_launches, hada.bwd_generic_launches)
+        out = hada.hada_weight(w1d, w1u, w2d, w2u, 0.5)
+        got = hada.hada_bwd(w1d, w1u, w2d, w2u, 0.5, g)
+        split = hada.hada_bwd_split(w1d, w1u, w2d, w2u, 0.5, g)
+        torch.cuda.synchronize()
+        if (hada.generic_launches - n[0], hada.bwd_generic_launches - n[1]) != (1, 1):
+            fail(f"hada rank {r}: the generic variants did not take it")
+        shape = f"({o_},{i_}) R{r} generic"
+        record(self.results, "hada_fwd", "sdxl",
+               compare(torch.float32, out, hada.hada_weight_plain(w1d, w1u, w2d, w2u, 0.5)), shape)
+        record(self.results, "hada_bwd", "sdxl", compare_all(
+            torch.float32, got, hada.hada_weight_bwd_plain(w1d, w1u, w2d, w2u, 0.5, g)), shape)
+        record(self.results, "hada_bwd_split", "sdxl", compare_all(
+            torch.float32, split, hada.hada_weight_bwd_split_plain(w1d, w1u, w2d, w2u, 0.5, g)),
+            f"({o_},{i_}) R{r}")
 
     def group_norm_bwd(self, path, n, c, s, act, dtype, per_call, timed):
         import torch
@@ -1006,9 +1100,7 @@ class Checks:
         import torch
         from lycoris_tpu_torch.ops import hada
 
-        w1d, w2d = self.rnd((8, i_), dtype), self.rnd((8, i_), dtype)
-        w1u, w2u = self.rnd((o_, 8), dtype, 0.1), self.rnd((o_, 8), dtype, 0.1)
-        g = self.rnd((o_, i_), dtype, 1e-3)
+        w1d, w1u, w2d, w2u, g = self._hada_factors(o_, i_, 8, dtype)
         got = hada.hada_bwd_split(w1d, w1u, w2d, w2u, 0.5, g)
         want = hada.hada_weight_bwd_split_plain(w1d, w1u, w2d, w2u, 0.5, g)
         fused = hada.hada_bwd(w1d, w1u, w2d, w2u, 0.5, g)
@@ -1123,6 +1215,9 @@ def phase_kernels_bwd(results: dict):
         for (m, n_, k), layers in sh["lora"].items():
             for dt in (torch.bfloat16, torch.float32):
                 ck.lora_fused_nn(path, m, n_, k, dt, layers, dt == torch.bfloat16)
+    # LoHa at rank 128: the rank JAX's hada_weight gate takes and the shared
+    # memory of the old fused backward could not hold
+    ck.hada_any_rank(1280, 1280, 128)
 
 
 def phase_lora_fused_op(results: dict):
@@ -1318,6 +1413,8 @@ def reset_counts():
     group_norm.bwd_launches = geglu.bwd_launches = group_norm.copies = flash.pad_copies = 0
     lora_fused.launches = lora_fused.dx_launches = hada.split_launches = 0
     layer_norm.bwd_vec_launches = layer_norm.bwd_generic_launches = 0
+    hada.fast_launches = hada.generic_launches = 0
+    hada.bwd_fast_launches = hada.bwd_generic_launches = 0
     merged.applications = 0
 
 
@@ -1345,6 +1442,19 @@ def check_ln_vectorised(tag: str, counts: dict) -> None:
         fail(f"{tag} LayerNorm backward: {layer_norm.bwd_vec_launches} vectorised and "
              f"{layer_norm.bwd_generic_launches} generic launches of "
              f"{counts['layer_norm_bwd']}")
+
+
+def check_hada_fast(tag: str, counts: dict) -> None:
+    """Fail unless every LoHa forward and fused backward since the last
+    reset took the fast variant (every LoHa layer of the SD1.5 and SDXL
+    paths is rank 8)."""
+    from lycoris_tpu_torch.ops import hada
+
+    got = (hada.fast_launches, hada.generic_launches, hada.bwd_fast_launches,
+           hada.bwd_generic_launches)
+    if got != (counts["hada_fwd"], 0, counts["hada_bwd"], 0):
+        fail(f"{tag} LoHa: forward {got[0]} fast and {got[1]} generic of {counts['hada_fwd']}, "
+             f"fused backward {got[2]} fast and {got[3]} generic of {counts['hada_bwd']}")
 
 
 def gn_copies() -> int:
@@ -1413,6 +1523,7 @@ def serve(model, algo, sd, requests, steps, results, card):
         f"copies {gn_copies()}; flash pad copies 0")
     if counts != want:
         fail(f"{tag} launch counts {counts} != {want}")
+    check_hada_fast(tag, counts)
     for o in outs:
         if o.shape != (2, 4, 64, 64) or not bool(torch.isfinite(o.float()).all()):
             fail(f"{tag} output not finite / wrong shape {tuple(o.shape)}")
@@ -1569,18 +1680,23 @@ def train(model, algo, sd, batch, want, steps, results, card, tag, path=None, ad
             fail(f"{tag} launch counts per step {counts} != {want}")
         check_no_pad_copies(tag)
         check_ln_vectorised(tag, counts)
+        check_hada_fast(tag, counts)
         totals.update(counts)
         losses.append(float(loss))
         if not math.isfinite(losses[-1]):
             fail(f"{tag} loss {losses[-1]} at step {len(losses)}")
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"{tag} launches per step {want} over {steps} steps, every LayerNorm backward "
-        f"vectorised; GroupNorm input copies {copies}; flash pad copies 0")
+        f"vectorised, every LoHa kernel on its fast variant; GroupNorm input copies {copies}; "
+        f"flash pad copies 0")
     for name, meta in KERNELS.items():
         if meta["path"] == path and want.get(name) and not results[name]["launches"]:
             results[name]["launches"] = totals[name]
-            if name == "layer_norm_bwd":  # every one vectorised (checked per step)
+            # every one vectorised or fast (checked per step)
+            if name == "layer_norm_bwd":
                 results[name]["variants"] = {"vectorised": totals[name], "generic": 0}
+            if name in ("hada_fwd", "hada_bwd"):
+                results[name]["variants"] = {"fast": totals[name], "generic": 0}
     changed = {(ln, k) for ln, sub in net.trainable_params().items() for k, p in sub.items()
                if not torch.equal(p.detach(), before[ln, k])}
     unchanged = [k for k in before if k not in changed and k[0] in kept]
@@ -1928,6 +2044,12 @@ def main() -> int:
                       if sh["ms"] > sh["library_ms"]]
             log(f"[kernels] layer_norm_bwd path shapes slower than F.layer_norm's backward: "
                 f"{slower or 'none'} of {len(row['shapes'])}")
+        if row["name"] in ("hada_fwd", "hada_bwd"):
+            for where, r in (("SDXL step", row), ("SD1.5 " + ("call" if "fwd" in row["name"]
+                                                             else "b8 step"), row["sd15"])):
+                log(f"[kernels] {row['name']} per {where} (fast variant, rotating copies): "
+                    f"{r['ms']:.3f} ms, {r['bound_ms'] / r['ms']:.1%} of its bound "
+                    f"{r['bound_ms']:.3f} ms; plain {r['plain_ms']:.3f} ms")
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

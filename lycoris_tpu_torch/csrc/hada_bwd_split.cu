@@ -26,10 +26,13 @@
 // ff layer is 80 blocks on 132 SMs.
 //
 // Design: 256 threads; tiles of 16 x 64 (u) or 64 x 16 (d) elements of g,
-// four per thread, read along g's rows; the strip's own factor slice (u:
-// the rows of w1u/w2u; d: the columns of w1d/w2d) is loaded once, the other
-// slice per tile; the block's gradient sums stay in shared memory, each
-// owned by one thread.
+// four per thread, read along g's rows. Shared memory holds 32 ranks at a
+// time (about 34 KB whatever R is): the tile's rows of w1u/w2u and
+// columns of w1d/w2d for a chunk of ranks, t1/t2 of the tile, and the
+// block's gradient sums for one chunk, each owned by one thread. The
+// products run over all R a chunk at a time; a block sums the gradients
+// of one chunk of ranks per walk, so a rank above 32 walks the strip once
+// per chunk (R <= 32, the path's ranks, is one walk, as before).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -42,16 +45,16 @@ __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float
 constexpr int NT = 256;
 constexpr int STRIP = 16;  // rows (u) or columns (d) a block owns
 constexpr int WALK = 64;   // columns (u) or rows (d) of one tile of the walk
+constexpr int RC = 32;     // ranks staged at a time
+constexpr int RU = RC + 1;
 
 template <bool U>
 struct Tile {
   static constexpr int TR = U ? STRIP : WALK;  // rows of a tile
   static constexpr int TC = U ? WALK : STRIP;  // columns of a tile
   static constexpr int LDC = TC + 1;
-  static size_t floats(int R) {
-    const size_t n_acc = U ? (size_t)TR * R : (size_t)R * TC;
-    return 2 * (size_t)TR * (R + 1) + 2 * (size_t)R * LDC + 2 * (size_t)TR * LDC + 2 * n_acc;
-  }
+  static constexpr int EPT = TR * TC / NT;     // elements of a tile per thread
+  static constexpr int N_ACC = U ? TR * RC : RC * TC;
 };
 
 template <typename T, bool U>
@@ -60,114 +63,140 @@ __global__ void __launch_bounds__(NT)
                           const T* __restrict__ w1u, const T* __restrict__ w2d,
                           const T* __restrict__ w2u, float* __restrict__ out1,
                           float* __restrict__ out2, int O, int I, int R, float scale) {
-  constexpr int TR = Tile<U>::TR, TC = Tile<U>::TC, LDC = Tile<U>::LDC;
-  extern __shared__ float sm[];
-  const int RU = R + 1;
-  const int n_acc = U ? TR * R : R * TC;
-  float* s1u = sm;                 // [TR][R + 1] the tile's rows of w1u
-  float* s2u = s1u + TR * RU;      // [TR][R + 1]
-  float* s1d = s2u + TR * RU;      // [R][LDC] the tile's columns of w1d
-  float* s2d = s1d + R * LDC;      // [R][LDC]
-  float* st1 = s2d + R * LDC;      // [TR][LDC] t1 of the tile
-  float* st2 = st1 + TR * LDC;     // [TR][LDC]
-  float* acc1 = st2 + TR * LDC;    // u: [TR][R] of g1u; d: [R][TC] of g1d
-  float* acc2 = acc1 + n_acc;
+  using Tl = Tile<U>;
+  constexpr int TR = Tl::TR, TC = Tl::TC, LDC = Tl::LDC;
+  __shared__ float s1u[TR * RU], s2u[TR * RU];      // the tile's rows of w1u/w2u, a rank chunk
+  __shared__ float s1d[RC * LDC], s2d[RC * LDC];    // the tile's columns of w1d/w2d, likewise
+  __shared__ float st1[TR * LDC], st2[TR * LDC];    // t1, t2 of the tile
+  __shared__ float acc1[Tl::N_ACC], acc2[Tl::N_ACC];  // u: [TR][RC]; d: [RC][TC]
 
   const int tid = threadIdx.x;
   const int row0 = U ? blockIdx.x * STRIP : 0;
   const int col0 = U ? 0 : blockIdx.x * STRIP;
 
-  auto load_u = [&](int o0) {
-    for (int idx = tid; idx < TR * R; idx += NT) {
-      const int m = idx / R, r = idx - m * R;
+  // ranks [c0, c0 + RC) of the tile's rows of w1u/w2u and of its columns
+  // of w1d/w2d (the ranks R has; the loops below read no others): the
+  // strip's own slice (u: its rows; d: its columns), the same for every
+  // tile of the walk, and the tile's other slice
+  auto stage_u = [&](int o0, int c0) {
+    const int cn = min(RC, R - c0);
+    for (int idx = tid; idx < TR * cn; idx += NT) {
+      const int m = idx / cn, r = idx - m * cn;
       const int o = o0 + m;
       const bool ok = o < O;
-      s1u[m * RU + r] = ok ? to_f(w1u[(long long)o * R + r]) : 0.f;
-      s2u[m * RU + r] = ok ? to_f(w2u[(long long)o * R + r]) : 0.f;
+      s1u[m * RU + r] = ok ? to_f(w1u[(long long)o * R + c0 + r]) : 0.f;
+      s2u[m * RU + r] = ok ? to_f(w2u[(long long)o * R + c0 + r]) : 0.f;
     }
   };
-  auto load_d = [&](int i0) {
-    for (int idx = tid; idx < R * TC; idx += NT) {
+  auto stage_d = [&](int i0, int c0) {
+    const int cn = min(RC, R - c0);
+    for (int idx = tid; idx < cn * TC; idx += NT) {
       const int r = idx / TC, n = idx - r * TC;
       const int i = i0 + n;
       const bool ok = i < I;
-      s1d[r * LDC + n] = ok ? to_f(w1d[(long long)r * I + i]) : 0.f;
-      s2d[r * LDC + n] = ok ? to_f(w2d[(long long)r * I + i]) : 0.f;
+      s1d[r * LDC + n] = ok ? to_f(w1d[(long long)(c0 + r) * I + i]) : 0.f;
+      s2d[r * LDC + n] = ok ? to_f(w2d[(long long)(c0 + r) * I + i]) : 0.f;
     }
   };
+  auto stage_own = [&](int c0) {
+    if (U) stage_u(row0, c0); else stage_d(col0, c0);
+  };
+  auto stage_other = [&](int o0, int i0, int c0) {
+    if (U) stage_d(i0, c0); else stage_u(o0, c0);
+  };
 
-  for (int idx = tid; idx < n_acc; idx += NT) acc1[idx] = acc2[idx] = 0.f;
-  if (U) load_u(row0); else load_d(col0);
-
+  // at R <= RC (one chunk) the strip's own slice is staged once per walk
+  const bool one = R <= RC;
   const int steps = U ? (I + TC - 1) / TC : (O + TR - 1) / TR;
-  for (int s = 0; s < steps; ++s) {
-    const int o0 = U ? row0 : s * TR;
-    const int i0 = U ? s * TC : col0;
-    __syncthreads();  // the previous tile's readers are done
-    if (U) load_d(i0); else load_u(o0);
-    __syncthreads();
-
-    // t1 = g * gamma * p2, t2 = g * gamma * p1, four elements per thread
-    for (int e = tid; e < TR * TC; e += NT) {
-      const int m = e / TC, n = e - m * TC;
-      float p1 = 0.f, p2 = 0.f;
-      for (int r = 0; r < R; ++r) {
-        p1 = fmaf(s1u[m * RU + r], s1d[r * LDC + n], p1);
-        p2 = fmaf(s2u[m * RU + r], s2d[r * LDC + n], p2);
-      }
-      const int o = o0 + m, i = i0 + n;
-      const float gv = (o < O && i < I) ? to_f(g[(long long)o * I + i]) * scale : 0.f;
-      st1[m * LDC + n] = gv * p2;
-      st2[m * LDC + n] = gv * p1;
-    }
-    __syncthreads();
-
-    if (U) {
-      // g1u[m][r] += sum_n t1[m][n] w1d[r][n];  g2u with t2, w2d
-      for (int idx = tid; idx < TR * R; idx += NT) {
-        const int m = idx / R, r = idx - m * R;
-        float a1 = 0.f, a2 = 0.f;
-#pragma unroll 8
-        for (int n = 0; n < TC; ++n) {
-          a1 = fmaf(st1[m * LDC + n], s1d[r * LDC + n], a1);
-          a2 = fmaf(st2[m * LDC + n], s2d[r * LDC + n], a2);
+  for (int r0 = 0; r0 < R; r0 += RC) {  // the ranks whose gradients this pass sums
+    const int rc = min(RC, R - r0);
+    for (int idx = tid; idx < Tl::N_ACC; idx += NT) acc1[idx] = acc2[idx] = 0.f;
+    if (one) stage_own(0);
+    for (int s = 0; s < steps; ++s) {
+      const int o0 = U ? row0 : s * TR;
+      const int i0 = U ? s * TC : col0;
+      // both products over all R, a rank chunk at a time, EPT elements a thread
+      float p1[Tl::EPT], p2[Tl::EPT];
+#pragma unroll
+      for (int k = 0; k < Tl::EPT; ++k) p1[k] = p2[k] = 0.f;
+      for (int c0 = 0; c0 < R; c0 += RC) {
+        __syncthreads();  // the previous readers of the staged chunk are done
+        if (!one) stage_own(c0);
+        stage_other(o0, i0, c0);
+        __syncthreads();
+        const int cn = min(RC, R - c0);
+#pragma unroll
+        for (int k = 0; k < Tl::EPT; ++k) {
+          const int e = tid + k * NT, m = e / TC, n = e - m * TC;
+          for (int r = 0; r < cn; ++r) {
+            p1[k] = fmaf(s1u[m * RU + r], s1d[r * LDC + n], p1[k]);
+            p2[k] = fmaf(s2u[m * RU + r], s2d[r * LDC + n], p2[k]);
+          }
         }
-        acc1[idx] += a1;
-        acc2[idx] += a2;
+      }
+      if (!one) {  // the contraction below needs the pass's own chunk
+        __syncthreads();
+        stage_own(r0);
+        stage_other(o0, i0, r0);
+      }
+      // t1 = g * gamma * p2, t2 = g * gamma * p1
+#pragma unroll
+      for (int k = 0; k < Tl::EPT; ++k) {
+        const int e = tid + k * NT, m = e / TC, n = e - m * TC;
+        const int o = o0 + m, i = i0 + n;
+        const float gv = (o < O && i < I) ? to_f(g[(long long)o * I + i]) * scale : 0.f;
+        st1[m * LDC + n] = gv * p2[k];
+        st2[m * LDC + n] = gv * p1[k];
+      }
+      __syncthreads();
+
+      if (U) {
+        // g1u[m][r] += sum_n t1[m][n] w1d[r][n];  g2u with t2, w2d
+        for (int idx = tid; idx < TR * rc; idx += NT) {
+          const int m = idx / rc, r = idx - m * rc;
+          float a1 = 0.f, a2 = 0.f;
+#pragma unroll 8
+          for (int n = 0; n < TC; ++n) {
+            a1 = fmaf(st1[m * LDC + n], s1d[r * LDC + n], a1);
+            a2 = fmaf(st2[m * LDC + n], s2d[r * LDC + n], a2);
+          }
+          acc1[m * RC + r] += a1;
+          acc2[m * RC + r] += a2;
+        }
+      } else {
+        // g1d[r][n] += sum_m w1u[m][r] t1[m][n];  g2d with w2u, t2
+        for (int idx = tid; idx < rc * TC; idx += NT) {
+          const int r = idx / TC, n = idx - r * TC;
+          float a1 = 0.f, a2 = 0.f;
+#pragma unroll 8
+          for (int m = 0; m < TR; ++m) {
+            a1 = fmaf(s1u[m * RU + r], st1[m * LDC + n], a1);
+            a2 = fmaf(s2u[m * RU + r], st2[m * LDC + n], a2);
+          }
+          acc1[idx] += a1;
+          acc2[idx] += a2;
+        }
+      }
+    }
+
+    // each sum is read back by the thread that owns it
+    if (U) {
+      for (int idx = tid; idx < TR * rc; idx += NT) {
+        const int m = idx / rc, r = idx - m * rc;
+        const int o = row0 + m;
+        if (o < O) {
+          out1[(long long)o * R + r0 + r] = acc1[m * RC + r];
+          out2[(long long)o * R + r0 + r] = acc2[m * RC + r];
+        }
       }
     } else {
-      // g1d[r][n] += sum_m w1u[m][r] t1[m][n];  g2d with w2u, t2
-      for (int idx = tid; idx < R * TC; idx += NT) {
+      for (int idx = tid; idx < rc * TC; idx += NT) {
         const int r = idx / TC, n = idx - r * TC;
-        float a1 = 0.f, a2 = 0.f;
-#pragma unroll 8
-        for (int m = 0; m < TR; ++m) {
-          a1 = fmaf(s1u[m * RU + r], st1[m * LDC + n], a1);
-          a2 = fmaf(s2u[m * RU + r], st2[m * LDC + n], a2);
+        const int i = col0 + n;
+        if (i < I) {
+          out1[(long long)(r0 + r) * I + i] = acc1[idx];
+          out2[(long long)(r0 + r) * I + i] = acc2[idx];
         }
-        acc1[idx] += a1;
-        acc2[idx] += a2;
-      }
-    }
-  }
-
-  // each sum is read back by the thread that owns it
-  if (U) {
-    for (int idx = tid; idx < TR * R; idx += NT) {
-      const int m = idx / R, r = idx - m * R;
-      const int o = row0 + m;
-      if (o < O) {
-        out1[(long long)o * R + r] = acc1[idx];
-        out2[(long long)o * R + r] = acc2[idx];
-      }
-    }
-  } else {
-    for (int idx = tid; idx < R * TC; idx += NT) {
-      const int r = idx / TC, n = idx - r * TC;
-      const int i = col0 + n;
-      if (i < I) {
-        out1[(long long)r * I + i] = acc1[idx];
-        out2[(long long)r * I + i] = acc2[idx];
       }
     }
   }
@@ -176,14 +205,8 @@ __global__ void __launch_bounds__(NT)
 template <typename T, bool U>
 int launch(const void* g, const void* w1d, const void* w1u, const void* w2d, const void* w2u,
            float* out1, float* out2, int O, int I, int R, float scale, cudaStream_t st) {
-  const size_t smem = Tile<U>::floats(R) * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        hada_bwd_split_kernel<T, U>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
   const int blocks = U ? (O + STRIP - 1) / STRIP : (I + STRIP - 1) / STRIP;
-  hada_bwd_split_kernel<T, U><<<blocks, NT, smem, st>>>(
+  hada_bwd_split_kernel<T, U><<<blocks, NT, 0, st>>>(
       static_cast<const T*>(g), static_cast<const T*>(w1d), static_cast<const T*>(w1u),
       static_cast<const T*>(w2d), static_cast<const T*>(w2u), out1, out2, O, I, R, scale);
   return static_cast<int>(cudaGetLastError());

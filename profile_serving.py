@@ -34,7 +34,7 @@ KINDS = (
     ("flash_bwd (ours)", ("flash_bwd", "flash_di")),  # with its di = rowsum(dO * O) kernel
     ("LayerNorm (ours)", ("ln_fwd_kernel",)),
     ("LayerNorm bwd (ours)", ("ln_bwd",)),
-    ("hada (ours)", ("hada_fwd_kernel",)),
+    ("hada (ours)", ("hada_fwd",)),
     ("hada bwd (ours)", ("hada_bwd",)),
     ("GroupNorm (ours)", ("gn_fwd_",)),
     ("GroupNorm bwd (ours)", ("gn_bwd_",)),

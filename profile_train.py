@@ -11,9 +11,9 @@ with the factored backward off (``FACTORED_MIN`` above every layer, so all
 192 layers train by autograd through W + dW), LoKr with
 ``chip_smoke.DROPOUT_RATES`` (rank and module dropout: every layer on its
 delta-over-base forward), and LoRA (dim 8, the same 12 layers factored);
-then, the SD1.5 model freed, ``sdxl_lokr`` and
-``sdxl_lora``: the SDXL UNet (``remat="transformer"``) with a LoKr or a
-LoRA adapter at batch 4, 128x128 latents, context (4, 77, 2048) and
+then, the SD1.5 model freed, ``sdxl_lokr``, ``sdxl_lora`` and
+``sdxl_loha``: the SDXL UNet (``remat="transformer"``) with a LoKr, LoRA
+or LoHa adapter at batch 4, 128x128 latents, context (4, 77, 2048) and
 ``added_cond`` (4, 2816). For each leg:
 
 1. host clock per step over 5 steps after 2 warm-up steps, every step
@@ -75,7 +75,7 @@ def main() -> int:
             sds[algo] = chip_smoke.adapter_state_dict(model, algo, dev, seed=seed)
     legs = [("lokr", "lokr"), ("loha", "loha"), ("lokr_dense", "lokr"),
             ("lokr_dropout", "lokr"), ("lora", "lora"), ("sdxl_lokr", "lokr"),
-            ("sdxl_lora", "lora")]
+            ("sdxl_lora", "lora"), ("sdxl_loha", "loha")]
     for leg, algo in legs:
         if leg == "sdxl_lokr":  # the SD1.5 model freed first
             del model, sds, batch
@@ -84,7 +84,8 @@ def main() -> int:
                                           remat="transformer")
             with torch.no_grad():
                 sds = {"lokr": chip_smoke.adapter_state_dict(model, "lokr", dev, seed=4),
-                       "lora": chip_smoke.adapter_state_dict(model, "lora", dev, seed=8)}
+                       "lora": chip_smoke.adapter_state_dict(model, "lora", dev, seed=8),
+                       "loha": chip_smoke.adapter_state_dict(model, "loha", dev, seed=5)}
             batch = chip_smoke.sdxl_batch()
         net = chip_smoke.make_net(model, sds[algo], algo,
                                   chip_smoke.DROPOUT_RATES if leg == "lokr_dropout" else None)

@@ -111,15 +111,44 @@ def test_cuda_flash_kernel(cuda, dtype):
     _graph_matches_eager(lambda: tflash.flash_fwd(q, k, v, 0.125))
 
 
+# (O, I) of the LoHa layers of the SD1.5 and SDXL paths (rank 8)
+HADA_PATH_SHAPES = ((320, 320), (1280, 1280), (10240, 1280), (1280, 5120), (640, 2048))
+
+
+def _hada_factors(o, i, r, dtype, gen, dev, offset=0):
+    """w1d, w1u, w2d, w2u and a cotangent, each with ``offset`` elements in
+    front of it in its buffer: 1 leaves them contiguous but not 16-byte
+    aligned, so that the generic variants take a rank-8 layer."""
+    def rnd(shape, std):
+        buf = (torch.randn(shape[0] * shape[1] + offset, device=dev, generator=gen) * std)
+        return buf.to(dtype)[offset:].view(shape)
+
+    return rnd((r, i), 1.0), rnd((o, r), 0.1), rnd((r, i), 1.0), rnd((o, r), 0.1), rnd((o, i), 1e-3)
+
+
+# ((O, I, R), offset, variant): the path's shapes through both variants; a
+# ragged last column strip (I = 132) through the fast one; I % 4 != 0 and
+# rank 40 through the generic one
+HADA_CASES = ([((o, i, 8), 0, "fast") for o, i in HADA_PATH_SHAPES]
+              + [((o, i, 8), 1, "generic") for o, i in HADA_PATH_SHAPES]
+              + [((100, 132, 8), 0, "fast"), ((100, 130, 8), 0, "generic"),
+                 ((100, 130, 40), 0, "generic")])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_hada_kernel(cuda, dtype):
+    """The forward against its plain version through the variant each case
+    names, counted per variant."""
     g = torch.Generator(device=cuda).manual_seed(0)
-    for o, i, r in ((320, 320, 8), (10240, 1280, 8), (100, 130, 40)):
-        w1d, w2d = (torch.randn(r, i, device=cuda, generator=g).to(dtype) for _ in range(2))
-        w1u, w2u = ((0.1 * torch.randn(o, r, device=cuda, generator=g)).to(dtype) for _ in range(2))
-        _check(thada.hada_weight(w1d, w1u, w2d, w2u, 0.5),
-               thada.hada_weight_plain(w1d, w1u, w2d, w2u, 0.5), dtype)
+    for (o, i, r), offset, variant in HADA_CASES:
+        w1d, w1u, w2d, w2u, _ = _hada_factors(o, i, r, dtype, g, cuda, offset)
+        n = (thada.launches, thada.fast_launches, thada.generic_launches)
+        got = thada.hada_weight(w1d, w1u, w2d, w2u, 0.5)
+        fast = variant == "fast"
+        assert (thada.launches - n[0], thada.fast_launches - n[1],
+                thada.generic_launches - n[2]) == (1, int(fast), int(not fast)), (o, i, r, offset)
+        _check(got, thada.hada_weight_plain(w1d, w1u, w2d, w2u, 0.5), dtype)
 
 
 @pytest.mark.cuda
@@ -193,17 +222,91 @@ def test_cuda_flash_bwd_kernel(cuda, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_hada_bwd_kernel(cuda, dtype):
+    """The fused backward against its plain version through the variant
+    each case names, counted per variant."""
     g = torch.Generator(device=cuda).manual_seed(3)
-    for o, i, r in ((320, 320, 8), (10240, 1280, 8), (1280, 5120, 8), (100, 130, 40)):
-        w1d, w2d = (torch.randn(r, i, device=cuda, generator=g).to(dtype) for _ in range(2))
-        w1u, w2u = ((0.1 * torch.randn(o, r, device=cuda, generator=g)).to(dtype) for _ in range(2))
-        gr = (torch.randn(o, i, device=cuda, generator=g) * 1e-3).to(dtype)
+    for (o, i, r), offset, variant in HADA_CASES:
+        w1d, w1u, w2d, w2u, gr = _hada_factors(o, i, r, dtype, g, cuda, offset)
         want = thada.hada_weight_bwd_plain(w1d, w1u, w2d, w2u, 0.5, gr)
-        n = thada.bwd_launches
+        n = (thada.bwd_launches, thada.bwd_fast_launches, thada.bwd_generic_launches)
         got = thada.hada_bwd(w1d, w1u, w2d, w2u, 0.5, gr)
-        assert thada.bwd_launches == n + 1
+        fast = variant == "fast"
+        assert (thada.bwd_launches - n[0], thada.bwd_fast_launches - n[1],
+                thada.bwd_generic_launches - n[2]) == (1, int(fast), int(not fast)), (o, i, r)
         for a, w in zip(got, want):
+            assert a.shape == w.shape and a.dtype == w.dtype
             _check(a, w, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("r", [1, 4, 16, 40, 128, 300])
+def test_cuda_hada_any_rank(cuda, dtype, r):
+    """Every rank runs on the card, through the generic variants, at an
+    SDXL path width; ranks 128 and 300 (which the fused and the split
+    backward could not hold in shared memory before each took 32 ranks at
+    a time) also through the split backward."""
+    g = torch.Generator(device=cuda).manual_seed(10 + r)
+    w1d, w1u, w2d, w2u, gr = _hada_factors(1280, 1280, r, dtype, g, cuda)
+    n = (thada.generic_launches, thada.bwd_generic_launches)
+    _check(thada.hada_weight(w1d, w1u, w2d, w2u, 0.5),
+           thada.hada_weight_plain(w1d, w1u, w2d, w2u, 0.5), dtype)
+    got = thada.hada_bwd(w1d, w1u, w2d, w2u, 0.5, gr)
+    assert (thada.generic_launches - n[0], thada.bwd_generic_launches - n[1]) == (1, 1)
+    for a, w in zip(got, thada.hada_weight_bwd_plain(w1d, w1u, w2d, w2u, 0.5, gr)):
+        _check(a, w, dtype)
+    if r >= 128:
+        got = thada.hada_bwd_split(w1d, w1u, w2d, w2u, 0.5, gr)
+        for a, w in zip(got, thada.hada_weight_bwd_split_plain(w1d, w1u, w2d, w2u, 0.5, gr)):
+            _check(a, w, dtype)
+
+
+@pytest.mark.cuda
+def test_cuda_loha_trains_at_rank_128(cuda):
+    """A rank-128 LoHa layer's gradients through HadaWeightFunction, whose
+    backward is the fused kernel (generic variant), against autograd of the
+    plain forward."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    w1d, w1u, w2d, w2u, _ = _hada_factors(1280, 1280, 128, torch.float32, g, cuda)
+    n = thada.bwd_generic_launches
+    _grads_match(lambda *a: thada.hada_weight(*a, 0.5),
+                 lambda *a: thada.hada_weight_plain(*a, 0.5), (w1d, w1u, w2d, w2u),
+                 torch.float32)
+    assert thada.bwd_generic_launches == n + 1
+
+
+@pytest.mark.cuda
+def test_cuda_hada_bwd_repeats_bit_for_bit(cuda):
+    """The fused backward's cross-block sums are added in a fixed order: a
+    second call, and one on another stream, give the same bits (fast and
+    generic variants, rank 8 and 40)."""
+    g = torch.Generator(device=cuda).manual_seed(12)
+    side = torch.cuda.Stream()
+    for (o, i, r), offset in (((1280, 1280, 8), 0), ((10240, 1280, 8), 0), ((1280, 1280, 8), 1),
+                              ((640, 2048, 40), 0)):
+        *factors, gr = _hada_factors(o, i, r, torch.float32, g, cuda, offset)
+        args = (*factors, 0.5)
+        first = thada.hada_bwd(*args, gr)
+        again = thada.hada_bwd(*args, gr)
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            other = thada.hada_bwd(*args, gr)
+        torch.cuda.current_stream().wait_stream(side)
+        for a, b, c in zip(first, again, other):
+            assert torch.equal(a, b) and torch.equal(a, c), (o, i, r, offset)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_hada_graph_replay(cuda, dtype):
+    """The fast forward and backward captured in a CUDA graph and replayed
+    equal the eager calls."""
+    g = torch.Generator(device=cuda).manual_seed(13)
+    w1d, w1u, w2d, w2u, gr = _hada_factors(1280, 1280, 8, dtype, g, cuda)
+    n = (thada.fast_launches, thada.bwd_fast_launches)
+    _graph_matches_eager(lambda: (thada.hada_fwd(w1d, w1u, w2d, w2u, 0.5),))
+    _graph_matches_eager(lambda: thada.hada_bwd(w1d, w1u, w2d, w2u, 0.5, gr))
+    assert (thada.fast_launches - n[0], thada.bwd_fast_launches - n[1]) == (3, 3)
 
 
 @pytest.mark.cuda

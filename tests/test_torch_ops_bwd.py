@@ -94,7 +94,7 @@ def test_layer_norm_bwd_plain_matches_jax_kernel(interpret_pallas, shape):
         _close(a, b, atol=2e-5, rtol=1e-5)
 
 
-@pytest.mark.parametrize("shape", [(64, 256, 8), (256, 640, 8), (128, 768, 4)])
+@pytest.mark.parametrize("shape", [(64, 256, 8), (256, 640, 8), (128, 768, 4), (16, 128, 128)])
 def test_hada_bwd_plain_matches_jax_fused1(interpret_pallas, shape):
     from lycoris_tpu.ops import hada as jhada
 
@@ -356,3 +356,43 @@ def test_hada_bwd_rows_per_block_fill_the_card():
         assert 16 <= rpb <= 256 and rpb % 16 == 0, (o, i, rpb)
     assert thada.bwd_rows_per_block(320, 320) == 16
     assert thada.bwd_rows_per_block(10240, 1280) == 256
+
+
+# (O, I) of the LoHa layers of the SD1.5 (b8) and SDXL (b4) attn-mlp paths
+HADA_PATH_SHAPES = ((320, 320), (2560, 320), (320, 1280), (320, 768), (640, 640), (5120, 640),
+                    (640, 2560), (640, 768), (640, 2048), (1280, 1280), (10240, 1280),
+                    (1280, 5120), (1280, 768), (1280, 2048))
+
+
+def test_hada_fast_variant_choice():
+    """The fast LoHa kernels take rank 8 with I a multiple of 4 and 16-byte
+    aligned tensors (every LoHa layer of the SD1.5 and SDXL paths); any
+    other rank or width, or a tensor off 16 bytes, takes the generic ones."""
+    t = [torch.empty(64, 128) for _ in range(3)]
+    for _, i in HADA_PATH_SHAPES:
+        assert thada.fast(i, 8, *t)
+    for r in (1, 4, 16, 40, 128):
+        assert not thada.fast(1280, r, *t)
+    assert not thada.fast(1282, 8, *t) and not thada.fast(130, 8, *t)
+    off = torch.empty(1025)[1:].view(8, 128)  # contiguous, 4 bytes past 16
+    assert off.is_contiguous() and not thada.fast(128, 8, t[0], off)
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+def test_hada_fast_grids(sms):
+    """The fast grids cover every row and column once. The backward's blocks
+    hold at most 1024 rows, make one wave of one block per SM where the
+    layer allows, and keep the fp32 partial sums (2R floats per row and
+    column block, 2R per column and block of rows) within a quarter of
+    fp32 g's bytes at every path shape; the forward's blocks hold at most
+    512 rows, about two blocks per SM."""
+    for o, i in HADA_PATH_SHAPES + ((100, 132), (8, 128), (40960, 1280), (7, 4)):
+        gx, gy, rpb = thada.bwd_grid(o, i, sms)
+        assert (gx - 1) * 128 < i <= gx * 128 and (gy - 1) * rpb < o <= gy * rpb, (o, i)
+        assert rpb <= 1024
+        if (o, i) in HADA_PATH_SHAPES:
+            assert gx * gy <= sms, (o, i)
+            assert (gx * o + gy * i) * 16 <= o * i / 4, (o, i)
+        fx, fy, frpb = thada.fwd_grid(o, i, sms)
+        assert fx == gx and (fy - 1) * frpb < o <= fy * frpb and frpb <= 512, (o, i)
+        assert fx * fy <= max(2 * sms, fx * -(-o // 512)), (o, i)
