@@ -22,9 +22,12 @@ ends the run with a nonzero exit code, and no phase falls back to the CPU:
    (B, T, H*D) tensor; its times fill the row, with the share of the bound
    and the ratio to SDPA) and on contiguous inputs (kernel time logged).
    The fused LoRA matmul (nt) at every adapted linear shape (M, N, K) of
-   the SD1.5 b8 and SDXL b4 LoRA training legs, bf16 and fp32, its
+   the SD1.5 b8 and SDXL b4 LoRA training legs, bf16 (the fast variant,
+   which every bf16 call must take) and fp32 (the generic one), its
    library time the merged route the path runs (W + dW merged in fp32,
-   then one bf16 matmul);
+   then one bf16 matmul); the bf16 rows are timed on rotating copies of
+   x, W and the factors with the outputs held, the library on the same
+   copies;
 3. kernels_bwd -- each backward kernel likewise at SD1.5 training (batch 8)
    and SDXL training (batch 4) shapes: flash dq/dk/dv, LayerNorm dx/dw/db
    (every path shape through the vectorised variant; the dx-only call timed
@@ -33,17 +36,22 @@ ends the run with a nonzero exit code, and no phase falls back to the CPU:
    come from HBM and not from L2),
    LoHa's four grads (fused1, and the split form, fp32, also held to the
    fused1 kernel's grads), GroupNorm dx/dgamma/dbeta, GEGLU d_hfull, the
-   fused LoRA matmul's dx (nn). Every LoHa path shape must take the fast
+   fused LoRA matmul's dx (nn; its library the merged route's dx GEMM,
+   timed as nt's). Every LoHa path shape must take the fast
    (rank-8) variant of the forward and the fused backward; their rows are
    timed as the LayerNorm backward's, on rotating copies of the factors
    and g with the outputs held, so inputs and outputs are not in L2. The
    phase ends with LoHa at rank 128 (1280, 1280) through the generic
-   forward and fused backward and the split backward, against their plain
-   versions;
+   forward and fused backward and the split backward, and both fused LoRA
+   kernels at rank 320 (4096, 1280, 1280), against their plain versions,
+   then logs the LoRA route rows: per SDXL b4 and SD1.5 b8 step, the fused
+   nt at each layer's forwards plus nn, against the merged route's merge
+   and matmul as often plus its dx GEMM;
 4. lora_fused_op -- the public differentiable op ``fused_lora_matmul`` at
    those shapes, forward and backward (bf16), against autograd of its
    plain version: the path its kernels' launches are read from (neither
-   package dispatches it on the adapter path);
+   package dispatches it on the adapter path); fails unless every launch
+   took the fast variant;
 5. lokr  -- full-width SD1.5 UNet (bf16, random seeded weights), a LoKr
    attn-mlp adapter loaded from a state dict, DDIM 20 steps with CFG for
    3 requests of 2 prompts; counts the kernel launches per UNet call and
@@ -1032,69 +1040,147 @@ class Checks:
                compare_all(dtype, (*got, dx_only), (*want, want[0])),
                f"({n},{c},{hw},{hw}) act={act}", times, per_call)
 
-    def _lora_inputs(self, m, n, k, dtype):
+    def _lora_inputs(self, m, n, k, dtype, r=LORA_RANK):
         """x (M, K) and g (M, N) in ``dtype``, scaled so that y and dx are
-        O(1); W (N, K) in ``dtype``; the rank-8 factors fp32, as the path
+        O(1); W (N, K) in ``dtype``; the rank-r factors fp32, as the path
         keeps them."""
         import torch
 
         x = self.rnd((m, k), dtype)
         g = self.rnd((m, n), dtype, min(1.0, (k / n) ** 0.5))
         w = self.rnd((n, k), dtype, k**-0.5)
-        down = self.rnd((LORA_RANK, k), torch.float32, k**-0.5)
-        up = self.rnd((n, LORA_RANK), torch.float32, 0.1)
+        down = self.rnd((r, k), torch.float32, k**-0.5)
+        up = self.rnd((n, r), torch.float32, 0.1)
         return x, g, w, down, up
 
+    def _lora_variant(self, name, nn, dtype, fn):
+        """Run ``fn`` (one launch of the nt or nn kernel) and fail unless a
+        bf16 call took the fast variant (every LoRA leg's dtypes) and an
+        fp32 one the generic variant."""
+        import torch
+        from lycoris_tpu_torch.ops import lora_fused as lf
+
+        counter = "dx_launches_fast" if nn else "launches_fast"
+        n = getattr(lf, counter)
+        out = fn()
+        if getattr(lf, counter) - n != int(dtype == torch.bfloat16):
+            fail(f"{name} {dtype}: the wrong variant took the call")
+        return out
+
+    def _lora_times(self, name, path, m, n, k, dtype, per_call, nn):
+        """Times of the nt (``nn`` False) or nn kernel at one shape, each
+        timed call on its own copy of x or g, W and the factors, the copies
+        over :data:`ROTATE_BYTES` together and the outputs held, so inputs
+        and outputs are not in L2 (the kernel, the plain version and the
+        library call alike); the wrapper's host ms on one input. nt's
+        library call is the merged route (the fp32 merge, then one matmul:
+        the plain version, timed again); nn's is the dx GEMM of the merged
+        route's autograd backward, the merge having run in its forward."""
+        import torch
+        import torch.nn.functional as F
+        from lycoris_tpu_torch.ops import lora_fused as lf
+
+        gamma = 0.5
+        es = 2 if dtype == torch.bfloat16 else 4
+        nbytes = (m * k + n * k + m * n) * es + 4 * LORA_RANK * (n + k)
+        copies = [self._lora_inputs(m, n, k, dtype)
+                  for _ in range(max(2, math.ceil(ROTATE_BYTES / nbytes)))]
+        it = max(iters_for(nbytes), len(copies))
+        bnd = bound(2.0 * m * n * k + 2.0 * n * k * LORA_RANK, nbytes, str(dtype)[6:])
+        if nn:
+            def call(x, g, w, d, u):
+                return lf.lora_fused_nn(g, w, d, u, gamma)
+
+            def plain_fn(x, g, w, d, u):
+                return lf.fused_lora_dx_plain(g, w, d, u, gamma)
+
+            def lib(it):
+                s = timing_stream()
+                s.wait_stream(torch.cuda.current_stream())
+                cases = []
+                with torch.cuda.stream(s):
+                    for x, g, w, d, u in copies:
+                        xl = x.detach().requires_grad_(True)
+                        weff = lf.effective_weight_plain(w, d, u, gamma, dtype)
+                        cases.append((F.linear(xl, weff), xl, g))
+                return graph_ms(rotating(lambda out, xl, g: torch.autograd.grad(
+                    out, xl, g, retain_graph=True), cases, hold=True), it)
+        else:
+            def call(x, g, w, d, u):
+                return lf.lora_fused_nt(x, w, d, u, gamma)
+
+            def plain_fn(x, g, w, d, u):
+                return lf.fused_lora_matmul_plain(x, w, d, u, gamma)
+
+            def lib(it):
+                return graph_ms(rotating(plain_fn, copies, hold=True), it)
+        times = _times(rotating(call, copies, hold=True), rotating(plain_fn, copies, hold=True),
+                       it, bnd, lib, host=lambda: call(*copies[0]))
+        ms, hms, pms, lms, (b, by) = times
+        share = (f"{b / ms:.1%} of its bound" if ms >= b else
+                 "UNDER its bound: the timing did not reach HBM")
+        log(f"[kernels] {name} {path} ({m},{n},{k}) fast variant, {len(copies)} rotating copies: "
+            f"kernel {ms:.4f} ms, {share} {b:.4f} ms ({by}); {ms / lms:.2f}x the library "
+            f"{lms:.4f} ms; plain {pms:.4f} ms; the wrapper's host-clocked {hms:.4f} ms")
+        self.results[name].setdefault("shapes", []).append(
+            {"path": path, "shape": [m, n, k], "ms": ms, "host_ms": hms, "plain_ms": pms,
+             "library_ms": lms, "bound_ms": b, "per": per_call})
+        del copies
+        return times
+
     def lora_fused_nt(self, path, m, n, k, dtype, per_call, timed):
+        """The forward kernel against its plain version; the bf16 call
+        (the path's dtypes) takes the fast variant and is timed."""
         import torch
         from lycoris_tpu_torch.ops import lora_fused as lf
 
         x, _, w, down, up = self._lora_inputs(m, n, k, dtype)
         gamma = 0.5
-        y = lf.lora_fused_nt(x, w, down, up, gamma)
+        y = self._lora_variant("lora_fused_nt", False, dtype,
+                               lambda: lf.lora_fused_nt(x, w, down, up, gamma))
         y_ref = lf.fused_lora_matmul_plain(x, w, down, up, gamma)
         torch.cuda.synchronize()
-        times = None
-        if timed:
-            es = x.element_size()
-            nbytes = (m * k + n * k + m * n) * es + 4 * LORA_RANK * (n + k)
-            # the plain version is the merged route the path runs (the fp32
-            # merge, then one matmul): it is timed again as the library call
-            plain = lambda: lf.fused_lora_matmul_plain(x, w, down, up, gamma)  # noqa: E731
-            times = _times(lambda: lf.lora_fused_nt(x, w, down, up, gamma), plain,
-                           iters_for(nbytes),
-                           bound(2.0 * m * n * k + 2.0 * n * k * LORA_RANK, nbytes,
-                                 str(dtype)[6:]),
-                           lambda it: graph_ms(plain, it))
-        record(self.results, "lora_fused_nt", path, compare(dtype, y, y_ref), f"({m},{n},{k})",
-               times, per_call)
+        stats = compare(dtype, y, y_ref)
+        del y, y_ref
+        times = (self._lora_times("lora_fused_nt", path, m, n, k, dtype, per_call, False)
+                 if timed else None)
+        record(self.results, "lora_fused_nt", path, stats, f"({m},{n},{k})", times, per_call)
 
     def lora_fused_nn(self, path, m, n, k, dtype, per_call, timed):
+        """The input-gradient kernel likewise."""
         import torch
-        import torch.nn.functional as F
         from lycoris_tpu_torch.ops import lora_fused as lf
 
-        x, g, w, down, up = self._lora_inputs(m, n, k, dtype)
+        _, g, w, down, up = self._lora_inputs(m, n, k, dtype)
         gamma = 0.5
-        dx = lf.lora_fused_nn(g, w, down, up, gamma)
+        dx = self._lora_variant("lora_fused_nn", True, dtype,
+                                lambda: lf.lora_fused_nn(g, w, down, up, gamma))
         dx_ref = lf.fused_lora_dx_plain(g, w, down, up, gamma)
         torch.cuda.synchronize()
-        times = None
-        if timed:
-            es = x.element_size()
-            nbytes = (m * n + n * k + m * k) * es + 4 * LORA_RANK * (n + k)
-            # library: the autograd backward (dx) of the merged route, whose
-            # merge runs in its forward
-            times = _times(lambda: lf.lora_fused_nn(g, w, down, up, gamma),
-                           lambda: lf.fused_lora_dx_plain(g, w, down, up, gamma),
-                           iters_for(nbytes),
-                           bound(2.0 * m * n * k + 2.0 * n * k * LORA_RANK, nbytes,
-                                 str(dtype)[6:]),
-                           lambda it: _library_bwd_ms(
-                               lambda xl: F.linear(xl, lf.effective_weight_plain(
-                                   w, down, up, gamma, xl.dtype)), (x,), g, it))
-        record(self.results, "lora_fused_nn", path, compare(dtype, dx, dx_ref), f"({m},{n},{k})",
-               times, per_call)
+        stats = compare(dtype, dx, dx_ref)
+        del dx, dx_ref
+        times = (self._lora_times("lora_fused_nn", path, m, n, k, dtype, per_call, True)
+                 if timed else None)
+        record(self.results, "lora_fused_nn", path, stats, f"({m},{n},{k})", times, per_call)
+
+    def lora_any_rank(self, m, n, k, r):
+        """Rank ``r`` through both kernels (bf16, the fast variant's chunk
+        loop) against their plain versions."""
+        import torch
+        from lycoris_tpu_torch.ops import lora_fused as lf
+
+        x, g, w, down, up = self._lora_inputs(m, n, k, torch.bfloat16, r)
+        y = self._lora_variant("lora_fused_nt", False, torch.bfloat16,
+                               lambda: lf.lora_fused_nt(x, w, down, up, 0.5))
+        dx = self._lora_variant("lora_fused_nn", True, torch.bfloat16,
+                                lambda: lf.lora_fused_nn(g, w, down, up, 0.5))
+        torch.cuda.synchronize()
+        record(self.results, "lora_fused_nt", "sdxl", compare(
+            torch.bfloat16, y, lf.fused_lora_matmul_plain(x, w, down, up, 0.5)),
+            f"({m},{n},{k}) R{r} fast")
+        record(self.results, "lora_fused_nn", "sdxl", compare(
+            torch.bfloat16, dx, lf.fused_lora_dx_plain(g, w, down, up, 0.5)),
+            f"({m},{n},{k}) R{r} fast")
 
     def hada_bwd_split(self, path, o_, i_, dtype, per_call, timed):
         import torch
@@ -1218,6 +1304,31 @@ def phase_kernels_bwd(results: dict):
     # LoHa at rank 128: the rank JAX's hada_weight gate takes and the shared
     # memory of the old fused backward could not hold
     ck.hada_any_rank(1280, 1280, 128)
+    # the fused LoRA matmul at rank 320, which its old shared memory refused
+    ck.lora_any_rank(4096, 1280, 1280, 320)
+    lora_route(results)
+
+
+def lora_route(results: dict):
+    """The fused route against the merged one, per SDXL b4 and SD1.5 b8
+    step, from the rotating-copy rows: the fused nt at each LoRA layer's
+    forwards (twice a step under SDXL's checkpointing) plus the nn kernel
+    once, against the merged route's merge + ``F.linear`` as often plus
+    its dx GEMM. Logged and kept under the nn row's "route_rows" (its
+    "route" names the kernel's language, as every row's does)."""
+    route = {}
+    for path in ("sdxl", "sd15"):
+        fused = merged = 0.0
+        for name in ("lora_fused_nt", "lora_fused_nn"):
+            for sh in results[name].get("shapes", []):
+                if sh["path"] == path:
+                    fused += sh["ms"] * sh["per"]
+                    merged += sh["library_ms"] * sh["per"]
+        route[path] = {"fused_ms": fused, "merged_ms": merged}
+        step = "SDXL b4" if path == "sdxl" else "SD1.5 b8"
+        log(f"[kernels] LoRA route per {step} step (rotating copies): fused nt + nn {fused:.3f} "
+            f"ms against the merged route {merged:.3f} ms ({fused / merged:.2f}x)")
+    results["lora_fused_nn"]["route_rows"] = route
 
 
 def phase_lora_fused_op(results: dict):
@@ -1238,7 +1349,7 @@ def phase_lora_fused_op(results: dict):
             cases.append((path, (m, n, k), w, g, [x, down, up]))
     outs = []
     torch.cuda.synchronize()
-    lf.launches = lf.dx_launches = 0
+    lf.launches = lf.dx_launches = lf.launches_fast = lf.dx_launches_fast = 0
     for _, _, w, g, inputs in cases:
         leaves = [t.detach().clone().requires_grad_(True) for t in inputs]
         y = lf.fused_lora_matmul(leaves[0], w, leaves[1], leaves[2], 0.5)
@@ -1247,8 +1358,13 @@ def phase_lora_fused_op(results: dict):
     launches = {"lora_fused_nt": lf.launches, "lora_fused_nn": lf.dx_launches}
     if launches != {"lora_fused_nt": len(cases), "lora_fused_nn": len(cases)}:
         fail(f"[lora_fused_op] launches {launches}, want {len(cases)} of each")
+    fast = {"lora_fused_nt": lf.launches_fast, "lora_fused_nn": lf.dx_launches_fast}
+    if fast != launches:
+        fail(f"[lora_fused_op] fast-variant launches {fast} of {launches}: every bf16 launch "
+             f"must take the fast variant")
     for name, n in launches.items():
         results[name]["launches"] = n
+        results[name]["variants"] = {"fast": fast[name], "generic": n - fast[name]}
     worst = 0.0
     for (path, shape, w, g, inputs), got in zip(cases, outs):
         leaves = [t.detach().clone().requires_grad_(True) for t in inputs]
@@ -1265,7 +1381,7 @@ def phase_lora_fused_op(results: dict):
             fail(f"[lora_fused_op] {path} {shape}: y or a gradient over its bf16 bound "
                  f"(rel L2 {rel:.3e})")
     log(f"[lora_fused_op] fused_lora_matmul forward + backward at {len(cases)} shapes: "
-        f"launches {launches}; worst rel L2 of y, dx, d_down, d_up against autograd of the "
+        f"launches {launches}, all fast; worst rel L2 of y, dx, d_down, d_up against autograd of the "
         f"plain version {worst:.3e} (bound 1e-2)")
 
 
@@ -1412,6 +1528,7 @@ def reset_counts():
     flash.bwd_launches = layer_norm.bwd_launches = hada.bwd_launches = 0
     group_norm.bwd_launches = geglu.bwd_launches = group_norm.copies = flash.pad_copies = 0
     lora_fused.launches = lora_fused.dx_launches = hada.split_launches = 0
+    lora_fused.launches_fast = lora_fused.dx_launches_fast = 0
     layer_norm.bwd_vec_launches = layer_norm.bwd_generic_launches = 0
     hada.fast_launches = hada.generic_launches = 0
     hada.bwd_fast_launches = hada.bwd_generic_launches = 0
@@ -2021,7 +2138,7 @@ def main() -> int:
     table = []
     for name, meta in KERNELS.items():
         r = results[name]
-        extra = {k: r[k] for k in ("variants", "shapes", "with_dw_db") if k in r}
+        extra = {k: r[k] for k in ("variants", "shapes", "with_dw_db", "route_rows") if k in r}
         table.append({"name": name, "route": meta["route"], "source": meta["source"],
                       "replaces": meta["replaces"], "path": meta["path"],
                       "per": meta.get("per", PER_SDXL_STEP), "launches": r["launches"],

@@ -1,6 +1,7 @@
-// Hopper building blocks shared by the flash kernels: mbarriers, TMA tile
-// loads, wgmma shared-memory descriptors and fences, and the host-side
-// encoding of the tensor maps.
+// Hopper building blocks shared by the flash and fused LoRA kernels:
+// mbarriers, TMA tile loads and stores, ldmatrix/stmatrix, wgmma
+// shared-memory descriptors and fences, and the host-side encoding of the
+// tensor maps.
 //
 // Tile layout. Every bf16 tile a flash kernel stages is R rows (tokens) by
 // DP head-dim columns, loaded by one TMA box of a 5-D tensor map
@@ -75,7 +76,88 @@ __device__ __forceinline__ void tma_tile(void* dst, const CUtensorMap* map, uint
       : "memory");
 }
 
+// A box of a 2-D tensor map (see make_map_2d) at element column ``col``,
+// row ``row`` into shared memory; completion reported to ``bar``.
+__device__ __forceinline__ void tma_2d(void* dst, const CUtensorMap* map, uint64_t* bar, int col,
+                                       int row) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(col), "r"(row)
+      : "memory");
+}
+
+// A box from shared memory to the tensor at (col, row); the part outside
+// the tensor is not written. Tracked by the issuing thread's bulk groups.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int col,
+                                             int row) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_addr(src)), "r"(col), "r"(row)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Wait until the issuing thread's bulk stores have read their shared memory.
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// Order this thread's ordinary shared-memory writes before later reads by
+// the async proxy (TMA, wgmma).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Barrier ``id`` (1..15) over ``count`` threads, a multiple of 32.
+__device__ __forceinline__ void named_bar(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// Four 8x8 bf16 matrices from shared memory, each lane giving one row
+// address (lanes 8i..8i+7 the rows of matrix i), in the mma fragment
+// layout; ``trans`` delivers each matrix transposed.
+template <bool TRANS>
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  if constexpr (TRANS)
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(addr));
+  else
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(addr));
+}
+
+// The inverse of ldsm_x4: four 8x8 fragments to shared memory, the lanes
+// giving the row addresses as there; ``trans`` stores each transposed.
+template <bool TRANS>
+__device__ __forceinline__ void stsm_x4(uint32_t addr, uint32_t r0, uint32_t r1, uint32_t r2,
+                                        uint32_t r3) {
+  if constexpr (TRANS)
+    asm volatile("stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                     addr),
+                 "r"(r0), "r"(r1), "r"(r2), "r"(r3)
+                 : "memory");
+  else
+    asm volatile("stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
+                 "r"(r0), "r"(r1), "r"(r2), "r"(r3)
+                 : "memory");
+}
+
 // --- wgmma ---------------------------------------------------------------
+
+// Descriptor of a K-major operand tile loaded with 128-byte swizzle (rows of
+// 64 bf16, 1024-byte aligned, 8-row groups 1024 bytes apart); a step of 16
+// along K adds 32 bytes to ``addr``.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) |
+         (1ull << 62);
+}
 
 // Descriptor of a no-swizzle operand: start address, LBO (the stride
 // between core matrices along the contraction) and SBO (along M or N), in
@@ -182,6 +264,27 @@ inline bool make_map(CUtensorMap* map, const void* base, int B, int H, int T, in
   return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<void*>(base), dims, strides, box,
              elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
              CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The tensor map of a row-major bf16 (rows, cols) matrix read or written in
+// boxes of ``box_rows`` rows by 64 columns (128 bytes) with 128-byte swizzle:
+// shared memory holds the box as rows of 128 bytes whose 16-byte chunks are
+// XOR-ed with the row index mod 8, the layout wgmma's swizzled descriptors
+// and conflict-free ldmatrix/stmatrix read and write. The caller guarantees
+// a 16-byte aligned base and cols % 8 == 0. Elements past the edges load as
+// zeros and are not stored.
+inline bool make_map_2d(CUtensorMap* map, const void* base, long long rows, long long cols,
+                        int box_rows) {
+  PFN_cuTensorMapEncodeTiled_v12000 enc = encode_fn();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols * 2)};
+  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem[2] = {1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides, box,
+             elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

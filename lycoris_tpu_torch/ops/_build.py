@@ -43,6 +43,7 @@ _SIGNATURES = {
     "lyc_geglu_bwd": [_P] * 3 + [_I] * 4 + [_P],
     "lyc_lora_fused_nt": [_P] * 5 + [_I] * 4 + [_F, _I, _I, _P],
     "lyc_lora_fused_nn": [_P] * 5 + [_I] * 4 + [_F, _I, _I, _P],
+    "lyc_lora_fused_fast": [_P] * 6 + [_I] * 4 + [_F] + [_I] * 4 + [_P],
     "lyc_hada_bwd_split": [_P] * 9 + [_I, _I, _I, _F, _I, _P],
 }
 

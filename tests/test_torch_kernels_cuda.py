@@ -340,32 +340,102 @@ def test_cuda_hada_bwd_split_kernel(cuda, dtype, monkeypatch):
         _check(leaf.grad, w, dtype)
 
 
-# (M, N, K): attn2 k/v at SD1.5 b8 and SDXL b4 (ragged M = batch * 77), the
-# SD1.5 320-level ff net_0 and the SDXL 1280-level ff net_2, and a shape
-# ragged in every dimension
-LORA_SHAPES = ((616, 320, 768), (308, 1280, 2048), (32768, 2560, 320), (4096, 1280, 5120),
-               (37, 130, 200))
+# (M, N, K): the LoRA linear shapes of the paths that the fast variant must
+# take (SDXL b4: attn q/k/v/out at 1280 and 640, ff net_0 and net_2 at
+# 1280, attn2 k/v with ragged M = batch * 77; SD1.5 b8: ff net_0 at 320,
+# attn2 k/v), a net_2 at 320, and two shapes ragged in every dimension (N
+# and K multiples of 8 for the fast variant, N = 130 only for the generic)
+LORA_SHAPES = ((4096, 1280, 1280), (16384, 640, 640), (4096, 10240, 1280), (4096, 1280, 5120),
+               (308, 1280, 2048), (32768, 2560, 320), (616, 320, 768), (32768, 320, 1280),
+               (37, 136, 200), (37, 130, 200))
+
+
+def _lora_inputs(m, n, k, r, dtype, w_dtype, g):
+    """x (M, K), W (N, K), down (R, K), up (N, R) and a cotangent (M, N),
+    scaled so that y and dx are O(1)."""
+    dev = g.device
+    x = torch.randn(m, k, device=dev, generator=g).to(dtype)
+    w = (torch.randn(n, k, device=dev, generator=g) * k**-0.5).to(w_dtype)
+    down = torch.randn(r, k, device=dev, generator=g) * k**-0.5
+    up = torch.randn(n, r, device=dev, generator=g) * 0.1
+    gy = (torch.randn(m, n, device=dev, generator=g) * min(1.0, (k / n) ** 0.5)).to(dtype)
+    return x, w, down, up, gy
+
+
+def _lora_both(x, w, down, up, gy, fast):
+    """nt and nn once each; both must take the ``fast`` variant or not."""
+    c = (tlf.launches, tlf.dx_launches, tlf.launches_fast, tlf.dx_launches_fast)
+    y = tlf.lora_fused_nt(x, w, down, up, 0.5)
+    dx = tlf.lora_fused_nn(gy, w, down, up, 0.5)
+    f = int(fast)
+    assert (tlf.launches, tlf.dx_launches, tlf.launches_fast, tlf.dx_launches_fast) == (
+        c[0] + 1, c[1] + 1, c[2] + f, c[3] + f)
+    return y, dx
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("w_dtype", ["same", "float32"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_lora_fused_kernels(cuda, dtype, w_dtype):
+    """Both kernels at every path shape and the ragged ones against their
+    plain versions, rank 8; bf16 x with a bf16 W takes the fast variant at
+    every shape whose N and K are multiples of 8, every other pair the
+    generic one."""
     g = torch.Generator(device=cuda).manual_seed(7)
+    wdt = dtype if w_dtype == "same" else torch.float32
     for m, n, k in LORA_SHAPES:
-        x = torch.randn(m, k, device=cuda, generator=g).to(dtype)
-        w = (torch.randn(n, k, device=cuda, generator=g) * k**-0.5).to(
-            dtype if w_dtype == "same" else torch.float32)
-        down = torch.randn(8, k, device=cuda, generator=g) * k**-0.5
-        up = torch.randn(n, 8, device=cuda, generator=g) * 0.1
-        gy = torch.randn(m, n, device=cuda, generator=g).to(dtype)
-        n0, d0 = tlf.launches, tlf.dx_launches
-        y = tlf.lora_fused_nt(x, w, down, up, 0.5)
-        dx = tlf.lora_fused_nn(gy, w, down, up, 0.5)
-        assert (tlf.launches, tlf.dx_launches) == (n0 + 1, d0 + 1)
+        x, w, down, up, gy = _lora_inputs(m, n, k, 8, dtype, wdt, g)
+        fast = dtype == wdt == torch.bfloat16 and n % 8 == 0 and k % 8 == 0
+        assert tlf.variant(x, w) == ("fast" if fast else "generic")
+        y, dx = _lora_both(x, w, down, up, gy, fast)
         assert y.shape == (m, n) and dx.shape == (m, k) and y.dtype == dx.dtype == dtype
         _check(y, tlf.fused_lora_matmul_plain(x, w, down, up, 0.5), dtype)
         _check(dx, tlf.fused_lora_dx_plain(gy, w, down, up, 0.5), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["fast", "generic"])
+@pytest.mark.parametrize("r", [1, 8, 16, 128, 320])
+def test_cuda_lora_fused_any_rank(cuda, variant, r):
+    """Every rank runs on both variants (fast: bf16; generic: fp32) and
+    matches the plain versions: the factors are taken a chunk of ranks at a
+    time in a fixed shared memory (rank 320 was refused before), at an SDXL
+    width and at the ragged attn2 k/v shape."""
+    g = torch.Generator(device=cuda).manual_seed(20 + r)
+    dtype = torch.bfloat16 if variant == "fast" else torch.float32
+    for m, n, k in ((1024, 1280, 1280), (308, 1280, 2048)):
+        x, w, down, up, gy = _lora_inputs(m, n, k, r, dtype, dtype, g)
+        y, dx = _lora_both(x, w, down, up, gy, variant == "fast")
+        _check(y, tlf.fused_lora_matmul_plain(x, w, down, up, 0.5), dtype)
+        _check(dx, tlf.fused_lora_dx_plain(gy, w, down, up, 0.5), dtype)
+
+
+@pytest.mark.cuda
+def test_cuda_lora_fused_repeats_bit_for_bit(cuda):
+    """The fast variant gives the same bits 50 times over, at the small-M
+    shapes (the contraction cut into slices whose partial sums are added in
+    a fixed order) and the wide ones (W_eff built in registers while the
+    previous stage's wgmma run)."""
+    g = torch.Generator(device=cuda).manual_seed(30)
+    for m, n, k in ((308, 1280, 2048), (616, 320, 768), (4096, 10240, 1280), (32768, 2560, 320)):
+        x, w, down, up, gy = _lora_inputs(m, n, k, 8, torch.bfloat16, torch.bfloat16, g)
+        y0, dx0 = _lora_both(x, w, down, up, gy, True)
+        for _ in range(50):
+            y, dx = _lora_both(x, w, down, up, gy, True)
+            assert torch.equal(y, y0) and torch.equal(dx, dx0), (m, n, k)
+
+
+@pytest.mark.cuda
+def test_cuda_lora_fused_graph_replay(cuda):
+    """Both fast kernels captured in a CUDA graph and replayed equal the
+    eager calls, with and without the sliced contraction."""
+    g = torch.Generator(device=cuda).manual_seed(31)
+    for m, n, k in ((4096, 1280, 1280), (308, 1280, 2048)):
+        x, w, down, up, gy = _lora_inputs(m, n, k, 8, torch.bfloat16, torch.bfloat16, g)
+        n0 = (tlf.launches_fast, tlf.dx_launches_fast)
+        _graph_matches_eager(lambda: (tlf.lora_fused_nt(x, w, down, up, 0.5),
+                                      tlf.lora_fused_nn(gy, w, down, up, 0.5)))
+        assert (tlf.launches_fast - n0[0], tlf.dx_launches_fast - n0[1]) == (3, 3)
 
 
 # (N, C, H, W, groups): SDXL's 320- and 960-channel levels (cg = 10, 30),

@@ -135,9 +135,10 @@ def test_hada_bwd_split_plain_matches_jax_split(interpret_pallas, monkeypatch, s
 
 
 # the shapes of the JAX package's own test (tests/test_ops.py): K = 4096 and
-# N = 2560 tile the contraction of the nt and the nn kernel in two steps
+# N = 2560 tile the contraction of the nt and the nn kernel in two steps;
+# and rank 320, which the card's kernels take a chunk of ranks at a time
 @pytest.mark.parametrize("shape", [(64, 256, 384, 8), (32, 128, 512, 4), (16, 128, 4096, 8),
-                                   (16, 2560, 256, 8)])
+                                   (16, 2560, 256, 8), (16, 128, 256, 320)])
 def test_fused_lora_matmul_matches_jax(interpret_pallas, shape):
     """The port's op (plain versions on the CPU) against the JAX custom_vjp
     (Pallas interpret mode): y and the gradients of x, down and up.
@@ -171,6 +172,63 @@ def test_fused_lora_supported_keeps_the_jax_minimums():
         assert tlf.supported(xs, ws) == (np.prod(xs[:-1]) >= 8 and ws[0] >= 128 and ws[1] >= 128)
     # where the TPU tiles divide, the two gates agree
     assert tlf.supported((64, 384), (256, 384)) and jlf.supported((64, 384), (256, 384))
+
+
+def test_fused_lora_variant_choice():
+    """The wrapper's choice of kernel variant, made in Python: the fast one
+    for bf16 activations with a bf16 W whose N and K are multiples of 8 and
+    whose data is 16-byte aligned (read by TMA), the generic one otherwise."""
+    bf = torch.bfloat16
+
+    def case(m, n, k, adt, wdt, offset=0):
+        x = torch.zeros(m * k + offset, dtype=adt)[offset:].view(m, k)
+        return tlf.variant(x, torch.zeros(n, k, dtype=wdt))
+
+    assert case(308, 1280, 2048, bf, bf) == "fast"
+    assert case(37, 136, 200, bf, bf) == "fast"
+    assert case(37, 130, 200, bf, bf) == "generic"  # N % 8
+    assert case(37, 136, 196, bf, bf) == "generic"  # K % 8
+    assert case(64, 128, 256, bf, bf, offset=1) == "generic"  # x 2 bytes off 16
+    assert case(64, 128, 256, torch.float32, torch.float32) == "generic"
+    assert case(64, 128, 256, bf, torch.float32) == "generic"
+    assert case(64, 128, 256, torch.float32, bf) == "generic"
+
+
+# (M, N, K) of the LoRA linear layers of the SDXL b4 and SD1.5 b8 legs
+# (chip_smoke.path_shapes), and a ragged one
+LORA_PATH_SHAPES = ((16384, 640, 640), (308, 640, 2048), (16384, 5120, 640), (16384, 640, 2560),
+                    (4096, 1280, 1280), (308, 1280, 2048), (4096, 10240, 1280),
+                    (4096, 1280, 5120), (32768, 320, 320), (616, 320, 768), (32768, 2560, 320),
+                    (32768, 320, 1280), (8192, 640, 640), (616, 640, 768), (8192, 5120, 640),
+                    (8192, 640, 2560), (2048, 1280, 1280), (616, 1280, 768),
+                    (2048, 10240, 1280), (2048, 1280, 5120), (512, 1280, 1280),
+                    (512, 10240, 1280), (512, 1280, 5120), (37, 136, 200))
+
+
+def test_fused_lora_fast_plan():
+    """The fast kernel's tile height, grid and contraction slices, both
+    directions of every path shape on a 132-SM card: 128 or 256 rows, at
+    most one block an SM, no empty slice, each slice at least the minimum
+    depth; the attn2 k/v layers (M = batch x 77), whose output tiles leave
+    most SMs idle, are sliced, and every layer whose tiles fill the card is
+    not."""
+    sms, bp, bc = 132, tlf._FAST_BP, tlf._FAST_BC
+    for m, n, k in LORA_PATH_SHAPES:
+        for p, c in ((n, k), (k, n)):  # nt, nn
+            bm, splits, grid = tlf.fast_plan(m, p, c, sms)
+            tiles = -(-m // bm) * -(-p // bp)
+            steps = -(-c // bc)
+            cps = -(-steps // splits)
+            assert bm in (128, 256) and 1 <= splits <= tlf._MAX_SPLITS
+            assert grid == min(tiles * splits, sms)
+            assert (splits - 1) * cps < steps  # the last slice is not empty
+            assert splits == 1 or cps >= tlf._MIN_SLICE
+            if tiles >= sms:
+                assert splits == 1
+            if tiles * 2 <= sms and steps >= 2 * tlf._MIN_SLICE:
+                assert splits > 1, (m, p, c)
+    assert tlf.fast_plan(308, 1280, 2048, sms) == (128, 4, 120)
+    assert tlf.fast_plan(4096, 1280, 1280, sms) == (256, 1, 132)
 
 
 # ---------------------------------------------------------------------------
