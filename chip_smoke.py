@@ -35,7 +35,12 @@ ends the run with a nonzero exit code, and no phase falls back to the CPU:
    timed call on its own copy of x and dy, in turn, so that the inputs
    come from HBM and not from L2),
    LoHa's four grads (fused1, and the split form, fp32, also held to the
-   fused1 kernel's grads), GroupNorm dx/dgamma/dbeta, GEGLU d_hfull, the
+   fused1 kernel's grads), GroupNorm dx/dgamma/dbeta (fast and generic
+   variants; every path shape on the fast one, and the dx-only call of
+   each, the path's, timed on rotating copies of x and dh as the LayerNorm
+   backward, beside the generic variant and the library call on the same
+   copies; the forward likewise in phase 2, also at the SD1.5 b8 train
+   shapes), GEGLU d_hfull, the
    fused LoRA matmul's dx (nn; its library the merged route's dx GEMM,
    timed as nt's). Every LoHa path shape must take the fast
    (rank-8) variant of the forward and the fused backward; their rows are
@@ -90,8 +95,10 @@ ends the run with a nonzero exit code, and no phase falls back to the CPU:
 Every serving and training leg fails if a flash input took the padded
 copy (``flash.pad_copies``): the UNets' layouts are read by TMA in place.
 Every training leg fails unless each LayerNorm backward took the
-vectorised variant, and every LoHa leg (serving and training) unless each
-LoHa forward and fused backward took the fast variant.
+vectorised variant, every LoHa leg (serving and training) unless each
+LoHa forward and fused backward took the fast variant, and every serving
+and training leg unless each GroupNorm forward and backward took the fast
+variant.
 
 The line before the last is the kernel table as JSON. Each kernel names the
 path its launches are read from (``path``): SDXL training (the first SDXL
@@ -102,8 +109,10 @@ train step (kernel, plain, library, bound; each shape's time weighted by
 its launches, or for the fused LoRA matmul and the split LoHa backward,
 which no SDXL step dispatches, its layers per step: ``per`` says which), with the
 SD1.5 sums (per serving UNet call for the forward kernels, per batch-8 train
-step for the backward ones and the fused LoRA matmul) under "sd15". The
-last line is ``{"ok": true, "device": {...}}``.
+step for the backward ones and the fused LoRA matmul) under "sd15"; the
+GroupNorm rows add the generic variant's sums (``generic_ms``), per-shape
+``shapes`` and ``variants``, and the forward the SD1.5 b8 step's sums
+(``sd15_b8``). The last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -752,14 +761,17 @@ class Checks:
         return [self._hada_factors(o_, i_, 8, dtype)
                 for _ in range(max(2, math.ceil(ROTATE_BYTES / nbytes)))]
 
-    def _hada_variant(self, name, counter, fn):
+    def _fast_variant(self, name, ops, counter, fn):
         """Run ``fn`` and fail unless it launched the fast variant (counted
-        in ``ops.hada.<counter>``): every LoHa layer of the paths is rank 8."""
-        from lycoris_tpu_torch.ops import hada
+        in ``ops.<counter>``, ``ops`` a module of ``lycoris_tpu_torch.ops``):
+        every LoHa layer of the paths is rank 8, every GroupNorm shape holds
+        whole 16-byte rows."""
+        import importlib
 
-        n = getattr(hada, counter)
+        mod = importlib.import_module(f"lycoris_tpu_torch.ops.{ops}")
+        n = getattr(mod, counter)
         out = fn()
-        if getattr(hada, counter) != n + 1:
+        if getattr(mod, counter) != n + 1:
             fail(f"{name}: a path shape took the generic variant")
         return out
 
@@ -783,7 +795,7 @@ class Checks:
         from lycoris_tpu_torch.ops import hada
 
         w1d, w1u, w2d, w2u, _ = self._hada_factors(o_, i_, 8, dtype)
-        out = self._hada_variant("hada_fwd", "fast_launches",
+        out = self._fast_variant("hada_fwd", "hada", "fast_launches",
                                  lambda: hada.hada_weight(w1d, w1u, w2d, w2u, 0.5))
         ref = hada.hada_weight_plain(w1d, w1u, w2d, w2u, 0.5)
         torch.cuda.synchronize()
@@ -802,34 +814,83 @@ class Checks:
         record(self.results, "hada_fwd", path, compare(dtype, out, ref), f"({o_},{i_})", times,
                per_call)
 
+    def _gn_inputs(self, n, c, s, dtype, bwd):
+        """x (N, C, H, W) and gamma, beta, and with ``bwd`` a cotangent dh."""
+        hw = math.isqrt(s)
+        x = self.rnd((n, c, hw, hw), dtype, 2.0) + 0.5
+        w = self.rnd((c,), dtype, 0.5) + 1.0
+        b = self.rnd((c,), dtype, 0.5)
+        return x, w, b, (self.rnd((n, c, hw, hw), dtype) if bwd else None)
+
+    def _gn_row(self, name, path, shape, act, dtype, direction, times, generic_ms, per):
+        """Log a GroupNorm timing (fast variant, generic variant, plain,
+        library, bound) and keep the shape's row, with the fast plan's
+        cluster size, re-read and the clusters the card holds at once."""
+        from lycoris_tpu_torch.ops import group_norm as gn
+
+        ms, host, plain, lib, (bnd, by) = times
+        n, c, s = shape
+        pl = gn.plan(n, c, s, 32, dtype, direction)
+        clusters = gn.fast_clusters(pl, direction, dtype, act)
+        share = (f"{bnd / ms:.1%} of its bound" if ms >= bnd else
+                 "UNDER its HBM bound: the timing did not reach HBM")
+        log(f"[kernels] {name} {path} ({n},{c},{s}) act={act} fast variant (k {pl.k}, "
+            f"re-read {pl.reread} vectors, {clusters} clusters at once), rotating copies: "
+            f"kernel {ms:.4f} ms, {share} {bnd:.4f} ms ({by}); generic variant "
+            f"{generic_ms:.4f} ms ({generic_ms / ms:.2f}x); library {lib:.4f} ms; plain "
+            f"{plain:.4f} ms; the wrapper's host-clocked {host:.4f} ms")
+        self.results[name].setdefault("shapes", []).append(
+            {"path": path, "shape": [n, c, s], "act": act, "ms": ms, "generic_ms": generic_ms,
+             "host_ms": host, "plain_ms": plain, "library_ms": lib, "bound_ms": bnd,
+             "per": per, "k": pl.k, "reread": pl.reread, "clusters": clusters})
+
     def group_norm_fwd(self, path, n, c, s, act, dtype, per_call, timed):
+        """The forward, fast variant (and the generic one), against the plain
+        version. Timed on rotating copies of x over :data:`ROTATE_BYTES` with
+        the outputs held, so each call reads x from HBM, as on the path: the
+        fast and generic variants, the plain version and the library call
+        (``F.group_norm`` + ``F.silu``) on the same copies. ``path``
+        "sd15_b8" (the SD1.5 train step's forwards) is logged and kept per
+        shape only, apart from the serving sums of "sd15"."""
         import torch
         import torch.nn.functional as F
         from lycoris_tpu_torch.ops import group_norm as gn
 
-        hw = math.isqrt(s)
         eps = 1e-5 if act else 1e-6
-        x = self.rnd((n, c, hw, hw), dtype, 2.0) + 0.5
-        w = self.rnd((c,), dtype, 0.5) + 1.0
-        b = self.rnd((c,), dtype, 0.5)
-        y, _, _ = gn.group_norm_fwd(x, 32, w, b, eps, act)
+        x, w, b, _ = self._gn_inputs(n, c, s, dtype, False)
+        y, _, _ = self._fast_variant("group_norm_fwd", "group_norm", "fast_launches",
+                                     lambda: gn.group_norm_fwd(x, 32, w, b, eps, act))
         y_ref = gn.group_norm_plain(x, 32, w, b, eps, act)
+        y_gen = gn.fwd_generic(x, 32, w, b, eps, act)[0]
         torch.cuda.synchronize()
         times = None
         if timed:
             e, es = x.numel(), x.element_size()
             nbytes = 2 * e * es + 2 * c * es
+            copies = [(x.clone(),) for _ in range(max(2, math.ceil(ROTATE_BYTES / (e * es))))]
+            it = max(iters_for(nbytes), len(copies))
 
-            def lib_fwd():
-                z = F.group_norm(x, 32, w, b, eps)
+            def lib_fwd(xc):
+                z = F.group_norm(xc, 32, w, b, eps)
                 return F.silu(z) if act else z
 
-            times = _times(lambda: gn.group_norm_fwd(x, 32, w, b, eps, act),
-                           lambda: gn.group_norm_plain(x, 32, w, b, eps, act), iters_for(nbytes),
-                           bound((10.0 if act else 5.0) * e, nbytes, "float32"),
-                           lambda it: graph_ms(lib_fwd, it))
+            times = _times(
+                rotating(lambda xc: gn.group_norm_fwd(xc, 32, w, b, eps, act), copies, hold=True),
+                rotating(lambda xc: gn.group_norm_plain(xc, 32, w, b, eps, act), copies,
+                         hold=True),
+                it, bound((10.0 if act else 5.0) * e, nbytes, "float32"),
+                lambda it: graph_ms(rotating(lib_fwd, copies, hold=True), it),
+                host=lambda: gn.group_norm_fwd(x, 32, w, b, eps, act))
+            generic_ms = graph_ms(rotating(lambda xc: gn.fwd_generic(xc, 32, w, b, eps, act),
+                                           copies, hold=True), it)
+            self._gn_row("group_norm_fwd", path, (n, c, s), act, dtype, "fwd", times,
+                         generic_ms, per_call)
+            del copies
         record(self.results, "group_norm_fwd", path, compare(dtype, y, y_ref),
-               f"({n},{c},{hw},{hw}) act={act}", times, per_call)
+               f"({n},{c},{math.isqrt(s)},{math.isqrt(s)}) act={act}", times,
+               0 if path == "sd15_b8" else per_call)
+        record(self.results, "group_norm_fwd", path, compare(dtype, y_gen, y_ref),
+               f"({n},{c},{math.isqrt(s)},{math.isqrt(s)}) act={act} generic variant")
 
     def flash_bwd(self, path, bh, t, d, dtype, per_call, timed):
         """As :meth:`flash_fwd`: the strided layout's times go into the row."""
@@ -957,7 +1018,7 @@ class Checks:
         from lycoris_tpu_torch.ops import hada
 
         w1d, w1u, w2d, w2u, g = self._hada_factors(o_, i_, 8, dtype)
-        got = self._hada_variant("hada_bwd", "bwd_fast_launches",
+        got = self._fast_variant("hada_bwd", "hada", "bwd_fast_launches",
                                  lambda: hada.hada_bwd(w1d, w1u, w2d, w2u, 0.5, g))
         want = hada.hada_weight_bwd_plain(w1d, w1u, w2d, w2u, 0.5, g)
         torch.cuda.synchronize()
@@ -1006,39 +1067,57 @@ class Checks:
             f"({o_},{i_}) R{r}")
 
     def group_norm_bwd(self, path, n, c, s, act, dtype, per_call, timed):
+        """dx/dgamma/dbeta and dx alone, fast variant (and dx of the generic
+        one), against the plain backward. The dx-only call (the path's:
+        frozen gamma and beta) is timed as the forward, on rotating copies of
+        x and dh with the outputs held: fast and generic variants, plain,
+        and the library call's autograd backward on the same copies."""
         import torch
         import torch.nn.functional as F
         from lycoris_tpu_torch.ops import group_norm as gn
 
-        hw = math.isqrt(s)
         eps = 1e-5 if act else 1e-6
-        x = self.rnd((n, c, hw, hw), dtype, 2.0) + 0.5
-        w = self.rnd((c,), dtype, 0.5) + 1.0
-        b = self.rnd((c,), dtype, 0.5)
-        dh = self.rnd((n, c, hw, hw), dtype)
+        x, w, b, dh = self._gn_inputs(n, c, s, dtype, True)
         _, mean, rstd = gn.group_norm_fwd(x, 32, w, b, eps, act)
-        got = gn.group_norm_bwd(x, dh, 32, w, b, mean, rstd, act)
-        dx_only = gn.group_norm_bwd(x, dh, 32, w, b, mean, rstd, act, want_wb=False)[0]
+        got = self._fast_variant("group_norm_bwd", "group_norm", "bwd_fast_launches",
+                                 lambda: gn.group_norm_bwd(x, dh, 32, w, b, mean, rstd, act))
+        dx_only = self._fast_variant("group_norm_bwd", "group_norm", "bwd_fast_launches",
+                                     lambda: gn.group_norm_bwd(x, dh, 32, w, b, mean, rstd,
+                                                               act, want_wb=False))[0]
+        dx_gen = gn.bwd_generic(x, dh, 32, w, b, mean, rstd, act, False)[0]
         want = gn.group_norm_bwd_plain(x, dh, 32, w, b, eps, act)
         torch.cuda.synchronize()
         times = None
         if timed:
             e, es = x.numel(), x.element_size()
             nbytes = 3 * e * es + 2 * c * es
+            copies = [(x.clone(), dh.clone()) for _ in range(
+                max(2, math.ceil(ROTATE_BYTES / (2 * e * es))))]
+            it = max(iters_for(nbytes), len(copies))
 
             def lib_fwd(xl):
                 z = F.group_norm(xl, 32, w, b, eps)
                 return F.silu(z) if act else z
 
-            # the path needs dx only (frozen gamma and beta): that call is timed
             times = _times(
-                lambda: gn.group_norm_bwd(x, dh, 32, w, b, mean, rstd, act, want_wb=False),
-                lambda: gn.group_norm_bwd_plain(x, dh, 32, w, b, eps, act), iters_for(nbytes),
-                bound((30.0 if act else 12.0) * e, nbytes, "float32"),
-                lambda it: _library_bwd_ms(lib_fwd, (x,), dh, it))
+                rotating(lambda xc, dc: gn.group_norm_bwd(xc, dc, 32, w, b, mean, rstd, act,
+                                                          want_wb=False), copies, hold=True),
+                rotating(lambda xc, dc: gn.group_norm_bwd_plain(xc, dc, 32, w, b, eps, act),
+                         copies, hold=True),
+                it, bound((30.0 if act else 12.0) * e, nbytes, "float32"),
+                lambda it: _library_bwd_ms(lib_fwd, None, None, it,
+                                           copies=[((xc,), dc) for xc, dc in copies]),
+                host=lambda: gn.group_norm_bwd(x, dh, 32, w, b, mean, rstd, act, want_wb=False))
+            generic_ms = graph_ms(rotating(lambda xc, dc: gn.bwd_generic(
+                xc, dc, 32, w, b, mean, rstd, act, False), copies, hold=True), it)
+            self._gn_row("group_norm_bwd", path, (n, c, s), act, dtype, "bwd", times,
+                         generic_ms, per_call)
+            del copies
+        shape = f"({n},{c},{math.isqrt(s)},{math.isqrt(s)}) act={act}"
         record(self.results, "group_norm_bwd", path,
-               compare_all(dtype, (*got, dx_only), (*want, want[0])),
-               f"({n},{c},{hw},{hw}) act={act}", times, per_call)
+               compare_all(dtype, (*got, dx_only), (*want, want[0])), shape, times, per_call)
+        record(self.results, "group_norm_bwd", path, compare(dtype, dx_gen, want[0]),
+               f"{shape} generic variant")
 
     def _lora_inputs(self, m, n, k, dtype, r=LORA_RANK):
         """x (M, K) and g (M, N) in ``dtype``, scaled so that y and dx are
@@ -1244,8 +1323,10 @@ def _paths(train: bool):
 
 def phase_kernels(results: dict):
     """Each forward kernel at the SD1.5 serving shapes (per UNet call) and the
-    SDXL training shapes (per train step: the transformers' forwards twice)."""
+    SDXL training shapes (per train step: the transformers' forwards twice),
+    and the GroupNorm forward at the SD1.5 training shapes (batch 8)."""
     import torch
+    from lycoris_tpu_torch.models.unet import sd15_config
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1265,6 +1346,9 @@ def phase_kernels(results: dict):
             for dt in dts:
                 ck.group_norm_fwd(path, b, c, s, act, dt, n * (again if act is None else 1),
                                   dt == dts[0])
+    # the GroupNorm forwards of a SD1.5 train step (batch 8), timed per shape
+    for (c, s, act), n in path_shapes(sd15_config(), TRAIN_BATCH, 64)["gn"].items():
+        ck.group_norm_fwd("sd15_b8", TRAIN_BATCH, c, s, act, torch.bfloat16, n, True)
     # the fused LoRA matmul at the LoRA training legs' linear shapes (SD1.5
     # b8, SDXL b4), weighted by the layers of each shape per train step
     for path, sh, _, _, again in _paths(train=True):
@@ -1532,6 +1616,8 @@ def reset_counts():
     layer_norm.bwd_vec_launches = layer_norm.bwd_generic_launches = 0
     hada.fast_launches = hada.generic_launches = 0
     hada.bwd_fast_launches = hada.bwd_generic_launches = 0
+    group_norm.fast_launches = group_norm.generic_launches = 0
+    group_norm.bwd_fast_launches = group_norm.bwd_generic_launches = 0
     merged.applications = 0
 
 
@@ -1561,17 +1647,20 @@ def check_ln_vectorised(tag: str, counts: dict) -> None:
              f"{counts['layer_norm_bwd']}")
 
 
-def check_hada_fast(tag: str, counts: dict) -> None:
-    """Fail unless every LoHa forward and fused backward since the last
-    reset took the fast variant (every LoHa layer of the SD1.5 and SDXL
-    paths is rank 8)."""
-    from lycoris_tpu_torch.ops import hada
+def check_fast(tag: str, counts: dict) -> None:
+    """Fail unless every LoHa forward and fused backward, and every
+    GroupNorm forward and backward, since the last reset took the fast
+    variant (every LoHa layer of the SD1.5 and SDXL paths is rank 8, every
+    GroupNorm shape holds whole 16-byte rows)."""
+    from lycoris_tpu_torch.ops import group_norm, hada
 
-    got = (hada.fast_launches, hada.generic_launches, hada.bwd_fast_launches,
-           hada.bwd_generic_launches)
-    if got != (counts["hada_fwd"], 0, counts["hada_bwd"], 0):
-        fail(f"{tag} LoHa: forward {got[0]} fast and {got[1]} generic of {counts['hada_fwd']}, "
-             f"fused backward {got[2]} fast and {got[3]} generic of {counts['hada_bwd']}")
+    for what, ops, fwd, bwd in (("LoHa", hada, "hada_fwd", "hada_bwd"),
+                                ("GroupNorm", group_norm, "group_norm_fwd", "group_norm_bwd")):
+        got = (ops.fast_launches, ops.generic_launches, ops.bwd_fast_launches,
+               ops.bwd_generic_launches)
+        if got != (counts[fwd], 0, counts[bwd], 0):
+            fail(f"{tag} {what}: forward {got[0]} fast and {got[1]} generic of {counts[fwd]}, "
+                 f"backward {got[2]} fast and {got[3]} generic of {counts[bwd]}")
 
 
 def gn_copies() -> int:
@@ -1640,7 +1729,7 @@ def serve(model, algo, sd, requests, steps, results, card):
         f"copies {gn_copies()}; flash pad copies 0")
     if counts != want:
         fail(f"{tag} launch counts {counts} != {want}")
-    check_hada_fast(tag, counts)
+    check_fast(tag, counts)
     for o in outs:
         if o.shape != (2, 4, 64, 64) or not bool(torch.isfinite(o.float()).all()):
             fail(f"{tag} output not finite / wrong shape {tuple(o.shape)}")
@@ -1702,6 +1791,7 @@ def phase_e2e(model, sd):
     with torch.no_grad():
         got = model(x, t, ctx).float().cpu()
     check_no_pad_copies("[e2e]")
+    check_fast("[e2e]", read_counts())
     net.restore()
 
     cpu = cpu_copy(model, sd15_config(torch.float32))
@@ -1797,22 +1887,22 @@ def train(model, algo, sd, batch, want, steps, results, card, tag, path=None, ad
             fail(f"{tag} launch counts per step {counts} != {want}")
         check_no_pad_copies(tag)
         check_ln_vectorised(tag, counts)
-        check_hada_fast(tag, counts)
+        check_fast(tag, counts)
         totals.update(counts)
         losses.append(float(loss))
         if not math.isfinite(losses[-1]):
             fail(f"{tag} loss {losses[-1]} at step {len(losses)}")
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"{tag} launches per step {want} over {steps} steps, every LayerNorm backward "
-        f"vectorised, every LoHa kernel on its fast variant; GroupNorm input copies {copies}; "
-        f"flash pad copies 0")
+        f"vectorised, every LoHa and GroupNorm kernel on its fast variant; GroupNorm input "
+        f"copies {copies}; flash pad copies 0")
     for name, meta in KERNELS.items():
         if meta["path"] == path and want.get(name) and not results[name]["launches"]:
             results[name]["launches"] = totals[name]
             # every one vectorised or fast (checked per step)
             if name == "layer_norm_bwd":
                 results[name]["variants"] = {"vectorised": totals[name], "generic": 0}
-            if name in ("hada_fwd", "hada_bwd"):
+            if name in ("hada_fwd", "hada_bwd", "group_norm_fwd", "group_norm_bwd"):
                 results[name]["variants"] = {"fast": totals[name], "generic": 0}
     changed = {(ln, k) for ln, sub in net.trainable_params().items() for k, p in sub.items()
                if not torch.equal(p.detach(), before[ln, k])}
@@ -1991,6 +2081,7 @@ def phase_train_e2e(model, sd, cfg_cpu, tag, ctx_dim=768, added_dim=None):
     reset_counts()
     got_loss, got = loss_and_grads(model, net, torch.bfloat16, (lat, ctx, noise, t, added))
     check_no_pad_copies(tag)
+    check_fast(tag, read_counts())
     del net
     torch.cuda.empty_cache()
 
@@ -2029,6 +2120,36 @@ def phase_train_e2e(model, sd, cfg_cpu, tag, ctx_dim=768, added_dim=None):
             e, n = per_module[ln]
             log(f"{tag} module {ln}: rel L2 {(e / n) ** 0.5:.3e} (|grad| {n ** 0.5:.3e})")
         fail(f"{tag} loss rel {loss_rel:.3e} / gradient rel L2 {grad_rel:.3e} over bound")
+
+
+def gn_step_sums(row: dict) -> None:
+    """A GroupNorm row's sums over its rotating-copy shapes, each weighted by
+    its launches a step: the generic variant's ms per SDXL step and SD1.5
+    sum beside the fast one's, and for the forward the SD1.5 b8 train step's
+    sums (``sd15_b8``); logged per SDXL b4 and SD1.5 b8 step with the share
+    of the bound, then the path shapes where the fast variant is slower than
+    the generic one."""
+    keys = ("ms", "generic_ms", "plain_ms", "library_ms", "bound_ms")
+
+    def tot(path):
+        return {k: sum(sh[k] * sh["per"] for sh in row["shapes"] if sh["path"] == path)
+                for k in keys}
+
+    fwd = row["name"] == "group_norm_fwd"
+    row["generic_ms"] = tot("sdxl")["generic_ms"]
+    row["sd15"]["generic_ms"] = tot("sd15")["generic_ms"]
+    if fwd:
+        row["sd15_b8"] = tot("sd15_b8")
+    for where, r in (("SDXL b4 step", tot("sdxl")),
+                     ("SD1.5 b8 step", tot("sd15_b8" if fwd else "sd15"))):
+        log(f"[kernels] {row['name']} per {where} (rotating copies): fast {r['ms']:.3f} ms, "
+            f"{r['bound_ms'] / r['ms']:.1%} of its bound {r['bound_ms']:.3f} ms; generic "
+            f"{r['generic_ms']:.3f} ms; library {r['library_ms']:.3f} ms; plain "
+            f"{r['plain_ms']:.3f} ms")
+    slower = [f"{sh['path']} {tuple(sh['shape'])} {sh['act']}" for sh in row["shapes"]
+              if sh["ms"] > sh["generic_ms"]]
+    log(f"[kernels] {row['name']} path shapes where the fast variant is slower than the "
+        f"generic one: {slower or 'none'} of {len(row['shapes'])}")
 
 
 def main() -> int:
@@ -2161,6 +2282,8 @@ def main() -> int:
                       if sh["ms"] > sh["library_ms"]]
             log(f"[kernels] layer_norm_bwd path shapes slower than F.layer_norm's backward: "
                 f"{slower or 'none'} of {len(row['shapes'])}")
+        if row["name"] in ("group_norm_fwd", "group_norm_bwd"):
+            gn_step_sums(row)
         if row["name"] in ("hada_fwd", "hada_bwd"):
             for where, r in (("SDXL step", row), ("SD1.5 " + ("call" if "fwd" in row["name"]
                                                              else "b8 step"), row["sd15"])):

@@ -12,64 +12,53 @@
 //   dx = dy * A_c + x * B_g + C_g;
 //   dgamma_c = sum_n (t2 - mean t1) rstd, dbeta_c = sum_n t1.
 //
-// Bound on the H100: memory. x and dh are read (twice: sums and dx) and dx
-// written; the bound counts one read of each and one write, 6 bytes an
-// element in bf16, against ~30 fp32 operations with SiLU.
+// Bound on the H100: memory. The bound counts one read of x and dh and one
+// write of dx, 6 bytes an element in bf16, against ~30 fp32 operations
+// with SiLU.
 //
-// Design. As the forward (gn_fwd.cu): the TPU kernel's (S, N, C) view and
-// its accumulation across the sequential S grid are not carried over. One
-// warp sums one part (<= 4096 elements) of one contiguous (n, c) row with
-// 16-byte loads and writes an fp32 partial pair, so the 128 groups of SDXL
-// batch 4 spread over thousands of warps; no atomics. A small kernel (one
-// warp per (n, g)) adds each channel's partials in order, then the group's
+// As the forward (gn_fwd.cu): the TPU kernel's (S, N, C) view and its
+// accumulation across the sequential S grid are not carried over.
+//
+// Fast variant (lyc_gn_bwd_fast, one launch for dx), for bf16 and fp32 rows
+// of whole 16-byte vectors, 16-byte aligned. Work is split as in the
+// forward's fast variant (gn.cuh): a CTA, or a thread block cluster of up
+// to 8, per (n, g) group, on a persistent grid. Each CTA stages its slice of
+// x and dh in shared memory with 1-D bulk copies (both tensors' chunk on
+// one mbarrier) and sums w_c dy and w_c dy x as they land, the channel's
+// scale, shift and gamma read from shared memory where they were formed
+// once; the cluster adds its CTAs' sums in rank order through distributed
+// shared memory, every CTA forms B_g and C_g, and dx is written from shared
+// memory, dy recomputed (in bf16 the sigmoid from one tanh.approx, gn.cuh).
+// The largest groups (SDXL's 960-channel level: x and dh 1.97 MB a group)
+// do not fit 8 CTAs' shared memory, and at 1920 x 64 x 64 and 640 x 128 x
+// 128 a slice would fill one SM alone: there a CTA stages 72 KB, so that
+// three share an SM, and reads the rest of its slice twice, the second
+// time from L2, which the first read just filled (measured faster than
+// staging all that fits). dgamma/dbeta only where asked for: then each CTA
+// also sums t1 and t2 per channel of its slice (a warp per channel, fixed
+// order) into a row of partials per cluster rank, and the small wb kernel adds
+// the ranks and the batch in order. No atomics; results repeat bit for
+// bit.
+//
+// Generic variant (lyc_gn_bwd), for everything else: one warp sums one part
+// (<= 4096 elements) of one contiguous (n, c) row with 16-byte loads where
+// it can and writes an fp32 partial pair; a small kernel (one warp per
+// (n, g)) adds each channel's partials in order, then the group's
 // channels, into B_g and C_g (and keeps t1, t2 per (n, c) when dgamma/dbeta
-// are wanted); the dx kernel walks the tensor in 16-byte vectors and
-// recomputes z and act'(z). When the caller needs no dgamma/dbeta (frozen
-// norm weights, as on the training path) their kernel is skipped.
+// are wanted); the dx kernel walks the tensor in vectors, reading x and dh a
+// second time, and recomputes z and act'(z).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
+#include "gn.cuh"
+
 namespace {
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-
-template <typename T, int VEC>
-__device__ __forceinline__ void load_vec(const T* p, float (&v)[VEC]) {
-  if constexpr (VEC == 1) {
-    v[0] = to_f(*p);
-  } else {
-    const uint4 raw = *reinterpret_cast<const uint4*>(p);
-    const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) v[i] = to_f(e[i]);
-  }
-}
-
-template <typename T, int VEC>
-__device__ __forceinline__ void store_vec(T* p, const float (&v)[VEC]) {
-  if constexpr (VEC == 1) {
-    *p = from_f<T>(v[0]);
-  } else {
-    uint4 raw;
-    T* e = reinterpret_cast<T*>(&raw);
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) e[i] = from_f<T>(v[i]);
-    *reinterpret_cast<uint4*>(p) = raw;
-  }
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
+using gnf::load_vec;
+using gnf::store_vec;
+using gnf::to_f;
+using gnf::warp_sum;
 
 // d act(z) / dz: SiLU z * sigmoid(z) -> s * (1 + z * (1 - s))
 template <bool SILU>
@@ -209,20 +198,29 @@ __global__ void __launch_bounds__(kDxThreads)
   }
 }
 
-// one thread per channel: dgamma_c = sum_n (t2 - mean t1) rstd, dbeta_c = sum_n t1
+// one thread per channel: dgamma_c = sum_n (t2 - mean t1) rstd, dbeta_c = sum_n t1,
+// where t1, t2 of (n, c) are the sums of ``parts`` partials, each a row of
+// N * C (the fast variant's cluster ranks; the generic variant has one),
+// added in order
 __global__ void gn_bwd_wb_kernel(const float* __restrict__ t1, const float* __restrict__ t2,
                                  const float* __restrict__ mean, const float* __restrict__ rstd,
                                  float* __restrict__ dgamma, float* __restrict__ dbeta, int n,
-                                 int c, int groups, int cg) {
+                                 int c, int groups, int cg, int parts) {
   const int ch = blockIdx.x * blockDim.x + threadIdx.x;
   if (ch >= c) return;
   const int g = ch / cg;
+  const long long nc = (long long)n * c;
   float dg = 0.f, db = 0.f;
   for (int i = 0; i < n; ++i) {
     const long long row = (long long)i * c + ch;
     const int ng = i * groups + g;
-    dg += (t2[row] - mean[ng] * t1[row]) * rstd[ng];
-    db += t1[row];
+    float a = t1[row], bb = t2[row];
+    for (int r = 1; r < parts; ++r) {
+      a += t1[r * nc + row];
+      bb += t2[r * nc + row];
+    }
+    dg += (bb - mean[ng] * a) * rstd[ng];
+    db += a;
   }
   dgamma[ch] = dg;
   dbeta[ch] = db;
@@ -257,7 +255,7 @@ void launch(const void* x, const void* dh, const void* w, const void* b, const f
       xt, dht, wt, bt, mean, rstd, coef, static_cast<T*>(dx), nvec, s, c, cg);
   if (want_wb)
     gn_bwd_wb_kernel<<<(c + 127) / 128, 128, 0, st>>>(t1, t2, mean, rstd, dgamma, dbeta, n, c,
-                                                      groups, cg);
+                                                      groups, cg, 1);
 }
 
 template <typename T, int VEC>
@@ -271,6 +269,167 @@ void launch_act(int act, const void* x, const void* dh, const void* w, const voi
   else
     launch<T, VEC, false>(x, dh, w, b, mean, rstd, dx, p1, p2, coef, t1, t2, dgamma, dbeta, n,
                           c, s, groups, part, nparts, st);
+}
+
+// --- fast variant -----------------------------------------------------------
+
+// dy = dh * act'(z) of one vector, z = x * sc + sh
+template <bool SILU, bool APPROX, int VEC>
+__device__ __forceinline__ void dy_vec(const float (&xv)[VEC], float (&dv)[VEC], float sc,
+                                       float sh) {
+#pragma unroll
+  for (int i = 0; i < VEC; ++i)
+    if constexpr (SILU) dv[i] *= gnf::silu_grad<APPROX>(xv[i] * sc + sh);
+}
+
+template <typename T, bool SILU>
+__global__ void __launch_bounds__(gnf::kThreads)
+    gn_bwd_fast_kernel(const T* __restrict__ x, const T* __restrict__ dh,
+                       const T* __restrict__ w, const T* __restrict__ b,
+                       const float* __restrict__ mean, const float* __restrict__ rstd,
+                       T* __restrict__ dx, float* __restrict__ t1p, float* __restrict__ t2p,
+                       gnf::Plan p, float cnt) {
+  constexpr int VEC = 16 / sizeof(T);
+  constexpr bool APPROX = gnf::kApprox<T>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint4* sx = reinterpret_cast<uint4*>(smem);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + gnf::off_bars(p, 2));
+  float* red = reinterpret_cast<float*>(smem + gnf::off_red(p, 2));
+  float* part = red + 2 * gnf::kWarps;
+  float* sc = reinterpret_cast<float*>(smem + gnf::off_chan(p, 2));
+  float* sh = sc + p.cg;
+  float* wv = sh + p.cg;
+
+  // this rank's slice [lo, lo + len) of every group its cluster takes
+  const int gv = gnf::gvec(p), nch = gnf::nchunks(p);
+  const int rank = p.k > 1 ? (int)hop::cluster_rank() : 0;
+  const int lo = rank * p.slice, len = min(p.slice, gv - lo);
+  const int staged = min(p.staged, len);
+  const int clusters = gridDim.x / p.k;
+  const uint4* xs = reinterpret_cast<const uint4*>(x) + lo;
+  const uint4* ds = reinterpret_cast<const uint4*>(dh) + lo;
+  uint4* os = reinterpret_cast<uint4*>(dx) + lo;
+  const uint4* sd = sx + staged;  // dh beside x
+  if (threadIdx.x == 0) {
+    for (int c = 0; c < nch; ++c) hop::mbar_init(&bars[c], 1);
+    hop::mbar_fence_init();
+  }
+
+  for (int it = 0, ng = blockIdx.x / p.k; ng < p.groups_total; ++it, ng += clusters) {
+    const float m = mean[ng], r = rstd[ng];
+    __syncthreads();  // the last group's buffer, partials and channel arrays are free
+    if (threadIdx.x == 0) {
+      const uint4* const src[2] = {xs + (long long)ng * gv, ds + (long long)ng * gv};
+      gnf::stage<2>(src, sx, bars, staged, p.chunk);
+    }
+    const int c0 = (ng % p.groups) * p.cg;
+    for (int j = threadIdx.x; j < p.cg; j += gnf::kThreads) {
+      float s_ = r, h_ = -m * r, wc = 1.f;
+      if (w != nullptr) {
+        wc = to_f(w[c0 + j]);
+        s_ *= wc;
+        h_ *= wc;
+      }
+      if (b != nullptr) h_ += to_f(b[c0 + j]);
+      sc[j] = s_;
+      sh[j] = h_;
+      wv[j] = wc;
+    }
+    __syncthreads();
+    const uint4* xg = xs + (long long)ng * gv;
+    const uint4* dg = ds + (long long)ng * gv;
+    uint4* og = os + (long long)ng * gv;
+
+    float t1 = 0.f, t2 = 0.f;
+    auto sum = [&](const uint4& rx, const uint4& rd, int j) {
+      float xv[VEC], dv[VEC];
+      gnf::unpack(rx, xv);
+      gnf::unpack(rd, dv);
+      dy_vec<SILU, APPROX>(xv, dv, sc[j], sh[j]);
+      float u1 = 0.f, u2 = 0.f;
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) {
+        u1 += dv[i];
+        u2 += dv[i] * xv[i];
+      }
+      t1 += wv[j] * u1;
+      t2 += wv[j] * u2;
+    };
+    {  // the part past the staged one, from HBM, while the chunks land
+      gnf::Chan ch(lo + staged + threadIdx.x, p.vpc);
+      for (int v = staged + threadIdx.x; v < len; v += gnf::kThreads, ch.step())
+        sum(__ldg(xg + v), __ldg(dg + v), ch.j);
+    }
+    for (int c = 0; c * p.chunk < staged; ++c) {
+      hop::mbar_wait(&bars[c], it & 1);
+      const int v0 = c * p.chunk + threadIdx.x, hi = min(staged, (c + 1) * p.chunk);
+      gnf::Chan ch(lo + v0, p.vpc);
+      for (int v = v0; v < hi; v += gnf::kThreads, ch.step()) sum(sx[v], sd[v], ch.j);
+    }
+    gnf::block_sum2(t1, t2, red);
+    if (p.k > 1) gnf::cluster_sum2(t1, t2, part + 2 * (it & 1), p.k);
+    const float m_dxhat = t1 / cnt;
+    const float m_dxhat_xhat = (t2 - m * t1) * r / cnt;
+    const float bg = -(r * r * m_dxhat_xhat);
+    const float cc = -r * m_dxhat - m * bg;
+    gnf::Chan ch(lo + threadIdx.x, p.vpc);
+    for (int v = threadIdx.x; v < len; v += gnf::kThreads, ch.step()) {
+      float xv[VEC], dv[VEC];
+      const bool in = v < staged;
+      gnf::unpack(in ? sx[v] : __ldg(xg + v), xv);
+      gnf::unpack(in ? sd[v] : __ldg(dg + v), dv);
+      const float s_ = sc[ch.j];
+      dy_vec<SILU, APPROX>(xv, dv, s_, sh[ch.j]);
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) dv[i] = dv[i] * s_ + xv[i] * bg + cc;
+      og[v] = gnf::pack(dv);
+    }
+    if (t1p != nullptr) {
+      // t1, t2 of each channel over this rank's part of it: a warp a channel
+      const int lane = threadIdx.x & 31;
+      const long long nc = (long long)p.groups_total * p.cg;
+      for (int j = threadIdx.x >> 5; j < p.cg; j += gnf::kWarps) {
+        const int v_lo = max(0, j * p.vpc - lo), v_hi = min(len, (j + 1) * p.vpc - lo);
+        float u1 = 0.f, u2 = 0.f;
+        for (int v = v_lo + lane; v < v_hi; v += 32) {
+          float xv[VEC], dv[VEC];
+          gnf::unpack(__ldg(xg + v), xv);
+          gnf::unpack(__ldg(dg + v), dv);
+          dy_vec<SILU, APPROX>(xv, dv, sc[j], sh[j]);
+#pragma unroll
+          for (int i = 0; i < VEC; ++i) {
+            u1 += dv[i];
+            u2 += dv[i] * xv[i];
+          }
+        }
+        u1 = gnf::warp_sum(u1);
+        u2 = gnf::warp_sum(u2);
+        if (lane == 0) {
+          const long long row = rank * nc + (long long)ng * p.cg + j;
+          t1p[row] = u1;
+          t2p[row] = u2;
+        }
+      }
+    }
+  }
+  if (p.k > 1) {  // no CTA leaves while a peer may read its partials
+    hop::cluster_arrive();
+    hop::cluster_wait();
+  }
+}
+
+template <typename T, bool SILU>
+int launch_fast(const void* x, const void* dh, const void* w, const void* b, const float* mean,
+                const float* rstd, void* dx, float* t1p, float* t2p, const gnf::Plan& p,
+                int grid, float cnt, cudaStream_t st) {
+  static bool smem_allowed = false;
+  auto kernel = gn_bwd_fast_kernel<T, SILU>;
+  cudaError_t e = gnf::allow_smem(kernel, smem_allowed);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  e = gnf::launch(kernel, grid, p.k, gnf::smem_bytes(p, 2), st, static_cast<const T*>(x),
+                  static_cast<const T*>(dh), static_cast<const T*>(w),
+                  static_cast<const T*>(b), mean, rstd, static_cast<T*>(dx), t1p, t2p, p, cnt);
+  return static_cast<int>(e);
 }
 
 }  // namespace
@@ -306,4 +465,63 @@ extern "C" int lyc_gn_bwd(const void* x, const void* dh, const void* w, const vo
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The fast variant: x, dh, dx (N, C, S) contiguous, 16-byte aligned, S a
+// multiple of 16 / sizeof(element); w, b, mean, rstd, act, dtype as in
+// lyc_gn_bwd. k, slice, staged, chunk, grid: as in lyc_gn_fwd_fast.
+// With dgamma == nullptr only dx is computed; otherwise t1p/t2p are (k, N *
+// C) fp32 partials and dgamma/dbeta (C,) fp32 outputs.
+extern "C" int lyc_gn_bwd_fast(const void* x, const void* dh, const void* w, const void* b,
+                               const float* mean, const float* rstd, void* dx, float* t1p,
+                               float* t2p, float* dgamma, float* dbeta, int n, int c, int s,
+                               int groups, int k, int slice, int staged, int chunk,
+                               int grid, int act, int dtype, void* stream) {
+  const int es = dtype == 0 ? 4 : 2, vec = 16 / es;
+  if (n < 1 || c < 1 || s < 1 || groups < 1 || c % groups || s % vec || (dtype != 0 && dtype != 1) ||
+      (act != 0 && act != 1) || reinterpret_cast<uintptr_t>(x) % 16 ||
+      reinterpret_cast<uintptr_t>(dh) % 16 || reinterpret_cast<uintptr_t>(dx) % 16 ||
+      (dgamma != nullptr && (t1p == nullptr || t2p == nullptr || dbeta == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const gnf::Plan p{n * groups, groups, c / groups, s / vec, k, slice, staged, chunk};
+  if (!gnf::plan_ok(p, 2, grid) || grid / k > n * groups)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float cnt = (float)(c / groups) * (float)s;
+  float* t1 = dgamma != nullptr ? t1p : nullptr;
+  float* t2 = dgamma != nullptr ? t2p : nullptr;
+  int rc;
+  if (dtype == 0)
+    rc = act ? launch_fast<float, true>(x, dh, w, b, mean, rstd, dx, t1, t2, p, grid, cnt, st)
+             : launch_fast<float, false>(x, dh, w, b, mean, rstd, dx, t1, t2, p, grid, cnt, st);
+  else
+    rc = act ? launch_fast<__nv_bfloat16, true>(x, dh, w, b, mean, rstd, dx, t1, t2, p, grid, cnt,
+                                                st)
+             : launch_fast<__nv_bfloat16, false>(x, dh, w, b, mean, rstd, dx, t1, t2, p, grid,
+                                                 cnt, st);
+  if (rc == 0 && dgamma != nullptr)
+    gn_bwd_wb_kernel<<<(c + 127) / 128, 128, 0, st>>>(t1, t2, mean, rstd, dgamma, dbeta, n, c,
+                                                      groups, c / groups, k);
+  const int last = static_cast<int>(cudaGetLastError());
+  return rc != 0 ? rc : last;
+}
+
+// How many clusters of the fast backward the card holds at once for the
+// plan's k and shared memory (cudaOccupancyMaxActiveClusters), into *out.
+extern "C" int lyc_gn_bwd_fast_clusters(int k, int smem, int act, int dtype, int* out) {
+  const int grid_ok = k >= 1 && k <= gnf::kMaxCluster && smem >= 0 && smem <= gnf::kSmemMax;
+  if (!grid_ok || (dtype != 0 && dtype != 1)) return static_cast<int>(cudaErrorInvalidValue);
+  static bool allowed[4] = {false, false, false, false};
+  cudaError_t e;
+  if (dtype == 0) {
+    auto kern = act ? gn_bwd_fast_kernel<float, true> : gn_bwd_fast_kernel<float, false>;
+    e = gnf::allow_smem(kern, allowed[act]);
+    if (e == cudaSuccess) e = gnf::max_clusters(kern, k, smem, out);
+  } else {
+    auto kern = act ? gn_bwd_fast_kernel<__nv_bfloat16, true>
+                    : gn_bwd_fast_kernel<__nv_bfloat16, false>;
+    e = gnf::allow_smem(kern, allowed[2 + act]);
+    if (e == cudaSuccess) e = gnf::max_clusters(kern, k, smem, out);
+  }
+  return static_cast<int>(e);
 }

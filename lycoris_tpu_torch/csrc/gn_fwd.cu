@@ -8,66 +8,56 @@
 // mean = s1 / cnt, var = s2 / cnt - mean^2, rstd = rsqrt(var + eps), then
 // scale_c = rstd * gamma_c and shift_c = -mean * rstd * gamma_c + beta_c.
 //
-// Bound on the H100: memory. x is read twice (sums, apply) and y written
-// once; the bound counts one read and one write, 4 bytes an element in bf16,
-// against ~10 fp32 operations.
+// Bound on the H100: memory. The bound counts one read of x and one write
+// of y, 4 bytes an element in bf16, against ~10 fp32 operations.
 //
-// Design. The TPU kernel works on an (S, N, C) view (the TPU's conv layout
-// keeps C minor) and carries the sums across its sequential S grid. PyTorch's
-// activations are contiguous NCHW: each (n, c) row is S contiguous elements.
-// N*G is only 128 at SDXL batch 4 (one group up to 30 x 16,384 elements),
-// far too few blocks for 132 SMs, so the sums are split finer: one warp sums
-// one part (<= 4096 elements) of one (n, c) row with 16-byte loads and
-// writes one fp32 partial pair; no atomics. A second small kernel adds the
-// cg * parts partials of each (n, g), a contiguous run, in a fixed order
-// (deterministic) and writes mean and rstd. The apply kernel walks the
-// tensor in 16-byte vectors (S is a multiple of 8 at every UNet level, so a
-// vector never straddles a channel; cg need not be a power of two).
+// The TPU kernel works on an (S, N, C) view (the TPU's conv layout keeps C
+// minor) and carries the sums across its sequential S grid. PyTorch's
+// activations are contiguous NCHW: each (n, g) group is one contiguous run
+// of cg * S elements. N * G is only 128 at SDXL batch 4 (one group up to
+// 30 x 16,384 elements), too few units for 132 SMs.
+//
+// Fast variant (lyc_gn_fwd_fast, one launch), for bf16 and fp32 rows of
+// whole 16-byte vectors, 16-byte aligned. A group of up to 96 KB is taken
+// by one CTA; a larger one by a thread block cluster of up to 8 CTAs, each
+// taking a slice on 16-byte boundaries (gn.cuh; the plan comes from
+// ops/group_norm.py). The grid is persistent: as many clusters as the card
+// holds at once, each taking its groups in turn. Each CTA stages its slice
+// in shared memory with 1-D bulk copies, one mbarrier a chunk, and sums x
+// and x^2 as the chunks land; the CTAs' sums are added in rank order
+// through distributed shared memory, so every CTA of the cluster forms the
+// same mean and rstd. Gamma and beta are folded into a scale and shift per
+// channel once, in shared memory, and y is written from shared memory with
+// 16-byte stores, the channel of each vector stepped without a division. x
+// is read from HBM once. No atomics: every sum is added in a fixed order,
+// so results repeat bit for bit. In bf16 the SiLU's sigmoid comes from one
+// tanh.approx (gn.cuh).
+//
+// What holds it back (PERF.md): a CTA loads its slice, waits for its
+// cluster's sums, then writes; with 128 groups a call the CTAs of a call
+// move in step, so HBM idles between the reads and the writes of a wave.
+// Two buffers, the next group loaded while this one is written, were
+// measured slower: they halve the CTAs an SM holds, whose warps hide the
+// latency of the SiLU and the stores.
+//
+// Generic variant (lyc_gn_fwd, three launches), for everything else (odd S,
+// unaligned views): one warp sums one part (<= 4096 elements) of one (n, c)
+// row with 16-byte loads where it can and writes one fp32 partial pair; a
+// second small kernel adds the cg * parts partials of each (n, g), a
+// contiguous run, in a fixed order and writes mean and rstd; the apply
+// kernel walks the tensor in vectors, reading x a second time.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
+#include "gn.cuh"
+
 namespace {
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-
-// VEC elements from p (one 16-byte load when VEC > 1) as floats
-template <typename T, int VEC>
-__device__ __forceinline__ void load_vec(const T* p, float (&v)[VEC]) {
-  if constexpr (VEC == 1) {
-    v[0] = to_f(*p);
-  } else {
-    const uint4 raw = *reinterpret_cast<const uint4*>(p);
-    const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) v[i] = to_f(e[i]);
-  }
-}
-
-template <typename T, int VEC>
-__device__ __forceinline__ void store_vec(T* p, const float (&v)[VEC]) {
-  if constexpr (VEC == 1) {
-    *p = from_f<T>(v[0]);
-  } else {
-    uint4 raw;
-    T* e = reinterpret_cast<T*>(&raw);
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) e[i] = from_f<T>(v[i]);
-    *reinterpret_cast<uint4*>(p) = raw;
-  }
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
+using gnf::load_vec;
+using gnf::store_vec;
+using gnf::to_f;
+using gnf::warp_sum;
 
 constexpr int kWarps = 8;
 constexpr int kApplyThreads = 256;
@@ -190,6 +180,122 @@ int launch(const void* x, const void* w, const void* b, void* y, float* p1, floa
   return 0;
 }
 
+// --- fast variant -----------------------------------------------------------
+
+template <typename T, bool SILU>
+__global__ void __launch_bounds__(gnf::kThreads)
+    gn_fwd_fast_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                       const T* __restrict__ b, T* __restrict__ y, float* __restrict__ mean,
+                       float* __restrict__ rstd, gnf::Plan p, float cnt, float eps) {
+  constexpr int VEC = 16 / sizeof(T);
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint4* sx = reinterpret_cast<uint4*>(smem);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + gnf::off_bars(p, 1));
+  float* red = reinterpret_cast<float*>(smem + gnf::off_red(p, 1));
+  float* part = red + 2 * gnf::kWarps;
+  float* sc = reinterpret_cast<float*>(smem + gnf::off_chan(p, 1));
+  float* sh = sc + p.cg;
+
+  // this rank's slice [lo, lo + len) of every group its cluster takes
+  const int gv = gnf::gvec(p), nch = gnf::nchunks(p);
+  const int rank = p.k > 1 ? (int)hop::cluster_rank() : 0;
+  const int lo = rank * p.slice, len = min(p.slice, gv - lo);
+  const int staged = min(p.staged, len);
+  const int clusters = gridDim.x / p.k;
+  const uint4* xs = reinterpret_cast<const uint4*>(x) + lo;
+  uint4* ys = reinterpret_cast<uint4*>(y) + lo;
+  if (threadIdx.x == 0) {
+    for (int c = 0; c < nch; ++c) hop::mbar_init(&bars[c], 1);
+    hop::mbar_fence_init();
+  }
+
+  for (int it = 0, ng = blockIdx.x / p.k; ng < p.groups_total; ++it, ng += clusters) {
+    __syncthreads();  // the last group's buffer, partials and channel arrays are free
+    if (threadIdx.x == 0) {
+      const uint4* const src[1] = {xs + (long long)ng * gv};
+      gnf::stage<1>(src, sx, bars, staged, p.chunk);
+    }
+    const uint4* xg = xs + (long long)ng * gv;
+    uint4* yg = ys + (long long)ng * gv;
+
+    float s1 = 0.f, s2 = 0.f;
+    // the part past the staged one, from HBM, while the chunks land
+    for (int v = staged + threadIdx.x; v < len; v += gnf::kThreads) {
+      float f[VEC];
+      gnf::unpack(__ldg(xg + v), f);
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) {
+        s1 += f[i];
+        s2 += f[i] * f[i];
+      }
+    }
+    for (int c = 0; c * p.chunk < staged; ++c) {
+      hop::mbar_wait(&bars[c], it & 1);
+      const int hi = min(staged, (c + 1) * p.chunk);
+      for (int v = c * p.chunk + threadIdx.x; v < hi; v += gnf::kThreads) {
+        float f[VEC];
+        gnf::unpack(sx[v], f);
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) {
+          s1 += f[i];
+          s2 += f[i] * f[i];
+        }
+      }
+    }
+    gnf::block_sum2(s1, s2, red);
+    if (p.k > 1) gnf::cluster_sum2(s1, s2, part + 2 * (it & 1), p.k);
+    const float m = s1 / cnt;
+    const float var = s2 / cnt - m * m;
+    const float r = rsqrtf(var + eps);
+    if (rank == 0 && threadIdx.x == 0) {
+      mean[ng] = m;
+      rstd[ng] = r;
+    }
+    const int c0 = (ng % p.groups) * p.cg;
+    for (int j = threadIdx.x; j < p.cg; j += gnf::kThreads) {
+      float s_ = r, h_ = -m * r;
+      if (w != nullptr) {
+        const float wc = to_f(w[c0 + j]);
+        s_ *= wc;
+        h_ *= wc;
+      }
+      if (b != nullptr) h_ += to_f(b[c0 + j]);
+      sc[j] = s_;
+      sh[j] = h_;
+    }
+    __syncthreads();
+    gnf::Chan ch(lo + threadIdx.x, p.vpc);
+    for (int v = threadIdx.x; v < len; v += gnf::kThreads, ch.step()) {
+      float f[VEC];
+      gnf::unpack(v < staged ? sx[v] : __ldg(xg + v), f);
+      const float s_ = sc[ch.j], h_ = sh[ch.j];
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) {
+        const float z = f[i] * s_ + h_;
+        f[i] = SILU ? gnf::silu<gnf::kApprox<T>>(z) : z;
+      }
+      yg[v] = gnf::pack(f);
+    }
+  }
+  if (p.k > 1) {  // no CTA leaves while a peer may read its partials
+    hop::cluster_arrive();
+    hop::cluster_wait();
+  }
+}
+
+template <typename T, bool SILU>
+int launch_fast(const void* x, const void* w, const void* b, void* y, float* mean, float* rstd,
+                const gnf::Plan& p, int grid, float cnt, float eps, cudaStream_t st) {
+  static bool smem_allowed = false;
+  auto kernel = gn_fwd_fast_kernel<T, SILU>;
+  cudaError_t e = gnf::allow_smem(kernel, smem_allowed);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  e = gnf::launch(kernel, grid, p.k, gnf::smem_bytes(p, 1), st, static_cast<const T*>(x),
+                  static_cast<const T*>(w), static_cast<const T*>(b), static_cast<T*>(y), mean,
+                  rstd, p, cnt, eps);
+  return static_cast<int>(e);
+}
+
 }  // namespace
 
 // x, y: (N, C, S) contiguous; w, b: (C,) or nullptr; all one dtype (0 =
@@ -223,4 +329,55 @@ extern "C" int lyc_gn_fwd(const void* x, const void* w, const void* b, void* y, 
   }
   if (rc != 0) return rc;
   return static_cast<int>(cudaGetLastError());
+}
+
+// The fast variant: x, y (N, C, S) contiguous, 16-byte aligned, S a multiple
+// of 16 / sizeof(element); w, b, mean, rstd, eps, act, dtype as in
+// lyc_gn_fwd. k, slice, staged, chunk: the plan (ops/group_norm.py
+// `plan`, gn.cuh `Plan`); grid: CTAs, whole clusters, at most one
+// cluster a group. Refused if the plan does not cover the groups or fit
+// shared memory.
+extern "C" int lyc_gn_fwd_fast(const void* x, const void* w, const void* b, void* y, float* mean,
+                               float* rstd, int n, int c, int s, int groups, int k,
+                               int slice, int staged, int chunk, int grid, float eps, int act,
+                               int dtype, void* stream) {
+  const int es = dtype == 0 ? 4 : 2, vec = 16 / es;
+  if (n < 1 || c < 1 || s < 1 || groups < 1 || c % groups || s % vec || (dtype != 0 && dtype != 1) ||
+      (act != 0 && act != 1) || reinterpret_cast<uintptr_t>(x) % 16 ||
+      reinterpret_cast<uintptr_t>(y) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const gnf::Plan p{n * groups, groups, c / groups, s / vec, k, slice, staged, chunk};
+  if (!gnf::plan_ok(p, 1, grid) || grid / k > n * groups)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float cnt = (float)(c / groups) * (float)s;
+  int rc;
+  if (dtype == 0)
+    rc = act ? launch_fast<float, true>(x, w, b, y, mean, rstd, p, grid, cnt, eps, st)
+             : launch_fast<float, false>(x, w, b, y, mean, rstd, p, grid, cnt, eps, st);
+  else
+    rc = act ? launch_fast<__nv_bfloat16, true>(x, w, b, y, mean, rstd, p, grid, cnt, eps, st)
+             : launch_fast<__nv_bfloat16, false>(x, w, b, y, mean, rstd, p, grid, cnt, eps, st);
+  const int last = static_cast<int>(cudaGetLastError());
+  return rc != 0 ? rc : last;
+}
+
+// How many clusters of the fast forward the card holds at once for the
+// plan's k and shared memory (cudaOccupancyMaxActiveClusters), into *out.
+extern "C" int lyc_gn_fwd_fast_clusters(int k, int smem, int act, int dtype, int* out) {
+  const int grid_ok = k >= 1 && k <= gnf::kMaxCluster && smem >= 0 && smem <= gnf::kSmemMax;
+  if (!grid_ok || (dtype != 0 && dtype != 1)) return static_cast<int>(cudaErrorInvalidValue);
+  static bool allowed[4] = {false, false, false, false};
+  cudaError_t e;
+  if (dtype == 0) {
+    auto kern = act ? gn_fwd_fast_kernel<float, true> : gn_fwd_fast_kernel<float, false>;
+    e = gnf::allow_smem(kern, allowed[act]);
+    if (e == cudaSuccess) e = gnf::max_clusters(kern, k, smem, out);
+  } else {
+    auto kern = act ? gn_fwd_fast_kernel<__nv_bfloat16, true>
+                    : gn_fwd_fast_kernel<__nv_bfloat16, false>;
+    e = gnf::allow_smem(kern, allowed[2 + act]);
+    if (e == cudaSuccess) e = gnf::max_clusters(kern, k, smem, out);
+  }
+  return static_cast<int>(e);
 }

@@ -1,7 +1,8 @@
-// Hopper building blocks shared by the flash and fused LoRA kernels:
-// mbarriers, TMA tile loads and stores, ldmatrix/stmatrix, wgmma
-// shared-memory descriptors and fences, and the host-side encoding of the
-// tensor maps.
+// Hopper building blocks shared by the flash, fused LoRA and GroupNorm
+// kernels: mbarriers, TMA tile loads and stores, 1-D bulk copies, thread
+// block clusters and their distributed shared memory, ldmatrix/stmatrix,
+// wgmma shared-memory descriptors and fences, and the host-side encoding of
+// the tensor maps.
 //
 // Tile layout. Every bf16 tile a flash kernel stages is R rows (tokens) by
 // DP head-dim columns, loaded by one TMA box of a 5-D tensor map
@@ -111,6 +112,47 @@ __device__ __forceinline__ void bulk_wait_read() {
 // the async proxy (TMA, wgmma).
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ``bytes`` (a multiple of 16) from global ``src`` to shared ``dst``, both
+// 16-byte aligned, by one 1-D bulk copy (no tensor map); completion is
+// reported to ``bar`` as transaction bytes.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_addr(dst)),
+      "l"(static_cast<uint64_t>(__cvta_generic_to_global(src))), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// --- thread block clusters -----------------------------------------------
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// Every thread of every CTA of the cluster arrives (releasing its earlier
+// writes to shared memory), then waits for all (acquiring theirs). The two
+// halves may be split, so that work runs between them.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The float at ``p``'s offset in the shared memory of the cluster's CTA
+// ``rank`` (distributed shared memory).
+__device__ __forceinline__ float ld_cluster(const float* p, uint32_t rank) {
+  uint32_t remote;
+  float v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(smem_addr(p)), "r"(rank));
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(remote) : "memory");
+  return v;
 }
 
 // Barrier ``id`` (1..15) over ``count`` threads, a multiple of 32.

@@ -40,6 +40,10 @@ _SIGNATURES = {
     "lyc_hada_bwd": [_P] * 7 + [_I] * 4 + [_F, _I, _I, _P],
     "lyc_gn_fwd": [_P] * 8 + [_I] * 6 + [_F, _I, _I, _I, _P],
     "lyc_gn_bwd": [_P] * 14 + [_I] * 9 + [_P],
+    "lyc_gn_fwd_fast": [_P] * 6 + [_I] * 9 + [_F, _I, _I, _P],
+    "lyc_gn_bwd_fast": [_P] * 11 + [_I] * 11 + [_P],
+    "lyc_gn_fwd_fast_clusters": [_I] * 4 + [ctypes.POINTER(_I)],
+    "lyc_gn_bwd_fast_clusters": [_I] * 4 + [ctypes.POINTER(_I)],
     "lyc_geglu_bwd": [_P] * 3 + [_I] * 4 + [_P],
     "lyc_lora_fused_nt": [_P] * 5 + [_I] * 4 + [_F, _I, _I, _P],
     "lyc_lora_fused_nn": [_P] * 5 + [_I] * 4 + [_F, _I, _I, _P],

@@ -16,6 +16,17 @@ keeps C minor; that is not carried over. PyTorch's activations are
 contiguous NCHW, so each (n, c) is one contiguous run of S elements and
 each (n, g) one run of cg * S.
 
+Each direction has two variants, chosen here by :func:`variant`: the fast
+one (one launch; each group staged in shared memory by bulk copies, split
+over a thread block cluster where it is large, as :func:`plan` says, on a
+persistent grid of as many clusters as the card holds, :func:`grid`) for
+bf16 and fp32 rows of whole 16-byte vectors, 16-byte aligned (every UNet
+shape), and the generic one (three launches) for everything else. In bf16
+the fast kernels take the SiLU's sigmoid from one ``tanh.approx``
+(relative error 2^-11, under the 2^-8 of a bf16 output) in place of an
+exponential and a reciprocal, halving their work on the SM's special
+function units.
+
 :func:`group_norm_act` is a :class:`GroupNormFunction`: its forward saves x,
 gamma, beta and the fp32 (mean, rstd) per group, its backward runs the
 backward kernel (dgamma/dbeta only where asked for). Each direction takes
@@ -26,19 +37,36 @@ raises.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
+from typing import NamedTuple
 
 import torch
 
 from . import _build
 
-launches = 0  # forward kernel launches since the last reset (chip_smoke counts these)
-bwd_launches = 0  # backward kernel launches, likewise
+launches = 0  # forward calls since the last reset (chip_smoke counts these)
+fast_launches = 0  # of those, calls of the fast variant (one kernel)
+generic_launches = 0  # and of the generic one (three kernels)
+bwd_launches = 0  # backward calls, likewise
+bwd_fast_launches = 0
+bwd_generic_launches = 0
 copies = 0  # inputs the wrappers had to make contiguous (NCHW) first
 
 ACTS = (None, "silu")
 _ACT_CODES = {None: 0, "silu": 1}
-PART_LEN = 4096  # elements of one (n, c) row that one warp sums (a multiple of 8)
+PART_LEN = 4096  # generic variant: elements of one (n, c) row that one warp sums
+
+# fast variant (csrc/gn.cuh)
+_WARPS = 8  # of a CTA's 256 threads
+SMEM_MAX = 232448  # bytes of shared memory a CTA may use on an H100
+MAX_CLUSTER = 8  # CTAs of a thread block cluster: the portable size
+CHUNK_BYTES = 16384  # per tensor, one bulk copy and one mbarrier each
+SLICE_BYTES = 96 * 1024  # what a CTA aims to stage of a group (x, or x and dh): two an SM
+BWD_STAGE_BYTES = 72 * 1024  # what a backward slice over SLICE_BYTES stages: three an SM
+MAX_CG = 4096  # channels per group whose per-channel arrays the fast kernels hold
+_ELEM = {torch.float32: 4, torch.bfloat16: 2}
 
 
 def _view(x):
@@ -126,6 +154,82 @@ def _vec(s: int, *tensors) -> int:
     return v if s % v == 0 and all(t.data_ptr() % 16 == 0 for t in tensors) else 1
 
 
+class Plan(NamedTuple):
+    """How a fast kernel splits one call (``Plan`` in csrc/gn.cuh);
+    sizes in 16-byte vectors of one tensor."""
+
+    k: int  # CTAs per (n, g) group, one thread block cluster (1: no cluster)
+    slice: int  # one CTA's part of a group (the whole group when k == 1)
+    staged: int  # what a CTA stages in shared memory of each tensor
+    reread: int  # the rest of a slice: read from HBM, then again from L2
+    chunk: int  # per bulk copy
+    smem: int  # dynamic shared memory of a CTA, bytes
+
+
+@functools.lru_cache(maxsize=1024)
+def plan(n: int, c: int, s: int, groups: int, dtype, direction: str) -> Plan:
+    """The fast kernel's split of an (N, C, S) call with ``groups`` groups of
+    ``dtype`` for ``direction`` "fwd" (x staged) or "bwd" (x and dh). A
+    group of more than :data:`SLICE_BYTES` goes to a cluster of k CTAs, as
+    few as bring each slice under it, at most 8, the slices whole vectors
+    and none empty. A CTA stages its slice up to the shared memory left
+    beside its mbarriers, partials and channel arrays, and a backward slice
+    still over :data:`SLICE_BYTES` (the 8 CTAs' share of a group of SDXL's
+    largest levels) up to :data:`BWD_STAGE_BYTES`, so that three CTAs share
+    an SM; past that a slice is read twice (``reread``), the second time
+    from L2."""
+    nt = {"fwd": 1, "bwd": 2}[direction]
+    vec = 16 // _ELEM[dtype]
+    if s % vec or c % groups:
+        raise ValueError(f"group_norm plan: S={s}, C={c}, groups={groups} for the fast variant")
+    cg = c // groups
+    gvec = cg * (s // vec)
+    k = min(MAX_CLUSTER, max(1, -(-16 * nt * gvec // SLICE_BYTES)))
+    part = -(-gvec // k)
+    k = -(-gvec // part)  # no empty slice
+    chunk = CHUNK_BYTES // 16
+    fixed = 4 * (2 * _WARPS + 4) + 4 * (nt + 1) * cg  # partials, channel arrays
+    room = SMEM_MAX - fixed - 8 * 16  # 16 mbarriers at most
+    if direction == "bwd" and 16 * nt * part > SLICE_BYTES:
+        room = min(room, BWD_STAGE_BYTES)
+    staged = min(part, room // (16 * nt))
+    smem = 16 * nt * staged + 8 * -(-staged // chunk) + fixed
+    return Plan(k, part, staged, part - staged, chunk, smem)
+
+
+@functools.lru_cache(maxsize=1024)
+def _active_clusters(direction: str, dtype, act, k: int, smem: int, device: int) -> int:
+    out = ctypes.c_int(0)
+    fn = getattr(_build.lib(), f"lyc_gn_{direction}_fast_clusters")
+    rc = fn(k, smem, _ACT_CODES[act], _build.DTYPE_CODES[str(dtype)], ctypes.byref(out))
+    _build.check(rc, f"lyc_gn_{direction}_fast_clusters")
+    return out.value
+
+
+def fast_clusters(pl: Plan, direction: str, dtype, act, device=0) -> int:
+    """How many clusters of ``pl.k`` CTAs of the fast kernel with
+    ``pl.smem`` bytes each the card holds at once
+    (cudaOccupancyMaxActiveClusters; with k = 1, CTAs)."""
+    return _active_clusters(direction, dtype, act, pl.k, pl.smem, device)
+
+
+def grid(pl: Plan, groups_total: int, active: int) -> int:
+    """CTAs of a fast launch: at most ``active`` clusters (what the card
+    holds at once) and one a group, each taking as many groups as the
+    busiest must, in turn."""
+    turns = -(-groups_total // max(1, active))
+    return -(-groups_total // turns) * pl.k
+
+
+def variant(x, num_groups: int, *others) -> str:
+    """"fast" for bf16 or fp32 ``x`` (N, C, *spatial) whose (n, c) rows hold
+    whole 16-byte vectors, with it and ``others`` (dh, the outputs) 16-byte
+    aligned and at most :data:`MAX_CG` channels a group, else "generic"."""
+    _, c, s = _view(x).shape
+    ok = x.dtype in _ELEM and c // num_groups <= MAX_CG and _vec(s, x, *others) > 1
+    return "fast" if ok else "generic"
+
+
 def _contiguous(t):
     global copies
     if t.is_contiguous():
@@ -153,19 +257,57 @@ def _parts(s: int) -> tuple[int, int]:
 
 
 def group_norm_fwd(x, num_groups: int, weight, bias, eps: float, act=None):
-    """The forward kernel on CUDA tensors: (y, mean (N, G) fp32, rstd (N, G) fp32)."""
-    global launches
+    """The forward kernel on CUDA tensors: (y, mean (N, G) fp32, rstd (N, G)
+    fp32), by the variant :func:`variant` names."""
     if x.device.type != "cuda":
         raise RuntimeError(f"group_norm: no kernel for device {x.device}")
     _check("group_norm", x, num_groups, weight, bias, act)
     x = _contiguous(x)
+    fn = fwd_fast if variant(x, num_groups) == "fast" else fwd_generic
+    return fn(x, num_groups, weight, bias, eps, act)
+
+
+def _fwd_outputs(x, num_groups):
+    n = x.shape[0]
+    f32 = dict(dtype=torch.float32, device=x.device)
+    return (torch.empty_like(x), torch.empty((n, num_groups), **f32),
+            torch.empty((n, num_groups), **f32))
+
+
+def fwd_fast(x, num_groups: int, weight, bias, eps: float, act=None):
+    """The fast forward (one launch) on a checked, contiguous CUDA ``x`` that
+    :func:`variant` calls fast; :func:`group_norm_fwd` picks it. The C entry
+    refuses other inputs."""
+    global launches, fast_launches
+    if x.device.type != "cuda":
+        raise RuntimeError(f"group_norm: no kernel for device {x.device}")
     n, c, s = _view(x).shape
-    y = torch.empty_like(x)
+    pl = plan(n, c, s, num_groups, x.dtype, "fwd")
+    ctas = grid(pl, n * num_groups, fast_clusters(pl, "fwd", x.dtype, act, x.device.index))
+    y, mean, rstd = _fwd_outputs(x, num_groups)
+    rc = _build.lib().lyc_gn_fwd_fast(
+        x.data_ptr(), _build.ptr(weight), _build.ptr(bias), y.data_ptr(), mean.data_ptr(),
+        rstd.data_ptr(), n, c, s, num_groups, pl.k, pl.slice, pl.staged, pl.chunk,
+        ctas, float(eps), _ACT_CODES[act], _build.dtype_code(x), _build.stream_ptr(x),
+    )
+    _build.check(rc, "lyc_gn_fwd_fast")
+    launches += 1
+    fast_launches += 1
+    return y, mean, rstd
+
+
+def fwd_generic(x, num_groups: int, weight, bias, eps: float, act=None):
+    """The generic forward (three launches) on a checked, contiguous CUDA
+    ``x`` of any layout of S; :func:`group_norm_fwd` picks it where the fast
+    one does not apply."""
+    global launches, generic_launches
+    if x.device.type != "cuda":
+        raise RuntimeError(f"group_norm: no kernel for device {x.device}")
+    n, c, s = _view(x).shape
+    y, mean, rstd = _fwd_outputs(x, num_groups)
     vec = _vec(s, x, y)
     part, nparts = _parts(s)
-    f32 = dict(dtype=torch.float32, device=x.device)
-    scratch = torch.empty((2, n * c * nparts), **f32)
-    mean, rstd = torch.empty((n, num_groups), **f32), torch.empty((n, num_groups), **f32)
+    scratch = torch.empty((2, n * c * nparts), dtype=torch.float32, device=x.device)
     rc = _build.lib().lyc_gn_fwd(
         x.data_ptr(), _build.ptr(weight), _build.ptr(bias), y.data_ptr(),
         scratch[0].data_ptr(), scratch[1].data_ptr(), mean.data_ptr(), rstd.data_ptr(),
@@ -174,14 +316,15 @@ def group_norm_fwd(x, num_groups: int, weight, bias, eps: float, act=None):
     )
     _build.check(rc, "lyc_gn_fwd")
     launches += 1
+    generic_launches += 1
     return y, mean, rstd
 
 
 def group_norm_bwd(x, dh, num_groups: int, weight, bias, mean, rstd, act=None,
                    want_wb: bool = True):
     """The backward kernel on CUDA tensors: (dx, dgamma fp32, dbeta fp32), or
-    (dx, None, None) when ``want_wb`` is False (frozen gamma and beta)."""
-    global bwd_launches
+    (dx, None, None) when ``want_wb`` is False (frozen gamma and beta), by the
+    variant :func:`variant` names for x and dh."""
     if x.device.type != "cuda":
         raise RuntimeError(f"group_norm_bwd: no kernel for device {x.device}")
     _check("group_norm_bwd", x, num_groups, weight, bias, act)
@@ -190,19 +333,63 @@ def group_norm_bwd(x, dh, num_groups: int, weight, bias, mean, rstd, act=None,
         raise ValueError(f"group_norm_bwd: dh {tuple(dh.shape)} for x {tuple(x.shape)}")
     x, dh = _contiguous(x), _contiguous(dh)
     mean, rstd = mean.contiguous(), rstd.contiguous()
-    n, c, s = _view(x).shape
+    n = x.shape[0]
     if mean.shape != (n, num_groups) or rstd.shape != (n, num_groups):
         raise ValueError(f"group_norm_bwd: mean/rstd {tuple(mean.shape)} for ({n}, {num_groups})")
+    fn = bwd_fast if variant(x, num_groups, dh) == "fast" else bwd_generic
+    return fn(x, dh, num_groups, weight, bias, mean, rstd, act, want_wb)
+
+
+def _wb_outputs(c, dev, want_wb):
+    if not want_wb:
+        return None, None
+    f32 = dict(dtype=torch.float32, device=dev)
+    return torch.empty(c, **f32), torch.empty(c, **f32)
+
+
+def bwd_fast(x, dh, num_groups: int, weight, bias, mean, rstd, act=None, want_wb: bool = True):
+    """The fast backward (one launch for dx; the per-channel sums and the
+    dgamma/dbeta kernel only with ``want_wb``) on checked, contiguous CUDA
+    inputs that :func:`variant` calls fast; :func:`group_norm_bwd` picks it."""
+    global bwd_launches, bwd_fast_launches
+    if x.device.type != "cuda":
+        raise RuntimeError(f"group_norm_bwd: no kernel for device {x.device}")
+    n, c, s = _view(x).shape
+    pl = plan(n, c, s, num_groups, x.dtype, "bwd")
+    ctas = grid(pl, n * num_groups, fast_clusters(pl, "bwd", x.dtype, act, x.device.index))
+    dx = torch.empty_like(x)
+    dgamma, dbeta = _wb_outputs(c, x.device, want_wb)
+    tsum = (torch.empty((2, pl.k * n * c), dtype=torch.float32, device=x.device)
+            if want_wb else None)
+    rc = _build.lib().lyc_gn_bwd_fast(
+        x.data_ptr(), dh.data_ptr(), _build.ptr(weight), _build.ptr(bias),
+        mean.data_ptr(), rstd.data_ptr(), dx.data_ptr(),
+        _build.ptr(None if tsum is None else tsum[0]), _build.ptr(None if tsum is None else tsum[1]),
+        _build.ptr(dgamma), _build.ptr(dbeta), n, c, s, num_groups, pl.k, pl.slice, pl.staged,
+        pl.chunk, ctas, _ACT_CODES[act], _build.dtype_code(x), _build.stream_ptr(x),
+    )
+    _build.check(rc, "lyc_gn_bwd_fast")
+    bwd_launches += 1
+    bwd_fast_launches += 1
+    return dx, dgamma, dbeta
+
+
+def bwd_generic(x, dh, num_groups: int, weight, bias, mean, rstd, act=None,
+                want_wb: bool = True):
+    """The generic backward (three launches, four with ``want_wb``) on
+    checked, contiguous CUDA inputs of any layout of S."""
+    global bwd_launches, bwd_generic_launches
+    if x.device.type != "cuda":
+        raise RuntimeError(f"group_norm_bwd: no kernel for device {x.device}")
+    n, c, s = _view(x).shape
     dx = torch.empty_like(x)
     vec = _vec(s, x, dh, dx)
     part, nparts = _parts(s)
     f32 = dict(dtype=torch.float32, device=x.device)
     scratch = torch.empty((2, n * c * nparts), **f32)
     coef = torch.empty((n * num_groups, 2), **f32)
-    tsum = dgamma = dbeta = None
-    if want_wb:
-        tsum = torch.empty((2, n * c), **f32)
-        dgamma, dbeta = torch.empty(c, **f32), torch.empty(c, **f32)
+    dgamma, dbeta = _wb_outputs(c, x.device, want_wb)
+    tsum = torch.empty((2, n * c), **f32) if want_wb else None
     rc = _build.lib().lyc_gn_bwd(
         x.data_ptr(), dh.data_ptr(), _build.ptr(weight), _build.ptr(bias),
         mean.data_ptr(), rstd.data_ptr(), dx.data_ptr(),
@@ -213,6 +400,7 @@ def group_norm_bwd(x, dh, num_groups: int, weight, bias, mean, rstd, act=None,
     )
     _build.check(rc, "lyc_gn_bwd")
     bwd_launches += 1
+    bwd_generic_launches += 1
     return dx, dgamma, dbeta
 
 

@@ -7,7 +7,14 @@ Function each kernel sits in, which takes its plain version on the CPU.
 
 Tolerance: 1e-5 for forwards and 1e-4 for gradients (fp32; summation order
 differs), as the JAX package holds its fused GroupNorm to its jnp form.
+
+The GroupNorm wrapper's choice of kernel variant and the fast variant's
+split of each group over a thread block cluster are Python, checked here at
+every GroupNorm shape of the SD1.5 and SDXL paths.
 """
+
+import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -140,3 +147,85 @@ def test_cpu_wrappers_use_plain_and_count_nothing():
     h = torch.randn(2, 16, 64, requires_grad=True)
     tgeglu.geglu_mul(h).sum().backward()
     assert (tgn.launches, tgn.bwd_launches, tgn.copies, tgeglu.bwd_launches) == before
+
+
+def _census_shapes():
+    """(N, C, S) of every GroupNorm of the SD1.5 (64x64 latents, batch 4 for
+    serving and 8 for training) and SDXL (128x128, batch 4) UNets, from
+    chip_smoke's census of the UNet configs."""
+    root = str(Path(__file__).resolve().parent.parent)
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    import chip_smoke
+    from lycoris_tpu_torch.models.unet import sd15_config, sdxl_config
+
+    shapes = set()
+    for cfg, n, hw in ((sd15_config(), 4, 64), (sd15_config(), 8, 64), (sdxl_config(), 4, 128)):
+        shapes.update((n, c, s) for c, s, _ in chip_smoke.path_shapes(cfg, n, hw)["gn"])
+    return sorted(shapes)
+
+
+def test_group_norm_variant_choice():
+    """Fast for bf16 and fp32 path shapes, 16-byte aligned; generic where a
+    row does not hold whole 16-byte vectors or a tensor is an offset view."""
+    shapes = _census_shapes()
+    assert len(shapes) == 34 and (4, 960, 16384) in shapes and (8, 1280, 64) in shapes
+    for n, c, s in shapes:
+        for dt in (torch.bfloat16, torch.float32):
+            x = torch.empty((n, c, s), dtype=dt, device="meta")
+            assert tgn.variant(x, 32) == "fast", (n, c, s, dt)
+            assert tgn.variant(x.view(n, c, s // 8, 8), 32, x) == "fast"
+    odd = torch.empty((2, 64, 7, 5))  # S = 35: no whole vectors
+    assert tgn.variant(odd, 8) == tgn.variant(odd.bfloat16(), 8) == "generic"
+    s36 = torch.empty((2, 64, 6, 6))  # 36 fp32 = 9 vectors, 36 bf16 = 4.5
+    assert tgn.variant(s36, 8) == "fast" and tgn.variant(s36.bfloat16(), 8) == "generic"
+    for dt in (torch.bfloat16, torch.float32):
+        base = torch.zeros(2 * 64 * 256 + 1, dtype=dt)
+        x = base[:-1].view(2, 64, 16, 16)
+        shifted = base[1:].view(2, 64, 16, 16)  # one element off 16 bytes
+        assert tgn.variant(x, 8) == "fast"
+        assert tgn.variant(shifted, 8) == "generic" and tgn.variant(x, 8, shifted) == "generic"
+    assert tgn.variant(torch.empty((2, 64, 16, 16), dtype=torch.float16), 8) == "generic"
+
+
+def test_group_norm_plan():
+    """Both directions of every path shape, bf16 and fp32: clusters of at
+    most 8 CTAs whose slices are whole 16-byte vectors, none empty, covering
+    each group exactly; what a CTA stages fits its shared memory, the rest
+    of its slice is marked for the re-read (in bf16 only the backward's
+    slices over the slice target, at SDXL's largest groups); the persistent
+    grid holds no more clusters
+    than the card holds at once or than there are groups, and no cluster
+    takes more groups than the busiest must."""
+    for n, c, s in _census_shapes():
+        for dt in (torch.bfloat16, torch.float32):
+            es = torch.empty((), dtype=dt).element_size()
+            gbytes = c // 32 * s * es
+            assert gbytes % 16 == 0
+            gvec = gbytes // 16
+            for direction, nt in (("fwd", 1), ("bwd", 2)):
+                pl = tgn.plan(n, c, s, 32, dt, direction)
+                assert 1 <= pl.k <= tgn.MAX_CLUSTER
+                lens = [min(pl.slice, gvec - r * pl.slice) for r in range(pl.k)]
+                assert min(lens) > 0 and sum(lens) == gvec, (n, c, s, direction)
+                assert pl.k == 1 or 16 * nt * pl.slice <= tgn.SLICE_BYTES or pl.k == 8
+                assert pl.staged + pl.reread == pl.slice and pl.staged > 0
+                assert pl.smem <= tgn.SMEM_MAX
+                assert pl.smem >= 16 * nt * pl.staged + 8 * -(-pl.staged // pl.chunk)
+                assert 16 * nt * pl.chunk < 2**20  # an mbarrier phase's transaction bytes
+                over = 16 * nt * pl.slice > tgn.SLICE_BYTES
+                if pl.reread:
+                    assert over and (direction == "bwd" or pl.k == tgn.MAX_CLUSTER)
+                if dt == torch.bfloat16:
+                    assert (pl.reread > 0) == (direction == "bwd" and over), (n, c, s, direction)
+                for active in (1, 15, 62, 132, 264, 1056):
+                    ctas = tgn.grid(pl, n * 32, active)
+                    clusters = ctas // pl.k
+                    assert ctas % pl.k == 0 and 1 <= clusters <= min(active, n * 32)
+                    turns = -(-n * 32 // clusters)
+                    assert turns == -(-n * 32 // min(active, n * 32))
+    big = tgn.plan(4, 960, 16384, 32, torch.bfloat16, "bwd")
+    assert (big.k, big.slice, big.staged) == (8, 7680, tgn.BWD_STAGE_BYTES // 32)
+    assert tgn.plan(8, 1280, 64, 32, torch.bfloat16, "fwd").k == 1
+    with pytest.raises(ValueError):
+        tgn.plan(2, 64, 35, 8, torch.bfloat16, "fwd")

@@ -439,21 +439,51 @@ def test_cuda_lora_fused_graph_replay(cuda):
 
 
 # (N, C, H, W, groups): SDXL's 320- and 960-channel levels (cg = 10, 30),
-# SD1.5's mid block, and an odd spatial size that takes the scalar loads
+# SD1.5's mid block, and an odd spatial size that takes the generic variant
 GN_SHAPES = ((4, 320, 128, 128, 32), (4, 960, 64, 64, 32), (8, 1280, 8, 8, 32), (3, 60, 7, 5, 4))
+# (C, H) of every GroupNorm of the SD1.5 (64x64 latents) and SDXL (128x128)
+# UNets (chip_smoke.path_shapes): SD1.5 at batch 4 (serving) and 8
+# (training), SDXL at batch 4
+_SD15_GN = ((320, 32), (320, 64), (640, 16), (640, 32), (640, 64), (960, 32), (960, 64),
+            (1280, 8), (1280, 16), (1280, 32), (1920, 16), (1920, 32), (2560, 8), (2560, 16))
+_SDXL_GN = ((320, 64), (320, 128), (640, 32), (640, 64), (640, 128), (960, 64), (960, 128),
+            (1280, 32), (1280, 64), (1920, 32), (1920, 64), (2560, 32))
+GN_PATH_SHAPES = tuple(dict.fromkeys((n, c, h, h, 32) for n, shapes in (
+    (4, _SD15_GN), (8, _SD15_GN), (4, _SDXL_GN)) for c, h in shapes))
+# more groups than the card holds CTAs (each takes several in turn), and
+# S = 36: fast in fp32 (whole 16-byte vectors), generic in bf16
+GN_MORE = ((64, 320, 8, 8, 32), (2, 64, 6, 6, 8))
+
+
+def _gn_inputs(n, c, h, w_, dtype, g, dev):
+    x = (torch.randn(n, c, h, w_, device=dev, generator=g) * 2 + 0.5).to(dtype)
+    w = (torch.randn(c, device=dev, generator=g) * 0.5 + 1).to(dtype)
+    b = (torch.randn(c, device=dev, generator=g) * 0.5).to(dtype)
+    dh = torch.randn(n, c, h, w_, device=dev, generator=g).to(dtype)
+    return x, w, b, dh
+
+
+def _gn_counts():
+    return (tgn.fast_launches, tgn.generic_launches, tgn.bwd_fast_launches,
+            tgn.bwd_generic_launches)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("act", [None, "silu"])
 def test_cuda_group_norm_kernels(cuda, dtype, act):
+    """Both directions against the plain versions at GN_SHAPES, every path
+    shape and GN_MORE, each call on the variant ``variant`` names (every
+    path shape fast), dgamma/dbeta with and without gamma and beta; an
+    unaligned view takes the generic variant."""
     g = torch.Generator(device=cuda).manual_seed(5)
-    for n, c, h, w_, groups in GN_SHAPES:
-        x = (torch.randn(n, c, h, w_, device=cuda, generator=g) * 2 + 0.5).to(dtype)
-        w = (torch.randn(c, device=cuda, generator=g) * 0.5 + 1).to(dtype)
-        b = (torch.randn(c, device=cuda, generator=g) * 0.5).to(dtype)
-        dh = torch.randn(n, c, h, w_, device=cuda, generator=g).to(dtype)
-        n0, b0 = tgn.launches, tgn.bwd_launches
+    vec = 16 // torch.tensor([], dtype=dtype).element_size()
+    for n, c, h, w_, groups in GN_SHAPES + GN_PATH_SHAPES + GN_MORE:
+        x, w, b, dh = _gn_inputs(n, c, h, w_, dtype, g, cuda)
+        fast = (h * w_) % vec == 0
+        if (n, c, h, w_, groups) in GN_PATH_SHAPES:
+            assert fast
+        n0, b0, v0 = tgn.launches, tgn.bwd_launches, _gn_counts()
         y, mean, rstd = tgn.group_norm_fwd(x, groups, w, b, 1e-5, act)
         _check(y, tgn.group_norm_plain(x, groups, w, b, 1e-5, act), dtype)
         got = tgn.group_norm_bwd(x, dh, groups, w, b, mean, rstd, act)
@@ -467,6 +497,68 @@ def test_cuda_group_norm_kernels(cuda, dtype, act):
         _check(dx, tgn.group_norm_bwd_plain(x, dh, groups, None, None, 1e-5, act,
                                             (ref_mean, ref_rstd))[0], dtype)
         assert (tgn.launches, tgn.bwd_launches) == (n0 + 1, b0 + 2)
+        want_counts = (1, 0, 2, 0) if fast else (0, 1, 0, 2)
+        assert tuple(a - b for a, b in zip(_gn_counts(), v0)) == want_counts, (n, c, h, w_)
+        del x, dh, y, got, want, dx
+    # an aligned shape seen through a view 2 elements off 16 bytes
+    base = torch.randn(2 * 64 * 256 + 2, device=cuda, generator=g).to(dtype)
+    x, dh = base[2:].view(2, 64, 16, 16), torch.randn(2, 64, 16, 16, device=cuda).to(dtype)
+    assert tgn.variant(x, 8) == "generic" and tgn.variant(x.clone(), 8) == "fast"
+    v0 = _gn_counts()
+    y, mean, rstd = tgn.group_norm_fwd(x, 8, None, None, 1e-5, act)
+    _check(y, tgn.group_norm_plain(x, 8, None, None, 1e-5, act), dtype)
+    _check(tgn.group_norm_bwd(x, dh, 8, None, None, mean, rstd, act)[0],
+           tgn.group_norm_bwd_plain(x, dh, 8, None, None, 1e-5, act)[0], dtype)
+    assert tuple(a - b for a, b in zip(_gn_counts(), v0)) == (0, 1, 0, 1)
+
+
+@pytest.mark.cuda
+def test_cuda_group_norm_repeats_bit_for_bit(cuda):
+    """The fast variant adds its partial sums in a fixed order, across a
+    cluster's CTAs too: 50 calls of both directions, and one on another
+    stream, give the same bits, at S = 64 (a CTA a group) and at SDXL's
+    (4, 960, 128, 128), a cluster of 8 a group whose backward rereads the
+    part of each slice that shared memory does not hold."""
+    g = torch.Generator(device=cuda).manual_seed(14)
+    side = torch.cuda.Stream()
+    bwd_plan = tgn.plan(4, 960, 128 * 128, 32, torch.bfloat16, "bwd")
+    assert bwd_plan.k == 8 and bwd_plan.reread > 0
+    for n, c, h in ((8, 1280, 8), (4, 960, 128)):
+        x, w, b, dh = _gn_inputs(n, c, h, h, torch.bfloat16, g, cuda)
+
+        def both():
+            y, mean, rstd = tgn.group_norm_fwd(x, 32, w, b, 1e-5, "silu")
+            return (y, mean, rstd, *tgn.group_norm_bwd(x, dh, 32, w, b, mean, rstd, "silu"))
+
+        v0 = _gn_counts()
+        first = both()
+        for _ in range(50):
+            for a, ref in zip(both(), first):
+                assert torch.equal(a, ref), (n, c, h)
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            other = both()
+        torch.cuda.current_stream().wait_stream(side)
+        for a, ref in zip(other, first):
+            assert torch.equal(a, ref), (n, c, h)
+        assert tuple(a - b for a, b in zip(_gn_counts(), v0)) == (52, 0, 52, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_group_norm_graph_replay(cuda, dtype):
+    """Both fast directions captured in a CUDA graph and replayed equal the
+    eager calls: a clustered shape (SDXL's 320 x 128 x 128) and a CTA a
+    group (SD1.5's 1280 x 16 x 16)."""
+    g = torch.Generator(device=cuda).manual_seed(15)
+    for n, c, h in ((4, 320, 128), (8, 1280, 16)):
+        x, w, b, dh = _gn_inputs(n, c, h, h, dtype, g, cuda)
+        y, mean, rstd = tgn.group_norm_fwd(x, 32, w, b, 1e-5, "silu")
+        v0 = _gn_counts()
+        _graph_matches_eager(lambda: (*tgn.group_norm_fwd(x, 32, w, b, 1e-6, None),
+                                      tgn.group_norm_bwd(x, dh, 32, w, b, mean, rstd, "silu",
+                                                         want_wb=False)[0]))
+        assert tuple(a - b for a, b in zip(_gn_counts(), v0)) == (3, 0, 3, 0)
 
 
 @pytest.mark.cuda
