@@ -21,6 +21,9 @@ ends the run with a nonzero exit code, and no phase falls back to the CPU:
    Flash is checked on the UNet's layout (q, k, v head-split views of a
    (B, T, H*D) tensor; its times fill the row, with the share of the bound
    and the ratio to SDPA) and on contiguous inputs (kernel time logged).
+   The timed flash and LayerNorm rows run on rotating copies of their
+   inputs over 200 MB with the outputs held (the plain version and the
+   library call on the same copies), so the inputs come from HBM.
    The fused LoRA matmul (nt) at every adapted linear shape (M, N, K) of
    the SD1.5 b8 and SDXL b4 LoRA training legs, bf16 (the fast variant,
    which every bf16 call must take) and fp32 (the generic one), its
@@ -34,13 +37,16 @@ ends the run with a nonzero exit code, and no phase falls back to the CPU:
    against ``F.layer_norm``'s backward, the dw/db call once per dtype, each
    timed call on its own copy of x and dy, in turn, so that the inputs
    come from HBM and not from L2),
-   LoHa's four grads (fused1, and the split form, fp32, also held to the
-   fused1 kernel's grads), GroupNorm dx/dgamma/dbeta (fast and generic
+   LoHa's four grads (fused1; and the split form, fp32 and bf16, its fast
+   variant, which every path shape must take, also held to the fused1
+   kernel's grads and its generic variant to the plain version, the fp32
+   rows timed on rotating copies: fast, generic, plain and fused1, and the
+   fast variant's three launches by torch.profiler), GroupNorm dx/dgamma/dbeta (fast and generic
    variants; every path shape on the fast one, and the dx-only call of
    each, the path's, timed on rotating copies of x and dh as the LayerNorm
    backward, beside the generic variant and the library call on the same
    copies; the forward likewise in phase 2, also at the SD1.5 b8 train
-   shapes), GEGLU d_hfull, the
+   shapes), GEGLU d_hfull (timed on rotating copies of h_full and dy), the
    fused LoRA matmul's dx (nn; its library the merged route's dx GEMM,
    timed as nt's). Every LoHa path shape must take the fast
    (rank-8) variant of the forward and the fused backward; their rows are
@@ -74,8 +80,8 @@ ends the run with a nonzero exit code, and no phase falls back to the CPU:
    embedding; 3x3 convs with conv_dim 8): the adapted-layer hand count and
    the checks of phase 9;
 12. train_loha_split -- LoHa with ``ops.hada.BWD = "split"``: the split
-   kernels in place of fused1, then one loss and the adapter grads at b8
-   held to fused1's;
+   kernels in place of fused1 (every launch on the fast variant), then one
+   loss and the adapter grads at b8 held to fused1's;
 13. train_lokr_dropout -- LoKr with rank dropout 0.25 and module dropout
    0.1, 3 steps: every adapted layer takes its delta forward (the LoKr
    launch counts with factored 0); the parameters of every module kept in
@@ -96,7 +102,8 @@ Every serving and training leg fails if a flash input took the padded
 copy (``flash.pad_copies``): the UNets' layouts are read by TMA in place.
 Every training leg fails unless each LayerNorm backward took the
 vectorised variant, every LoHa leg (serving and training) unless each
-LoHa forward and fused backward took the fast variant, and every serving
+LoHa forward, fused backward and split backward took the fast variant,
+and every serving
 and training leg unless each GroupNorm forward and backward took the fast
 variant.
 
@@ -112,7 +119,9 @@ SD1.5 sums (per serving UNet call for the forward kernels, per batch-8 train
 step for the backward ones and the fused LoRA matmul) under "sd15"; the
 GroupNorm rows add the generic variant's sums (``generic_ms``), per-shape
 ``shapes`` and ``variants``, and the forward the SD1.5 b8 step's sums
-(``sd15_b8``). The last line is ``{"ok": true, "device": {...}}``.
+(``sd15_b8``); the split LoHa row adds ``variants``, ``shapes`` (each with
+the profiler's ``passes_ms``), and the generic variant's and fused1's sums
+(``generic_ms``, ``fused1_ms``, also under "sd15"). The last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -249,6 +258,30 @@ def graph_ms(fn, iters: int, replays: int = 3) -> float:
 def iters_for(nbytes: float) -> int:
     """Calls per timing graph: about 2 GB of traffic, between 3 and 100."""
     return max(3, min(100, int(2e9 / max(nbytes, 1.0))))
+
+
+def device_ms_by_kernel(fn, calls: int = 20) -> dict:
+    """Device ms per call of each kernel that ``fn`` launches, by the
+    kernel's name: torch.profiler over ``calls`` calls after two warm-up
+    calls; empty if the profiler saw no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for evt in prof.key_averages():
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = evt.self_cuda_time_total
+        if us:
+            out[evt.key] = us / 1e3 / calls
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -709,16 +742,25 @@ class Checks:
             del o, o_ref, lse, lse_ref
             times = None
             if timed and layout == "strided":
+                # rotating copies of q, k, v (the path's layout) with the
+                # outputs held, the plain version and SDPA on the same copies
                 es = q.element_size()
                 nbytes = 4 * bh * t * d * es + 4 * bh * t
+                copies = [tuple(self._flash_inputs(layout, b, bh // b, t, d, dtype, 3))
+                          for _ in range(max(2, math.ceil(ROTATE_BYTES / nbytes)))]
+                it = max(10 if t >= 4096 else 30, len(copies))
                 with torch.no_grad():
                     times = _times(
-                        lambda: flash.flash_attention(q, k, v, sm),
-                        lambda: flash.flash_attention_plain(q, k, v, sm),
-                        10 if t >= 4096 else 30,
-                        bound(4.0 * bh * t * t * d, nbytes, str(dtype)[6:]),
-                        lambda it: graph_ms(
-                            lambda: F.scaled_dot_product_attention(q, k, v, scale=sm), it))
+                        rotating(lambda *a: flash.flash_attention(*a, sm), copies, hold=True),
+                        rotating(lambda *a: flash.flash_attention_plain(*a, sm), copies,
+                                 hold=True),
+                        it, bound(4.0 * bh * t * t * d, nbytes, str(dtype)[6:]),
+                        lambda n: graph_ms(rotating(
+                            lambda *a: F.scaled_dot_product_attention(*a, scale=sm), copies,
+                            hold=True), n),
+                        plain_iters=len(copies), plain_replays=1,
+                        host=lambda: flash.flash_attention(q, k, v, sm))
+                del copies
                 flash_ratios("flash_fwd", path, bh, t, d, times)
             elif timed:
                 with torch.no_grad():
@@ -741,12 +783,21 @@ class Checks:
         torch.cuda.synchronize()
         times = None
         if timed:
+            # rotating copies of x with the outputs held (the kernel, the
+            # plain version and the library alike), so x comes from HBM
             n, es = x.numel(), x.element_size()
             nbytes = 2 * n * es + 2 * c * es
-            times = _times(lambda: layer_norm.layer_norm(x, w, b, 1e-5),
-                           lambda: layer_norm.layer_norm_plain(x, w, b, 1e-5), iters_for(nbytes),
-                           bound(8.0 * n, nbytes, str(dtype)[6:]),
-                           lambda it: graph_ms(lambda: F.layer_norm(x, (c,), w, b, 1e-5), it))
+            copies = [(x.clone(),) for _ in range(max(2, math.ceil(ROTATE_BYTES / nbytes)))]
+            it = max(iters_for(nbytes), len(copies))
+            times = _times(
+                rotating(lambda xc: layer_norm.layer_norm(xc, w, b, 1e-5), copies, hold=True),
+                rotating(lambda xc: layer_norm.layer_norm_plain(xc, w, b, 1e-5), copies,
+                         hold=True),
+                it, bound(8.0 * n, nbytes, str(dtype)[6:]),
+                lambda it: graph_ms(rotating(lambda xc: F.layer_norm(xc, (c,), w, b, 1e-5),
+                                             copies, hold=True), it),
+                host=lambda: layer_norm.layer_norm(x, w, b, 1e-5))
+            del copies
         record(self.results, "layer_norm_fwd", path, compare(dtype, y, y_ref), f"({rows},{c})",
                times, per_call)
 
@@ -1261,30 +1312,89 @@ class Checks:
             torch.bfloat16, dx, lf.fused_lora_dx_plain(g, w, down, up, 0.5)),
             f"({m},{n},{k}) R{r} fast")
 
+    @staticmethod
+    def _off16(t):
+        """A contiguous copy of ``t`` one element past a 16-byte boundary,
+        which the generic LoHa variants take."""
+        import torch
+
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        out = buf[1:].view(t.shape)
+        out.copy_(t)
+        return out
+
     def hada_bwd_split(self, path, o_, i_, dtype, per_call, timed):
+        """The split backward, fast variant, against its plain version and
+        against the fused1 kernel (rel L2 1e-5), and its generic variant (on
+        copies one element off 16 bytes) against the plain version. Timed
+        like the fused backward, on rotating copies with the outputs held:
+        the fast variant, the generic one ("gen", on copies off 16 bytes),
+        the plain version and fused1; then each launch of the fast variant
+        by torch.profiler (:func:`device_ms_by_kernel`)."""
         import torch
         from lycoris_tpu_torch.ops import hada
 
         w1d, w1u, w2d, w2u, g = self._hada_factors(o_, i_, 8, dtype)
-        got = hada.hada_bwd_split(w1d, w1u, w2d, w2u, 0.5, g)
+        got = self._fast_variant("hada_bwd_split", "hada", "split_fast_launches",
+                                 lambda: hada.hada_bwd_split(w1d, w1u, w2d, w2u, 0.5, g))
         want = hada.hada_weight_bwd_split_plain(w1d, w1u, w2d, w2u, 0.5, g)
         fused = hada.hada_bwd(w1d, w1u, w2d, w2u, 0.5, g)
+        n = hada.split_generic_launches
+        gen = hada.hada_bwd_split(*map(self._off16, (w1d, w1u, w2d, w2u)), 0.5, self._off16(g))
+        if hada.split_generic_launches != n + 1:
+            fail(f"hada_bwd_split ({o_},{i_}): copies off 16 bytes did not take the generic "
+                 f"variant")
         torch.cuda.synchronize()
+        # fp32: the two forms differ only in summation order; bf16 grads are
+        # rounded, so a sum one side of a rounding boundary is a bf16 step
         vs_fused = max(rel_l2(a, f) for a, f in zip(got, fused))
-        log(f"[kernels] hada_bwd_split {path} ({o_},{i_}) against the fused1 kernel: rel L2 "
-            f"{vs_fused:.3e} (bound 1e-5)")
+        ok_fused = (vs_fused <= 1e-5 if dtype == torch.float32
+                    else compare_all(dtype, got, fused)[0])
+        gate = "1e-5" if dtype == torch.float32 else "the bf16 gates"
+        ok_gen, _, _, rel_gen, _, _ = compare_all(dtype, gen, want)
+        log(f"[kernels] hada_bwd_split {path} {str(dtype)[6:]} ({o_},{i_}) against the fused1 "
+            f"kernel: rel L2 {vs_fused:.3e} (bound {gate}); generic variant against the plain "
+            f"version: rel L2 {rel_gen:.3e}")
+        del gen, fused
         times = None
         if timed:
             nbytes = (o_ * i_ + 4 * 8 * (o_ + i_)) * g.element_size()
+            copies = self._hada_copies(o_, i_, dtype, nbytes)
+            it = max(iters_for(nbytes), len(copies))
             # the function's own cost, as for hada_bwd: g and the factors
             # read once, the four grads written, 6R multiply-adds per element
             # of g (the split form reads g twice and forms both products in
-            # each kernel: its extra work, not the function's)
-            times = _times(lambda: hada.hada_bwd_split(w1d, w1u, w2d, w2u, 0.5, g),
-                           lambda: hada.hada_weight_bwd_split_plain(w1d, w1u, w2d, w2u, 0.5, g),
-                           iters_for(nbytes), bound(2.0 * 6 * 8 * o_ * i_, nbytes, "float32"))
+            # each pass: its extra work, not the function's)
+            times = _times(
+                rotating(lambda *f: hada.hada_bwd_split(*f[:4], 0.5, f[4]), copies, hold=True),
+                rotating(lambda *f: hada.hada_weight_bwd_split_plain(*f[:4], 0.5, f[4]), copies,
+                         hold=True),
+                it, bound(2.0 * 6 * 8 * o_ * i_, nbytes, "float32"),
+                host=lambda: hada.hada_bwd_split(w1d, w1u, w2d, w2u, 0.5, g))
+            fused_ms = graph_ms(rotating(lambda *f: hada.hada_bwd(*f[:4], 0.5, f[4]), copies,
+                                         hold=True), it)
+            copies = [tuple(map(self._off16, c)) for c in copies]
+            generic_ms = graph_ms(rotating(lambda *f: hada.hada_bwd_split(*f[:4], 0.5, f[4]),
+                                           copies, hold=True), it)
+            del copies
+            passes = device_ms_by_kernel(lambda: hada.hada_bwd_split(w1d, w1u, w2d, w2u, 0.5, g))
+            parts = {"u_pass": 0.0, "d_pass": 0.0, "adder": 0.0}
+            for name, ms in passes.items():
+                key = ("adder" if "reduce" in name else "u_pass" if "true, false" in name
+                       else "d_pass" if "false, true" in name else None)
+                if key:
+                    parts[key] += ms
+            self._hada_share("hada_bwd_split", path, o_, i_, times, per_call)
+            self.results["hada_bwd_split"]["shapes"][-1].update(
+                generic_ms=generic_ms, fused1_ms=fused_ms,
+                passes_ms=parts if passes else "not measured")
+            ms = times[0]
+            log(f"[kernels] hada_bwd_split {path} ({o_},{i_}) rotating copies: fast {ms:.4f} ms, "
+                f"generic {generic_ms:.4f} ms, plain {times[2]:.4f} ms, fused1 {fused_ms:.4f} ms "
+                f"({ms / fused_ms:.2f}x fused1); the fast variant's launches by the profiler "
+                f"(one input): {parts if passes else 'not measured'}")
         ok, *stats = compare_all(dtype, got, want)
-        record(self.results, "hada_bwd_split", path, (ok and vs_fused <= 1e-5, *stats),
+        record(self.results, "hada_bwd_split", path, (ok and ok_gen and ok_fused, *stats),
                f"({o_},{i_})", times, per_call)
 
     def geglu_bwd(self, path, b, t, f2, dtype, per_call, timed):
@@ -1300,10 +1410,16 @@ class Checks:
         if timed:
             n = b * t * f2 // 2
             nbytes = 5 * n * h_full.element_size()  # h, gate, dy read; two halves written
-            # no single PyTorch call computes this backward: library_ms stays None
-            times = _times(lambda: geglu.geglu_bwd(h_full, dy),
-                           lambda: geglu.geglu_bwd_plain(h_full, dy), iters_for(nbytes),
-                           bound(25.0 * n, nbytes, "float32"))
+            # rotating copies of h_full and dy with the outputs held; no
+            # single PyTorch call computes this backward: library_ms stays None
+            copies = [(h_full.clone(), dy.clone())
+                      for _ in range(max(2, math.ceil(ROTATE_BYTES / nbytes)))]
+            it = max(iters_for(nbytes), len(copies))
+            times = _times(rotating(geglu.geglu_bwd, copies, hold=True),
+                           rotating(geglu.geglu_bwd_plain, copies, hold=True), it,
+                           bound(25.0 * n, nbytes, "float32"),
+                           host=lambda: geglu.geglu_bwd(h_full, dy))
+            del copies
         record(self.results, "geglu_bwd", path, compare(dtype, got, want), f"({b},{t},{f2})",
                times, per_call)
 
@@ -1381,7 +1497,8 @@ def phase_kernels_bwd(results: dict):
             for dt in dts:
                 ck.geglu_bwd(path, bb, t, f2, dt, n, dt == dts[0])
         for (o_, i_), n in sh["hada"].items():
-            ck.hada_bwd_split(path, o_, i_, torch.float32, n, True)
+            for dt in (torch.float32, torch.bfloat16):
+                ck.hada_bwd_split(path, o_, i_, dt, n, dt == torch.float32)
         for (m, n_, k), layers in sh["lora"].items():
             for dt in (torch.bfloat16, torch.float32):
                 ck.lora_fused_nn(path, m, n_, k, dt, layers, dt == torch.bfloat16)
@@ -1612,6 +1729,7 @@ def reset_counts():
     flash.bwd_launches = layer_norm.bwd_launches = hada.bwd_launches = 0
     group_norm.bwd_launches = geglu.bwd_launches = group_norm.copies = flash.pad_copies = 0
     lora_fused.launches = lora_fused.dx_launches = hada.split_launches = 0
+    hada.split_fast_launches = hada.split_generic_launches = 0
     lora_fused.launches_fast = lora_fused.dx_launches_fast = 0
     layer_norm.bwd_vec_launches = layer_norm.bwd_generic_launches = 0
     hada.fast_launches = hada.generic_launches = 0
@@ -1648,10 +1766,10 @@ def check_ln_vectorised(tag: str, counts: dict) -> None:
 
 
 def check_fast(tag: str, counts: dict) -> None:
-    """Fail unless every LoHa forward and fused backward, and every
-    GroupNorm forward and backward, since the last reset took the fast
-    variant (every LoHa layer of the SD1.5 and SDXL paths is rank 8, every
-    GroupNorm shape holds whole 16-byte rows)."""
+    """Fail unless every LoHa forward, fused backward and split backward,
+    and every GroupNorm forward and backward, since the last reset took the
+    fast variant (every LoHa layer of the SD1.5 and SDXL paths is rank 8,
+    every GroupNorm shape holds whole 16-byte rows)."""
     from lycoris_tpu_torch.ops import group_norm, hada
 
     for what, ops, fwd, bwd in (("LoHa", hada, "hada_fwd", "hada_bwd"),
@@ -1661,6 +1779,10 @@ def check_fast(tag: str, counts: dict) -> None:
         if got != (counts[fwd], 0, counts[bwd], 0):
             fail(f"{tag} {what}: forward {got[0]} fast and {got[1]} generic of {counts[fwd]}, "
                  f"backward {got[2]} fast and {got[3]} generic of {counts[bwd]}")
+    split = (hada.split_fast_launches, hada.split_generic_launches)
+    if split != (counts["hada_bwd_split"], 0):
+        fail(f"{tag} LoHa split backward: {split[0]} fast and {split[1]} generic of "
+             f"{counts['hada_bwd_split']}")
 
 
 def gn_copies() -> int:
@@ -1902,7 +2024,8 @@ def train(model, algo, sd, batch, want, steps, results, card, tag, path=None, ad
             # every one vectorised or fast (checked per step)
             if name == "layer_norm_bwd":
                 results[name]["variants"] = {"vectorised": totals[name], "generic": 0}
-            if name in ("hada_fwd", "hada_bwd", "group_norm_fwd", "group_norm_bwd"):
+            if name in ("hada_fwd", "hada_bwd", "hada_bwd_split", "group_norm_fwd",
+                        "group_norm_bwd"):
                 results[name]["variants"] = {"fast": totals[name], "generic": 0}
     changed = {(ln, k) for ln, sub in net.trainable_params().items() for k, p in sub.items()
                if not torch.equal(p.detach(), before[ln, k])}
@@ -2152,6 +2275,41 @@ def gn_step_sums(row: dict) -> None:
         f"generic one: {slower or 'none'} of {len(row['shapes'])}")
 
 
+def split_step_sums(row: dict) -> None:
+    """The split backward's sums over its rotating-copy shapes, each weighted
+    by its layers a step: the generic variant's and fused1's ms beside the
+    fast one's, per SDXL b4 step (``generic_ms``, ``fused1_ms``) and SD1.5
+    b8 step (under "sd15"); logged with the share of the bound, then the
+    path shapes where the fast variant is slower than the generic one or
+    the plain version, and the profiler's split of the fast variant's
+    device time between the u-pass, the d-pass and the adder (the d-pass
+    and the adder are dependent launches: their times overlap the kernel
+    before, and the adder's include its wait)."""
+    keys = ("ms", "generic_ms", "fused1_ms", "plain_ms", "bound_ms")
+
+    def tot(path):
+        return {k: sum(sh[k] * sh["per"] for sh in row["shapes"] if sh["path"] == path)
+                for k in keys}
+
+    for where, path, r in (("SDXL b4 step", "sdxl", row), ("SD1.5 b8 step", "sd15", row["sd15"])):
+        t = tot(path)
+        r["generic_ms"], r["fused1_ms"] = t["generic_ms"], t["fused1_ms"]
+        parts = [sh["passes_ms"] for sh in row["shapes"]
+                 if sh["path"] == path and isinstance(sh.get("passes_ms"), dict)]
+        split = ("not measured" if not parts else ", ".join(
+            f"{k} {sum(p[k] for p in parts) / sum(sum(p.values()) for p in parts):.1%}"
+            for k in ("u_pass", "d_pass", "adder")))
+        log(f"[kernels] hada_bwd_split per {where} (rotating copies): fast {t['ms']:.3f} ms, "
+            f"{t['bound_ms'] / t['ms']:.1%} of its bound {t['bound_ms']:.3f} ms; generic "
+            f"{t['generic_ms']:.3f} ms; fused1 {t['fused1_ms']:.3f} ms "
+            f"({t['ms'] / t['fused1_ms']:.2f}x); plain {t['plain_ms']:.3f} ms; the fast "
+            f"variant's device time over its path shapes (profiler, unweighted): {split}")
+    slower = [f"{sh['path']} {tuple(sh['shape'])}" for sh in row["shapes"]
+              if sh["ms"] > min(sh["generic_ms"], sh["plain_ms"])]
+    log(f"[kernels] hada_bwd_split path shapes where the fast variant is slower than the "
+        f"generic one or the plain version: {slower or 'none'} of {len(row['shapes'])}")
+
+
 def main() -> int:
     if not (ROOT / "lycoris_tpu_torch" / "csrc").is_dir():
         print("chip_smoke: lycoris_tpu_torch/ not found beside this script", file=sys.stderr)
@@ -2284,6 +2442,8 @@ def main() -> int:
                 f"{slower or 'none'} of {len(row['shapes'])}")
         if row["name"] in ("group_norm_fwd", "group_norm_bwd"):
             gn_step_sums(row)
+        if row["name"] == "hada_bwd_split":
+            split_step_sums(row)
         if row["name"] in ("hada_fwd", "hada_bwd"):
             for where, r in (("SDXL step", row), ("SD1.5 " + ("call" if "fwd" in row["name"]
                                                              else "b8 step"), row["sd15"])):

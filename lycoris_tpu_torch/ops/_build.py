@@ -48,7 +48,7 @@ _SIGNATURES = {
     "lyc_lora_fused_nt": [_P] * 5 + [_I] * 4 + [_F, _I, _I, _P],
     "lyc_lora_fused_nn": [_P] * 5 + [_I] * 4 + [_F, _I, _I, _P],
     "lyc_lora_fused_fast": [_P] * 6 + [_I] * 4 + [_F] + [_I] * 4 + [_P],
-    "lyc_hada_bwd_split": [_P] * 9 + [_I, _I, _I, _F, _I, _P],
+    "lyc_hada_bwd_split": [_P] * 7 + [_I] * 5 + [_F, _I, _I, _P],
 }
 
 

@@ -38,12 +38,21 @@ def geglu_fwd_plain(h_full):
 
 def geglu_bwd_plain(h_full, dy):
     """d_hfull (h_full's shape and dtype): gelu and gelu' in fp32, each half
-    rounded once."""
+    rounded once.
+
+    The tanh form through sigmoids: with u = K0 (z + K1 z^3) and s =
+    sigmoid(2u), 0.5 (1 + tanh u) = s and 1 - tanh^2 u = 4 s sigmoid(-2u),
+    so gelu = z s and gelu' = s + 2 z s sigmoid(-2u) K0 (1 + 3 K1 z^2).
+    ``torch.tanh`` is not used: on torch 2.13's CPU build its first
+    vectorised call in a process, over 8 threads, was seen to get one
+    thread's rows wrong by about 1e-4 relative, which gelu' amplifies.
+    sigmoid(-2u) stands for 1 - s, which cancels where s is near 1."""
     h, gate = h_full.float().chunk(2, dim=-1)
     d = dy.float()
-    t = torch.tanh(_K0 * (gate + _K1 * gate * gate * gate))
-    gelu = 0.5 * gate * (1.0 + t)
-    dgelu = 0.5 * (1.0 + t) + 0.5 * gate * (1.0 - t * t) * _K0 * (1.0 + 3.0 * _K1 * gate * gate)
+    u2 = (2.0 * _K0) * (gate + _K1 * gate * gate * gate)
+    s, s_neg = torch.sigmoid(u2), torch.sigmoid(-u2)
+    gelu = gate * s
+    dgelu = s + 2.0 * gate * s * s_neg * _K0 * (1.0 + 3.0 * _K1 * gate * gate)
     return torch.cat([d * gelu, d * h * dgelu], dim=-1).to(h_full.dtype)
 
 

@@ -12,10 +12,11 @@ Dispatch follows the JAX gate (:func:`supported`: O >= 8 and I >= 128, any
 rank); smaller layers take the functional path in ``functional/loha.py``,
 as they do in the JAX package.
 
-The forward and the fused backward kernels each have two variants: a fast
-one built for the path's rank, R = 8, for 16-byte aligned tensors whose I
-is a multiple of 4 (:func:`fast`; every LoHa layer of the SD1.5 and SDXL
-paths), and a generic one for every other rank and layout.
+The forward, the fused backward and the split backward kernels each have
+two variants: a fast one built for the path's rank, R = 8, for 16-byte
+aligned tensors whose I is a multiple of 4 (:func:`fast`; every LoHa layer
+of the SD1.5 and SDXL paths), and a generic one for every other rank and
+layout.
 
 :func:`hada_weight` is a :class:`HadaWeightFunction`: it saves only the
 four factors, and its backward recomputes both products tile by tile. Each
@@ -36,7 +37,9 @@ generic_launches = 0  # and of the generic one
 bwd_launches = 0  # fused1 backward calls (each launches a kernel and its reduction), likewise
 bwd_fast_launches = 0  # of those, calls of the fast variant
 bwd_generic_launches = 0  # and of the generic one
-split_launches = 0  # split backward calls (each launches the u- and the d-kernel)
+split_launches = 0  # split backward calls (each launches a u- and a d-kernel), likewise
+split_fast_launches = 0  # of those, calls of the fast variant (and its adder of partials)
+split_generic_launches = 0  # and of the generic one
 
 # the backward HadaWeightFunction runs, read at every call: "fused1" or
 # "split" (the counterpart of the JAX package's LYCORIS_TPU_HADA_BWD)
@@ -45,10 +48,11 @@ BWD = "fused1"
 _BWD_COLS, _BWD_TILE = 128, 16  # hada_bwd.cu: columns of one block, rows of one tile
 _BWD_BLOCKS = 2 * 132  # aim: two blocks per SM of an H100
 
-FAST_RANK = 8  # the rank the fast variants are built for (hada_fwd.cu, hada_bwd.cu)
+FAST_RANK = 8  # the rank the fast variants are built for (hada_fwd.cu, hada_r8.cuh)
 _FAST_COLS = 128  # columns of a fast block: 32 lanes x 4
 _FWD_ROWS_MAX = 512  # a fast forward block's rows (their u-values in shared memory)
 _BWD_ROWS_MAX = 1024  # a fast backward block's rows (their u-values in shared memory)
+_SPLIT_U_BLOCKS = 2  # blocks an SM of the split's u-pass (hada_bwd_split.cu U_BLOCKS)
 _sms: dict = {}  # device index -> SM count
 
 
@@ -90,6 +94,25 @@ def bwd_grid(o: int, i: int, sms: int) -> tuple[int, int, int]:
     rows_min = -(-2 * FAST_RANK * i // d_budget) if d_budget > 0 else o
     rpb = -(-o // max(1, min(o // rows_min, sms // gx), -(-o // _BWD_ROWS_MAX)))
     return gx, -(-o // rpb), rpb
+
+
+def split_grid(o: int, i: int, sms: int) -> tuple[int, int, int, int, int]:
+    """(column strips, u-pass runs of rows, rows per u-pass run, d-pass runs,
+    rows per d-pass run) of the fast split backward. Both passes split the
+    columns into strips of 128 and the rows into runs. The u-pass makes
+    about two blocks per SM (two fit on one), each with at least a row a
+    warp; the d-pass one wave of one block per SM, each with at least 16
+    rows (two a warp), so its d-grad partials (2R floats per column and
+    run) stay within fp32 g's elements. A run has at most 1024 rows (their
+    u-values fill shared memory)."""
+    gx = -(-i // _FAST_COLS)
+
+    def runs(blocks: int, min_rows: int) -> tuple[int, int]:
+        n = max(1, min(blocks // gx, o // min_rows), -(-o // _BWD_ROWS_MAX))
+        rpb = -(-o // n)
+        return -(-o // rpb), rpb
+
+    return (gx, *runs(_SPLIT_U_BLOCKS * sms, 8), *runs(sms, 16))
 
 
 def _sm_count(dev) -> int:
@@ -236,18 +259,31 @@ def hada_bwd(w1d, w1u, w2d, w2u, scale, g):
 
 def hada_bwd_split(w1d, w1u, w2d, w2u, scale, g):
     """The split backward kernels on CUDA tensors: (g1d, g1u, g2d, g2u) in
-    the factors' dtype for the cotangent ``g`` (O, I)."""
-    global split_launches
+    the factors' dtype for the cotangent ``g`` (O, I). The fast variant
+    where :func:`fast` allows it (a u-pass, a d-pass, then the adder of
+    their partial sums, over the grid of :func:`split_grid`), else the
+    generic one (a u- and a d-kernel). The fp32 scratch of the partial sums
+    is one allocation, the four gradients another."""
+    global split_launches, split_fast_launches, split_generic_launches
     o, i, r, g, w1d, w1u, w2d, w2u = _bwd_inputs("hada_weight_bwd_split", w1d, w1u, w2d, w2u, g)
-    out = torch.empty(2 * r * (i + o), dtype=torch.float32, device=g.device)
-    at, ri, ro = out.data_ptr(), 4 * r * i, 4 * o * r  # byte offsets of the four grads
+    dev = g.device
+    is_fast = fast(i, r, g, w1d, w1u, w2d, w2u)
+    part, rpb_u, rpb_d = None, 0, 0
+    if is_fast:
+        gx, _, rpb_u, gy_d, rpb_d = split_grid(o, i, _sm_count(dev))
+        part = torch.empty((gx * o + gy_d * i) * 2 * r, dtype=torch.float32, device=dev)
+    out = torch.empty(2 * r * (i + o), dtype=torch.float32, device=dev)
     rc = _build.lib().lyc_hada_bwd_split(
         g.data_ptr(), w1d.data_ptr(), w1u.data_ptr(), w2d.data_ptr(), w2u.data_ptr(),
-        at, at + 2 * ri, at + ri, at + 2 * ri + ro, o, i, r, float(scale),
-        _build.dtype_code(w1u), _build.stream_ptr(w1u),
+        _build.ptr(part), out.data_ptr(), o, i, r, rpb_u, rpb_d, float(scale),
+        _build.dtype_code(w1u), int(is_fast), _build.stream_ptr(g),
     )
     _build.check(rc, "lyc_hada_bwd_split")
     split_launches += 1
+    if is_fast:
+        split_fast_launches += 1
+    else:
+        split_generic_launches += 1
     return _outputs(out, o, i, r, w1u)
 
 

@@ -140,6 +140,46 @@ def test_geglu_matches_jax_kernel(monkeypatch):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **GRAD)
 
 
+# a fresh interpreter whose first torch computation is the plain GEGLU
+# backward, over 8 intra-op threads, on test_geglu_matches_jax_kernel's input
+_FIRST_CALL = """
+import sys
+import numpy as np
+rng = np.random.default_rng(3)
+h_full = (rng.standard_normal((1, 512, 512)) * 2.0).astype(np.float32)
+dy = rng.standard_normal((1, 512, 256)).astype(np.float32)
+import torch
+from lycoris_tpu_torch.ops.geglu import geglu_bwd_plain
+torch.set_num_threads(8)
+np.save(sys.argv[1], geglu_bwd_plain(torch.tensor(h_full), torch.tensor(dy)).numpy())
+"""
+
+
+def test_geglu_bwd_plain_first_call_in_fresh_processes(tmp_path):
+    """The plain GEGLU backward is right on its first call in a process: 8
+    fresh interpreters at once, each against a float64 computation of the
+    tanh form at the GRAD bound."""
+    import subprocess
+
+    root = Path(__file__).resolve().parent.parent
+    outs = [tmp_path / f"d_hfull_{k}.npy" for k in range(8)]
+    procs = [subprocess.Popen([sys.executable, "-c", _FIRST_CALL, str(out)], cwd=root,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for out in outs]
+    logs = [p.communicate(timeout=300)[0] for p in procs]
+    assert all(p.returncode == 0 for p in procs), logs
+    rng = np.random.default_rng(3)
+    h_full = (rng.standard_normal((1, 512, 512)) * 2.0).astype(np.float32).astype(np.float64)
+    d = rng.standard_normal((1, 512, 256)).astype(np.float32).astype(np.float64)
+    h, z = h_full[..., :256], h_full[..., 256:]
+    k0, k1 = np.sqrt(2.0 / np.pi), 0.044715
+    t = np.tanh(k0 * (z + k1 * z**3))
+    dgelu = 0.5 * (1.0 + t) + 0.5 * z * (1.0 - t * t) * k0 * (1.0 + 3.0 * k1 * z * z)
+    want = np.concatenate([d * 0.5 * z * (1.0 + t), d * h * dgelu], axis=-1)
+    for out in outs:
+        np.testing.assert_allclose(np.load(out), want, **GRAD, err_msg=out.name)
+
+
 def test_cpu_wrappers_use_plain_and_count_nothing():
     before = (tgn.launches, tgn.bwd_launches, tgn.copies, tgeglu.bwd_launches)
     x = torch.randn(2, 32, 8, 8, requires_grad=True)

@@ -314,16 +314,17 @@ def test_cuda_hada_graph_replay(cuda, dtype):
 def test_cuda_hada_bwd_split_kernel(cuda, dtype, monkeypatch):
     """The split backward against its plain version and against the fused1
     kernel on the same inputs (fp32: rel L2 1e-5, the sums differ only in
-    order), and HadaWeightFunction's backward following ``hada.BWD``."""
+    order), the rank-8 layers through the fast variant, and
+    HadaWeightFunction's backward following ``hada.BWD``."""
     g = torch.Generator(device=cuda).manual_seed(8)
     for o, i, r in ((320, 320, 8), (10240, 1280, 8), (1280, 5120, 8), (100, 130, 40)):
         w1d, w2d = (torch.randn(r, i, device=cuda, generator=g).to(dtype) for _ in range(2))
         w1u, w2u = ((0.1 * torch.randn(o, r, device=cuda, generator=g)).to(dtype) for _ in range(2))
         gr = (torch.randn(o, i, device=cuda, generator=g) * 1e-3).to(dtype)
         want = thada.hada_weight_bwd_split_plain(w1d, w1u, w2d, w2u, 0.5, gr)
-        n = thada.split_launches
+        n = (thada.split_launches, thada.split_fast_launches)
         got = thada.hada_bwd_split(w1d, w1u, w2d, w2u, 0.5, gr)
-        assert thada.split_launches == n + 1
+        assert (thada.split_launches - n[0], thada.split_fast_launches - n[1]) == (1, int(r == 8))
         fused = thada.hada_bwd(w1d, w1u, w2d, w2u, 0.5, gr)
         for a, w, f in zip(got, want, fused):
             _check(a, w, dtype)
@@ -338,6 +339,77 @@ def test_cuda_hada_bwd_split_kernel(cuda, dtype, monkeypatch):
     assert (thada.split_launches, thada.bwd_launches) == (n + 1, n1)
     for leaf, w in zip(leaves, thada.hada_weight_bwd_split_plain(w1d, w1u, w2d, w2u, 0.5, gr)):
         _check(leaf.grad, w, dtype)
+
+
+# ((O, I, R), offset, variant) of the split backward: the path's shapes
+# through both variants; ragged O with a ragged last column strip through
+# the fast one; I % 4 != 0, and ranks 1, 31, 33 and 100 (one, two and four
+# chunks of 32 ranks), through the generic one
+SPLIT_CASES = ([((o, i, 8), 0, "fast") for o, i in HADA_PATH_SHAPES]
+               + [((o, i, 8), 1, "generic") for o, i in ((320, 320), (1280, 1280), (10240, 1280))]
+               + [((1001, 132, 8), 0, "fast"), ((1001, 130, 8), 0, "generic")]
+               + [((640, 640, r), 0, "generic") for r in (1, 31, 33, 100)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_hada_split_variants(cuda, dtype):
+    """Each split case through the variant it names (counted per variant),
+    against the split's plain version and against the fused1 kernel on the
+    same inputs (fp32: rel L2 1e-5)."""
+    g = torch.Generator(device=cuda).manual_seed(14)
+    for (o, i, r), offset, variant in SPLIT_CASES:
+        w1d, w1u, w2d, w2u, gr = _hada_factors(o, i, r, dtype, g, cuda, offset)
+        n = (thada.split_launches, thada.split_fast_launches, thada.split_generic_launches)
+        got = thada.hada_bwd_split(w1d, w1u, w2d, w2u, 0.5, gr)
+        fast = variant == "fast"
+        assert (thada.split_launches - n[0], thada.split_fast_launches - n[1],
+                thada.split_generic_launches - n[2]) == (1, int(fast), int(not fast)), (o, i, r)
+        want = thada.hada_weight_bwd_split_plain(w1d, w1u, w2d, w2u, 0.5, gr)
+        fused = thada.hada_bwd(w1d, w1u, w2d, w2u, 0.5, gr)
+        for a, w, f in zip(got, want, fused):
+            assert a.shape == w.shape and a.dtype == w.dtype, (o, i, r)
+            _check(a, w, dtype)
+            if dtype == torch.float32:
+                assert float((a - f).norm() / f.norm()) <= 1e-5, (o, i, r, offset)
+            else:
+                _check(a, f, dtype)
+
+
+@pytest.mark.cuda
+def test_cuda_hada_split_repeats_bit_for_bit(cuda):
+    """The split backward's sums are added in a fixed order: 50 more calls,
+    and one on another stream, give the same bits (the fast variant at the
+    path's shapes, the generic one at rank 8 off 16 bytes and at rank 33)."""
+    g = torch.Generator(device=cuda).manual_seed(15)
+    side = torch.cuda.Stream()
+    for (o, i, r), offset in (((1280, 1280, 8), 0), ((10240, 1280, 8), 0), ((320, 320, 8), 0),
+                              ((1280, 1280, 8), 1), ((640, 640, 33), 0)):
+        *factors, gr = _hada_factors(o, i, r, torch.float32, g, cuda, offset)
+        args = (*factors, 0.5)
+        first = thada.hada_bwd_split(*args, gr)
+        for _ in range(50):
+            again = thada.hada_bwd_split(*args, gr)
+            assert all(torch.equal(a, b) for a, b in zip(first, again)), (o, i, r, offset)
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            other = thada.hada_bwd_split(*args, gr)
+        torch.cuda.current_stream().wait_stream(side)
+        assert all(torch.equal(a, c) for a, c in zip(first, other)), (o, i, r, offset)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_hada_split_graph_replay(cuda, dtype):
+    """The split backward captured in a CUDA graph and replayed equals the
+    eager call, in both variants."""
+    g = torch.Generator(device=cuda).manual_seed(16)
+    for offset in (0, 1):
+        w1d, w1u, w2d, w2u, gr = _hada_factors(1280, 1280, 8, dtype, g, cuda, offset)
+        n = (thada.split_fast_launches, thada.split_generic_launches)
+        _graph_matches_eager(lambda: thada.hada_bwd_split(w1d, w1u, w2d, w2u, 0.5, gr))
+        assert (thada.split_fast_launches - n[0],
+                thada.split_generic_launches - n[1]) == ((3, 0) if offset == 0 else (0, 3))
 
 
 # (M, N, K): the LoRA linear shapes of the paths that the fast variant must

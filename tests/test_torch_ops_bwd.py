@@ -454,3 +454,53 @@ def test_hada_fast_grids(sms):
         fx, fy, frpb = thada.fwd_grid(o, i, sms)
         assert fx == gx and (fy - 1) * frpb < o <= fy * frpb and frpb <= 512, (o, i)
         assert fx * fy <= max(2 * sms, fx * -(-o // 512)), (o, i)
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+def test_hada_split_grid(sms):
+    """The fast split backward's two grids cover every row and column once
+    with runs of at most 1024 rows. At every path shape the u-pass makes
+    about as many blocks as two per SM hold, the d-pass as one per SM
+    holds, unless a block would be left with too few rows: a u-pass block
+    has a row for each warp, a d-pass block two. The d-pass's partial sums
+    stay within fp32 g's elements, the u-pass's within a sixth of them."""
+    for o, i in HADA_PATH_SHAPES + ((100, 132), (8, 128), (40960, 1280), (7, 4), (1, 4)):
+        gx, gy_u, rpb_u, gy_d, rpb_d = thada.split_grid(o, i, sms)
+        assert (gx - 1) * 128 < i <= gx * 128, (o, i)
+        for gy, rpb in ((gy_u, rpb_u), (gy_d, rpb_d)):
+            assert 1 <= rpb <= 1024 and (gy - 1) * rpb < o <= gy * rpb, (o, i, gy, rpb)
+        assert rpb_u >= min(o, 8) and rpb_d >= min(o, 16), (o, i)
+        if (o, i) in HADA_PATH_SHAPES:
+            assert gx * gy_u <= 2 * sms and gx * gy_d <= sms, (o, i)
+            # the fewest rows a run: one row fewer would need more runs than
+            # the blocks an SM holds, or leave a block short of rows
+            assert -(-o // (rpb_u - 1)) > min(2 * sms // gx, o // 8), (o, i)
+            assert -(-o // (rpb_d - 1)) > min(sms // gx, o // 16), (o, i)
+            assert gy_d * i * 16 <= o * i and gx * o * 16 <= o * i / 6, (o, i)
+    assert thada.split_grid(10240, 1280, 132) == (10, 26, 394, 13, 788)
+    assert thada.split_grid(320, 320, 132) == (3, 40, 8, 20, 16)
+
+
+def test_hada_split_on_cpu_takes_plain_and_counts_nothing():
+    """On CPU tensors the split backward takes its plain version and counts
+    no launch of either variant; its kernel wrapper raises."""
+    rng = np.random.default_rng(5)
+    w1d, w2d = (torch.tensor(rng.standard_normal((8, 128)), dtype=torch.float32)
+                for _ in range(2))
+    w1u, w2u = (torch.tensor(0.1 * rng.standard_normal((64, 8)), dtype=torch.float32)
+                for _ in range(2))
+    g = torch.tensor(1e-3 * rng.standard_normal((64, 128)), dtype=torch.float32)
+    before = (thada.split_launches, thada.split_fast_launches, thada.split_generic_launches)
+    old = thada.BWD
+    thada.BWD = "split"
+    try:
+        got = thada.hada_weight_bwd(w1d, w1u, w2d, w2u, 0.5, g)
+    finally:
+        thada.BWD = old
+    want = thada.hada_weight_bwd_split_plain(w1d, w1u, w2d, w2u, 0.5, g)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert (thada.split_launches, thada.split_fast_launches,
+            thada.split_generic_launches) == before
+    with pytest.raises(RuntimeError, match="no kernel"):
+        thada.hada_bwd_split(w1d, w1u, w2d, w2u, 0.5, g)
