@@ -7,8 +7,9 @@ Phases, each printing its own lines and its wall time; the first failure
 ends the run with a nonzero exit code, and no phase falls back to the CPU:
 
 1. build  -- compile the CUDA kernels from ``lycoris_tpu_torch/csrc`` (one
-   ``nvcc`` per source, all at once), print each flash kernel's registers
-   and spilled bytes from the ptxas report (a spill fails the run), and
+   ``nvcc`` per source, all at once), print each flash and LayerNorm
+   forward kernel's registers and spilled bytes from the ptxas report (a
+   spill fails the run), and
    print the card's name and power limit (nvidia-smi);
 2. kernels -- each forward kernel against its plain PyTorch version at the
    shapes of two paths: SD1.5 serving (UNet batch 4, 64x64 latents; bf16
@@ -24,6 +25,9 @@ ends the run with a nonzero exit code, and no phase falls back to the CPU:
    The timed flash and LayerNorm rows run on rotating copies of their
    inputs over 200 MB with the outputs held (the plain version and the
    library call on the same copies), so the inputs come from HBM.
+   Every LayerNorm shape must take the vectorised variant in bf16; its
+   rows add the generic variant's time on the same copies, the plan
+   (lanes, warps a block, blocks) and the launches per call or step.
    The fused LoRA matmul (nt) at every adapted linear shape (M, N, K) of
    the SD1.5 b8 and SDXL b4 LoRA training legs, bf16 (the fast variant,
    which every bf16 call must take) and fp32 (the generic one), its
@@ -100,12 +104,11 @@ ends the run with a nonzero exit code, and no phase falls back to the CPU:
 
 Every serving and training leg fails if a flash input took the padded
 copy (``flash.pad_copies``): the UNets' layouts are read by TMA in place.
-Every training leg fails unless each LayerNorm backward took the
-vectorised variant, every LoHa leg (serving and training) unless each
-LoHa forward, fused backward and split backward took the fast variant,
-and every serving
-and training leg unless each GroupNorm forward and backward took the fast
-variant.
+Every serving and training leg (and the e2e comparisons) fails unless each
+LayerNorm forward and backward took the vectorised variant, every LoHa leg
+(serving and training) unless each LoHa forward, fused backward and split
+backward took the fast variant, and every serving and training leg unless
+each GroupNorm forward and backward took the fast variant.
 
 The line before the last is the kernel table as JSON. Each kernel names the
 path its launches are read from (``path``): SDXL training (the first SDXL
@@ -117,6 +120,8 @@ its launches, or for the fused LoRA matmul and the split LoHa backward,
 which no SDXL step dispatches, its layers per step: ``per`` says which), with the
 SD1.5 sums (per serving UNet call for the forward kernels, per batch-8 train
 step for the backward ones and the fused LoRA matmul) under "sd15"; the
+LayerNorm forward row adds the generic variant's sums (``generic_ms``),
+per-shape ``shapes`` and ``variants``; the
 GroupNorm rows add the generic variant's sums (``generic_ms``), per-shape
 ``shapes`` and ``variants``, and the forward the SD1.5 b8 step's sums
 (``sd15_b8``); the split LoHa row adds ``variants``, ``shapes`` (each with
@@ -307,27 +312,29 @@ def phase_build():
     for line in _build.build_log.splitlines():
         if "registers" in line or ("spill" in line and "0 bytes spill stores" not in line):
             log(f"[build] ptxas: {line.strip()}")
-    flash = flash_ptxas(_build.build_log)
-    if not flash:
-        fail("no flash kernel in the ptxas report")
-    for name, regs, spill in flash:
+    named = kernel_ptxas(_build.build_log)
+    for prefix in ("flash", "ln_fwd"):
+        if not any(name.startswith(prefix) for name, _, _ in named):
+            fail(f"no {prefix} kernel in the ptxas report")
+    for name, regs, spill in named:
         log(f"[build] {name}: {regs} registers, {spill} bytes spilled")
-    spilled = [name for name, _, spill in flash if spill]
+    spilled = [name for name, _, spill in named if spill]
     if spilled:
-        fail(f"flash kernels spill registers: {spilled}")
+        fail(f"kernels spill registers: {spilled}")
     log(card)
     return card
 
 
-def flash_ptxas(build_log: str) -> list:
-    """(kernel, registers, spill bytes stored + loaded) of every flash kernel
-    in the ptxas report (``-Xptxas -v``), the template argument in <>."""
+def kernel_ptxas(build_log: str) -> list:
+    """(kernel, registers, spill bytes stored + loaded) of every flash and
+    LayerNorm forward kernel in the ptxas report (``-Xptxas -v``), the
+    template argument in <>."""
     out, name, spill = [], None, 0
     for line in build_log.splitlines():
         entry = re.search(r"Compiling entry function '(\S+)'", line)
         if entry:
-            m = re.search(r"\d+(flash_[a-z0-9_]+?)I(?:Li(\d+)E|13__nv_(bfloat16)|(f))E",
-                          entry.group(1))
+            m = re.search(r"\d+((?:flash|ln_fwd)_[a-z0-9_]+?)"
+                          r"I(?:Li(\d+)E|13__nv_(bfloat16)|(f))E", entry.group(1))
             name = m and f"{m.group(1)}<{m.group(2) or m.group(3) or 'float'}>"
             spill = 0
             continue
@@ -771,6 +778,14 @@ class Checks:
                    f"({bh},{t},{d}) {layout}", times, per_call if layout == "strided" else 0)
 
     def layer_norm_fwd(self, path, rows, c, dtype, per_call, timed):
+        """Both variants against the plain version; the call must take the
+        variant :func:`layer_norm.fwd_plan` names, the vectorised one at
+        every shape in bf16 (the path's dtype). Timed on rotating copies of
+        x over :data:`ROTATE_BYTES` with the outputs held, so each call reads
+        x from HBM, as on the path: the vectorised and generic variants, the
+        plain version and ``F.layer_norm`` on the same copies; each shape's
+        row keeps them with the bound, the plan, the launches and the time
+        of a device copy of x (the same bytes moved, no arithmetic)."""
         import torch
         import torch.nn.functional as F
         from lycoris_tpu_torch.ops import layer_norm
@@ -778,7 +793,14 @@ class Checks:
         x = self.rnd((rows, c), dtype, 2.0) + 0.5
         w = self.rnd((c,), dtype, 0.5) + 1.0
         b = self.rnd((c,), dtype, 0.5)
+        n0 = (layer_norm.fwd_vec_launches, layer_norm.fwd_generic_launches)
         y = layer_norm.layer_norm(x, w, b, 1e-5)
+        got = (layer_norm.fwd_vec_launches - n0[0], layer_norm.fwd_generic_launches - n0[1])
+        vec = int(layer_norm.vec_lanes(c, x.element_size()) > 0)
+        if got != (vec, 1 - vec) or (dtype == torch.bfloat16 and not vec):
+            fail(f"layer_norm_fwd {path} ({rows},{c}) {dtype}: {got[0]} vectorised and "
+                 f"{got[1]} generic launches, want the vectorised variant {bool(vec)}")
+        y_gen = layer_norm.layer_norm_fwd(x, w, b, 1e-5, vectorised=False)
         y_ref = layer_norm.layer_norm_plain(x, w, b, 1e-5)
         torch.cuda.synchronize()
         times = None
@@ -797,9 +819,33 @@ class Checks:
                 lambda it: graph_ms(rotating(lambda xc: F.layer_norm(xc, (c,), w, b, 1e-5),
                                              copies, hold=True), it),
                 host=lambda: layer_norm.layer_norm(x, w, b, 1e-5))
+            generic_ms = graph_ms(rotating(lambda xc: layer_norm.layer_norm_fwd(
+                xc, w, b, 1e-5, vectorised=False), copies, hold=True), it)
+            # a yardstick of the bytes alone: a device copy of each x into
+            # its own output buffer (one read, one write, no arithmetic)
+            outs = [torch.empty_like(x) for _ in copies]
+            copy_ms = graph_ms(rotating(lambda xc, yc: yc.copy_(xc),
+                                        [(xc, yc) for (xc,), yc in zip(copies, outs)]), it)
+            del outs
+            ms, host, plain, lib, (bnd, by) = times
+            plan = layer_norm.fwd_plan(rows, c, es, layer_norm._sms(x.get_device()))
+            share = (f"{bnd / ms:.1%} of its bound" if ms >= bnd else
+                     "UNDER its HBM bound: the timing did not reach HBM")
+            log(f"[kernels] layer_norm_fwd {path} ({rows},{c}) vectorised (lanes {plan.lanes}, "
+                f"{plan.warps} warps a block, {plan.grid} blocks), {len(copies)} rotating "
+                f"copies: kernel {ms:.4f} ms, {share} {bnd:.4f} ms ({by}); generic variant "
+                f"{generic_ms:.4f} ms ({generic_ms / ms:.2f}x); F.layer_norm {lib:.4f} ms "
+                f"({lib / ms:.2f}x); a copy of x {copy_ms:.4f} ms; plain {plain:.4f} ms; "
+                f"host-clocked {host:.4f} ms; x {per_call} per call/step")
+            self.results["layer_norm_fwd"].setdefault("shapes", []).append(
+                {"path": path, "shape": [rows, c], "ms": ms, "generic_ms": generic_ms,
+                 "host_ms": host, "plain_ms": plain, "library_ms": lib, "bound_ms": bnd,
+                 "copy_ms": copy_ms, "per": per_call, "plan": list(plan)})
             del copies
         record(self.results, "layer_norm_fwd", path, compare(dtype, y, y_ref), f"({rows},{c})",
                times, per_call)
+        record(self.results, "layer_norm_fwd", path, compare(dtype, y_gen, y_ref),
+               f"({rows},{c}) generic variant")
 
     def _hada_factors(self, o_, i_, r, dtype):
         """w1d, w1u, w2d, w2u of rank ``r`` and a cotangent g (O, I)."""
@@ -1731,6 +1777,7 @@ def reset_counts():
     lora_fused.launches = lora_fused.dx_launches = hada.split_launches = 0
     hada.split_fast_launches = hada.split_generic_launches = 0
     lora_fused.launches_fast = lora_fused.dx_launches_fast = 0
+    layer_norm.fwd_vec_launches = layer_norm.fwd_generic_launches = 0
     layer_norm.bwd_vec_launches = layer_norm.bwd_generic_launches = 0
     hada.fast_launches = hada.generic_launches = 0
     hada.bwd_fast_launches = hada.bwd_generic_launches = 0
@@ -1753,24 +1800,15 @@ def read_counts() -> dict:
             "factored": merged.applications}
 
 
-def check_ln_vectorised(tag: str, counts: dict) -> None:
-    """Fail unless every LayerNorm backward since the last reset took the
-    vectorised variant (every width of the SD1.5 and SDXL paths does)."""
-    from lycoris_tpu_torch.ops import layer_norm
-
-    if (layer_norm.bwd_vec_launches != counts["layer_norm_bwd"]
-            or layer_norm.bwd_generic_launches):
-        fail(f"{tag} LayerNorm backward: {layer_norm.bwd_vec_launches} vectorised and "
-             f"{layer_norm.bwd_generic_launches} generic launches of "
-             f"{counts['layer_norm_bwd']}")
-
-
 def check_fast(tag: str, counts: dict) -> None:
     """Fail unless every LoHa forward, fused backward and split backward,
     and every GroupNorm forward and backward, since the last reset took the
-    fast variant (every LoHa layer of the SD1.5 and SDXL paths is rank 8,
-    every GroupNorm shape holds whole 16-byte rows)."""
+    fast variant, and every LayerNorm forward and backward the vectorised
+    one (every LoHa layer of the SD1.5 and SDXL paths is rank 8, every
+    GroupNorm shape holds whole 16-byte rows, every LayerNorm width is one
+    the vectorised variant takes in bf16)."""
     from lycoris_tpu_torch.ops import group_norm, hada
+    from lycoris_tpu_torch.ops import layer_norm as ln
 
     for what, ops, fwd, bwd in (("LoHa", hada, "hada_fwd", "hada_bwd"),
                                 ("GroupNorm", group_norm, "group_norm_fwd", "group_norm_bwd")):
@@ -1783,6 +1821,12 @@ def check_fast(tag: str, counts: dict) -> None:
     if split != (counts["hada_bwd_split"], 0):
         fail(f"{tag} LoHa split backward: {split[0]} fast and {split[1]} generic of "
              f"{counts['hada_bwd_split']}")
+    for what, vec, generic, key in (
+            ("forward", ln.fwd_vec_launches, ln.fwd_generic_launches, "layer_norm_fwd"),
+            ("backward", ln.bwd_vec_launches, ln.bwd_generic_launches, "layer_norm_bwd")):
+        if vec != counts[key] or generic:
+            fail(f"{tag} LayerNorm {what}: {vec} vectorised and {generic} generic launches "
+                 f"of {counts[key]}")
 
 
 def gn_copies() -> int:
@@ -2008,21 +2052,20 @@ def train(model, algo, sd, batch, want, steps, results, card, tag, path=None, ad
         if counts != want:
             fail(f"{tag} launch counts per step {counts} != {want}")
         check_no_pad_copies(tag)
-        check_ln_vectorised(tag, counts)
         check_fast(tag, counts)
         totals.update(counts)
         losses.append(float(loss))
         if not math.isfinite(losses[-1]):
             fail(f"{tag} loss {losses[-1]} at step {len(losses)}")
     peak = torch.cuda.max_memory_allocated() / 2**30
-    log(f"{tag} launches per step {want} over {steps} steps, every LayerNorm backward "
-        f"vectorised, every LoHa and GroupNorm kernel on its fast variant; GroupNorm input "
-        f"copies {copies}; flash pad copies 0")
+    log(f"{tag} launches per step {want} over {steps} steps, every LayerNorm forward and "
+        f"backward vectorised, every LoHa and GroupNorm kernel on its fast variant; "
+        f"GroupNorm input copies {copies}; flash pad copies 0")
     for name, meta in KERNELS.items():
         if meta["path"] == path and want.get(name) and not results[name]["launches"]:
             results[name]["launches"] = totals[name]
             # every one vectorised or fast (checked per step)
-            if name == "layer_norm_bwd":
+            if name in ("layer_norm_fwd", "layer_norm_bwd"):
                 results[name]["variants"] = {"vectorised": totals[name], "generic": 0}
             if name in ("hada_fwd", "hada_bwd", "hada_bwd_split", "group_norm_fwd",
                         "group_norm_bwd"):
@@ -2245,6 +2288,33 @@ def phase_train_e2e(model, sd, cfg_cpu, tag, ctx_dim=768, added_dim=None):
         fail(f"{tag} loss rel {loss_rel:.3e} / gradient rel L2 {grad_rel:.3e} over bound")
 
 
+def ln_fwd_sums(row: dict) -> None:
+    """The LayerNorm forward row's sums over its rotating-copy shapes, each
+    weighted by its launches: the generic variant's ms per SDXL b4 step and
+    SD1.5 serving call beside the vectorised one's, logged with the share of
+    the bound and the library's; then the path shapes where the vectorised
+    variant is slower than ``F.layer_norm`` or than the generic one."""
+    keys = ("ms", "generic_ms", "plain_ms", "library_ms", "bound_ms", "copy_ms")
+
+    def tot(path):
+        return {k: sum(sh[k] * sh["per"] for sh in row["shapes"] if sh["path"] == path)
+                for k in keys}
+
+    row["generic_ms"] = tot("sdxl")["generic_ms"]
+    row["sd15"]["generic_ms"] = tot("sd15")["generic_ms"]
+    for where, r in (("SDXL b4 step", tot("sdxl")), ("SD1.5 serving call", tot("sd15"))):
+        log(f"[kernels] layer_norm_fwd per {where} (rotating copies): vectorised "
+            f"{r['ms']:.3f} ms, {r['bound_ms'] / r['ms']:.1%} of its bound "
+            f"{r['bound_ms']:.3f} ms; generic {r['generic_ms']:.3f} ms; F.layer_norm "
+            f"{r['library_ms']:.3f} ms; plain {r['plain_ms']:.3f} ms; copies of x "
+            f"{r['copy_ms']:.3f} ms")
+    for other, what in (("library_ms", "F.layer_norm"), ("generic_ms", "the generic variant")):
+        slower = [f"{sh['path']} {tuple(sh['shape'])}" for sh in row["shapes"]
+                  if sh["ms"] > sh[other]]
+        log(f"[kernels] layer_norm_fwd path shapes where the vectorised variant is slower "
+            f"than {what}: {slower or 'none'} of {len(row['shapes'])}")
+
+
 def gn_step_sums(row: dict) -> None:
     """A GroupNorm row's sums over its rotating-copy shapes, each weighted by
     its launches a step: the generic variant's ms per SDXL step and SD1.5
@@ -2440,6 +2510,8 @@ def main() -> int:
                       if sh["ms"] > sh["library_ms"]]
             log(f"[kernels] layer_norm_bwd path shapes slower than F.layer_norm's backward: "
                 f"{slower or 'none'} of {len(row['shapes'])}")
+        if row["name"] == "layer_norm_fwd":
+            ln_fwd_sums(row)
         if row["name"] in ("group_norm_fwd", "group_norm_bwd"):
             gn_step_sums(row)
         if row["name"] == "hada_bwd_split":

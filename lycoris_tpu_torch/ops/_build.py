@@ -32,7 +32,7 @@ build_log = ""  # compiler output of this library's build (ptxas register/spill 
 
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 _SIGNATURES = {
-    "lyc_ln_fwd": [_P, _P, _P, _P, _I, _I, _F, _I, _P],
+    "lyc_ln_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
     "lyc_hada_fwd": [_P] * 5 + [_I] * 4 + [_F, _I, _I, _P],
     "lyc_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.POINTER(_L), _F, _I, _P],
     "lyc_ln_bwd": [_P] * 8 + [_I, _I, _I, _I, _F, _I, _P],

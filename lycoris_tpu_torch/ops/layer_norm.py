@@ -10,36 +10,77 @@ LayerNorm runs the kernels.
 w, its backward recomputes the row statistics. Each direction takes its
 plain version (:func:`layer_norm_plain`, :func:`layer_norm_bwd_plain`) only
 for tensors on the CPU; for CUDA tensors it launches the kernel or raises.
-The backward kernel has two variants (``csrc/ln_bwd.cu``): the vectorised
-one, a row held in registers by a group of lanes (:func:`bwd_lanes`; every
-width of the SD1.5 and SDXL paths), and a generic one for other widths.
+Each direction's kernel has two variants (``csrc/ln_fwd.cu``,
+``csrc/ln_bwd.cu``): the vectorised one, a row held in registers by a
+group of lanes (:func:`vec_lanes`; every width of the SD1.5 and SDXL paths
+in bf16), and a generic one for other widths and for tensors that are not
+16-byte aligned. :func:`fwd_plan` sizes the forward's blocks and grid.
 """
 
 from __future__ import annotations
 
+import functools
 import math
+from typing import NamedTuple
 
 import torch
 
 from . import _build
 
 launches = 0  # forward kernel launches since the last reset (chip_smoke counts these)
-bwd_launches = 0  # backward kernel launches, likewise
-bwd_vec_launches = 0  # of those, launches of the vectorised variant
-bwd_generic_launches = 0  # and of the generic one
+fwd_vec_launches = 0  # of those, launches of the vectorised variant
+fwd_generic_launches = 0  # and of the generic one
+bwd_launches = 0  # backward kernel launches, and of each variant, likewise
+bwd_vec_launches = 0
+bwd_generic_launches = 0
 
 _MAX_PARTS = 4 * 132  # dw/db partial rows: four blocks per SM of an H100
 VECS = 5  # 16-byte vectors of x (and of dy) a lane of the vectorised variant holds
+# csrc/ln.cuh's kMaxWarps and kBlocksPerSm: warps a block of the vectorised
+# variant, halved while the grid would have fewer blocks than this an SM
+MAX_WARPS, BLOCKS_PER_SM = 8, 8
+GENERIC_WARPS = 4  # csrc/ln_fwd.cu's kRowsPerBlock: the generic forward's rows a block
 
 
-def bwd_lanes(c: int, element_size: int) -> int:
-    """Lanes per row of the vectorised backward for width ``c``: L, a power
-    of two up to a warp, with the row L * ``VECS`` 16-byte vectors (the one
-    count ``csrc/ln_bwd.cu`` is built for), or 0 for the generic variant.
-    bf16 C = 320, 640, 1280 give 8, 16, 32 lanes; fp32 C = 320, 640 give
-    16, 32."""
+def vec_lanes(c: int, element_size: int) -> int:
+    """Lanes per row of the vectorised variants (both directions) for
+    width ``c``: L, a power of two up to a warp, with the row L * ``VECS``
+    16-byte vectors (the one count ``csrc/ln.cuh`` is built for), or 0 for
+    the generic variant. bf16 C = 320, 640, 1280 give 8, 16, 32 lanes;
+    fp32 C = 320, 640 give 16, 32."""
     lanes, rest = divmod(c, VECS * (16 // element_size))
     return lanes if rest == 0 and lanes and 32 % lanes == 0 else 0
+
+
+bwd_lanes = vec_lanes  # the backward's name for the same planner
+
+
+class FwdPlan(NamedTuple):
+    lanes: int  # lanes a row (0: the generic variant, one warp a row)
+    warps: int  # warps a block
+    grid: int  # blocks
+
+
+def fwd_plan(rows: int, c: int, element_size: int, sms: int = 132, aligned: bool = True
+             ) -> FwdPlan:
+    """The forward's launch: the vectorised variant where :func:`vec_lanes`
+    takes the width and the tensors are 16-byte aligned, with 8 warps a
+    block, halved until the grid has ``BLOCKS_PER_SM`` blocks on each of
+    ``sms`` SMs or the block is one warp (as the backward's), and one group
+    of rows a warp; else the generic one."""
+    lanes = vec_lanes(c, element_size) if aligned else 0
+    if not lanes:
+        return FwdPlan(0, GENERIC_WARPS, math.ceil(rows / GENERIC_WARPS))
+    groups = 32 // lanes
+    warps = MAX_WARPS
+    while warps > 1 and math.ceil(rows / (warps * groups)) < BLOCKS_PER_SM * sms:
+        warps //= 2
+    return FwdPlan(lanes, warps, math.ceil(rows / (warps * groups)))
+
+
+@functools.cache
+def _sms(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def layer_norm_plain(x, weight, bias, eps: float):
@@ -80,27 +121,36 @@ def _check(x, weight, bias):
         raise ValueError("layer_norm: kernel needs contiguous tensors")
 
 
-def layer_norm_fwd(x, weight, bias, eps: float):
-    """The forward kernel on CUDA tensors (x (..., C), weight/bias (C,))."""
-    global launches
+def layer_norm_fwd(x, weight, bias, eps: float, vectorised: bool = True):
+    """The forward kernel on CUDA tensors (x (..., C), weight/bias (C,)):
+    the variant :func:`fwd_plan` picks, or the generic one if not
+    ``vectorised``."""
+    global launches, fwd_vec_launches, fwd_generic_launches
     if x.device.type != "cuda":
         raise RuntimeError(f"layer_norm: no kernel for device {x.device}")
     _check(x, weight, bias)
     y = torch.empty_like(x)
     c = x.shape[-1]
+    rows = x.numel() // c
+    ptrs = (x.data_ptr(), weight.data_ptr(), bias.data_ptr(), y.data_ptr())
+    aligned = vectorised and not (ptrs[0] | ptrs[1] | ptrs[2] | ptrs[3]) % 16
+    plan = fwd_plan(rows, c, x.element_size(), _sms(x.get_device()), aligned)
     rc = _build.lib().lyc_ln_fwd(
-        x.data_ptr(), weight.data_ptr(), bias.data_ptr(), y.data_ptr(),
-        x.numel() // c, c, float(eps), _build.dtype_code(x), _build.stream_ptr(x),
+        *ptrs, rows, c, *plan, float(eps), _build.dtype_code(x), _build.stream_ptr(x),
     )
     _build.check(rc, "lyc_ln_fwd")
     launches += 1
+    if plan.lanes:
+        fwd_vec_launches += 1
+    else:
+        fwd_generic_launches += 1
     return y
 
 
 def layer_norm_bwd(x, weight, dy, eps: float, want_wb: bool = True):
     """The backward kernel on CUDA tensors: (dx, dw fp32, db fp32), or
     (dx, None, None) when ``want_wb`` is False (frozen weight and bias).
-    The vectorised variant where :func:`bwd_lanes` allows it and the
+    The vectorised variant where :func:`vec_lanes` allows it and the
     tensors are 16-byte aligned, else the generic one."""
     global bwd_launches, bwd_vec_launches, bwd_generic_launches
     if x.device.type != "cuda":
@@ -114,7 +164,7 @@ def layer_norm_bwd(x, weight, dy, eps: float, want_wb: bool = True):
     rows = x.numel() // c
     nparts = max(1, min(_MAX_PARTS, math.ceil(rows / 16)))
     dx = torch.empty_like(x)
-    lanes = bwd_lanes(c, x.element_size())
+    lanes = vec_lanes(c, x.element_size())
     if any(t.data_ptr() % 16 for t in (x, dy, weight, dx)):
         lanes = 0
     dw = db = parts = None

@@ -32,7 +32,7 @@ PROFILED_CALLS = 3
 KINDS = (
     ("flash_fwd (ours)", ("flash_fwd",)),
     ("flash_bwd (ours)", ("flash_bwd", "flash_di")),  # with its di = rowsum(dO * O) kernel
-    ("LayerNorm (ours)", ("ln_fwd_kernel",)),
+    ("LayerNorm (ours)", ("ln_fwd",)),  # both variants
     ("LayerNorm bwd (ours)", ("ln_bwd",)),
     ("hada (ours)", ("hada_fwd",)),
     ("hada bwd (ours)", ("hada_bwd",)),

@@ -54,6 +54,89 @@ def test_cuda_layer_norm_kernel(cuda, dtype):
         _check(y, tln.layer_norm_plain(x, w, b, 1e-5), dtype)
 
 
+# (rows, C) of the LayerNorms of SD1.5 serving (b4) and SDXL training (b4)
+# (chip_smoke.path_shapes), then ragged row counts for the vectorised
+# variant's last group and a width it does not take
+LN_FWD_SHAPES = ((16384, 320), (4096, 640), (1024, 1280), (256, 1280), (16384, 640),
+                 (4096, 1280), (7, 320), (1001, 640), (33, 1280), (7, 100))
+
+
+def _ln_inputs(rows, c, dtype, g, dev, offset=0):
+    """x (rows, C), w, b; x with ``offset`` elements in front of it in its
+    buffer (1: contiguous but not 16-byte aligned)."""
+    buf = torch.randn(rows * c + offset, device=dev, generator=g) * 2 + 0.5
+    x = buf.to(dtype)[offset:].view(rows, c)
+    w = (torch.randn(c, device=dev, generator=g) * 0.5 + 1).to(dtype)
+    b = (torch.randn(c, device=dev, generator=g) * 0.5).to(dtype)
+    return x, w, b
+
+
+def _ln_fwd_counts():
+    return tln.launches, tln.fwd_vec_launches, tln.fwd_generic_launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_layer_norm_fwd_variants(cuda, dtype):
+    """Each shape through the variant ``fwd_plan`` names (vectorised at
+    every path width in bf16, and in fp32 but at C = 1280), through the
+    generic one when asked for, and through the generic one for an x one
+    element off 16 bytes; each against the plain version, counted per
+    variant. The unaligned x gives the generic variant's result bit for
+    bit."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    es = torch.tensor([], dtype=dtype).element_size()
+    for rows, c in LN_FWD_SHAPES:
+        x, w, b = _ln_inputs(rows, c, dtype, g, cuda)
+        want = tln.layer_norm_plain(x, w, b, 1e-5)
+        vec = tln.vec_lanes(c, es) > 0
+        assert vec == (c != 100 and not (dtype == torch.float32 and c == 1280)), (rows, c)
+        n = _ln_fwd_counts()
+        y = tln.layer_norm(x, w, b, 1e-5)
+        gen = tln.layer_norm_fwd(x, w, b, 1e-5, vectorised=False)
+        xs = _ln_inputs(rows, c, dtype, g, cuda, offset=1)[0]
+        xs.copy_(x)
+        assert xs.data_ptr() % 16
+        shifted = tln.layer_norm(xs, w, b, 1e-5)
+        got = tuple(now - was for now, was in zip(_ln_fwd_counts(), n))
+        assert got == (3, int(vec), 3 - int(vec)), (rows, c)
+        _check(y, want, dtype)
+        _check(gen, want, dtype)
+        assert torch.equal(shifted, gen)
+
+
+@pytest.mark.cuda
+def test_cuda_layer_norm_fwd_repeats_bit_for_bit(cuda):
+    """The vectorised variant sums in a fixed order: 50 calls, and a call
+    on a second stream, give the same bits (bf16, three path shapes)."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    for rows, c in ((16384, 320), (4096, 640), (1024, 1280)):
+        x, w, b = _ln_inputs(rows, c, torch.bfloat16, g, cuda)
+        n = tln.fwd_vec_launches
+        want = tln.layer_norm_fwd(x, w, b, 1e-5)
+        for _ in range(50):
+            assert torch.equal(tln.layer_norm_fwd(x, w, b, 1e-5), want)
+        s = torch.cuda.Stream()
+        s.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(s):
+            other = tln.layer_norm_fwd(x, w, b, 1e-5)
+        torch.cuda.current_stream().wait_stream(s)
+        assert torch.equal(other, want)
+        assert tln.fwd_vec_launches == n + 52
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_layer_norm_fwd_graph_replay(cuda, dtype):
+    """Both variants captured in a CUDA graph and replayed equal the eager
+    calls, at SD1.5's smallest shape and SDXL's (4096, 640)."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    for rows, c in ((256, 1280), (4096, 640)):
+        x, w, b = _ln_inputs(rows, c, dtype, g, cuda)
+        _graph_matches_eager(lambda: (tln.layer_norm_fwd(x, w, b, 1e-5),
+                                      tln.layer_norm_fwd(x, w, b, 1e-5, vectorised=False)))
+
+
 def _heads(b, h, t, d, g, dtype, dev):
     """A (B, H, T, D) head-split view of a (B, T, H*D) tensor: the layout the
     UNet's attention projections give the flash kernels."""

@@ -7,6 +7,9 @@ Tolerance: fp32 atol/rtol 1e-5 against the JAX kernels (summation order
 differs).
 """
 
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -115,11 +118,75 @@ def test_attention_dispatch_routes_through_flash(monkeypatch):
     np.testing.assert_allclose(o.numpy(), want.numpy(), **TOL)
 
 
+def _ln_path_shapes(model: str, batch: int, hw: int):
+    """(rows, C) of every LayerNorm of one UNet call, from chip_smoke's
+    census of the UNet config."""
+    root = str(Path(__file__).resolve().parent.parent)
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    import chip_smoke
+    from lycoris_tpu_torch.models.unet import sd15_config, sdxl_config
+
+    cfg = sd15_config() if model == "sd15" else sdxl_config()
+    return sorted(chip_smoke.path_shapes(cfg, batch, hw)["ln"])
+
+
+def _ln_rows_per_block(plan) -> int:
+    return plan.warps * (32 // plan.lanes if plan.lanes else 1)
+
+
+@pytest.mark.parametrize("model,batch,hw", [("sd15", 4, 64), ("sd15", 8, 64), ("sdxl", 4, 128)])
+def test_layer_norm_fwd_plan_at_path_shapes(model, batch, hw):
+    """The forward's plan at every LayerNorm shape of SD1.5 serving (b4) and
+    training (b8) and SDXL training (b4): the vectorised variant at every
+    width in bf16 (fp32 too, but at C = 1280), 5 vectors a lane; blocks of
+    1-8 warps over a grid that covers every row with no idle block and
+    reaches every one of the card's 132 SMs; the generic variant when a
+    tensor is not 16-byte aligned."""
+    shapes = _ln_path_shapes(model, batch, hw)
+    assert shapes and {c for _, c in shapes} <= {320, 640, 1280}
+    for rows, c in shapes:
+        for es in (2, 4):
+            plan = tln.fwd_plan(rows, c, es)
+            vec = es == 2 or c != 1280
+            assert (plan.lanes > 0) == vec, (rows, c, es)
+            if vec:
+                assert plan.lanes == tln.vec_lanes(c, es) and c * es == 16 * tln.VECS * plan.lanes
+                assert 1 <= plan.warps <= tln.MAX_WARPS and plan.grid >= 132, (rows, c, plan)
+            else:
+                assert plan.warps == tln.GENERIC_WARPS
+            rpb = _ln_rows_per_block(plan)
+            assert (plan.grid - 1) * rpb < rows <= plan.grid * rpb, (rows, c, plan)
+            assert tln.fwd_plan(rows, c, es, aligned=False) == (
+                0, tln.GENERIC_WARPS, -(-rows // tln.GENERIC_WARPS))
+
+
+def test_layer_norm_fwd_plan_small_and_odd():
+    """SD1.5's smallest shapes spread over the SMs with one-warp blocks
+    (256 rows of C = 1280: 256 blocks, not 64 four-warp ones); the largest
+    keep bigger blocks; C = 100 and fp32 C = 1280 take the generic variant;
+    ragged rows are covered."""
+    assert tln.fwd_plan(256, 1280, 2) == (32, 1, 256)
+    assert tln.fwd_plan(1024, 1280, 2) == (32, 1, 1024)
+    assert tln.fwd_plan(16384, 320, 2) == (8, 2, 2048)
+    assert tln.fwd_plan(16384, 640, 2) == (16, 4, 2048)
+    assert tln.fwd_plan(4096, 1280, 2) == (32, 2, 2048)
+    assert tln.fwd_plan(256, 1280, 2, sms=16) == (32, 2, 128)  # fewer SMs, larger blocks
+    for rows, c, es in ((7, 100, 2), (7, 100, 4), (256, 1280, 4), (1000, 2000, 2)):
+        assert tln.fwd_plan(rows, c, es) == (0, 4, -(-rows // 4)), (rows, c, es)
+    for rows, c in ((7, 320), (1001, 640), (33, 1280), (3 * 10**6, 320)):
+        plan = tln.fwd_plan(rows, c, 2)
+        rpb = _ln_rows_per_block(plan)
+        assert plan.lanes and (plan.grid - 1) * rpb < rows <= plan.grid * rpb, (rows, c, plan)
+
+
 def test_cpu_wrappers_use_plain_and_count_nothing():
-    before = (tflash.launches, tln.launches, thada.launches)
+    before = (tflash.launches, tln.launches, tln.fwd_vec_launches, tln.fwd_generic_launches,
+              thada.launches)
     x = torch.randn(8, 320)
     tln.layer_norm(x, torch.ones(320), torch.zeros(320), 1e-5)
     thada.hada_weight(torch.randn(4, 128), torch.randn(16, 4), torch.randn(4, 128), torch.randn(16, 4))
     q = torch.randn(1, 1, 1024, 16)
     tflash.flash_attention(q, q, q, 0.25)
-    assert (tflash.launches, tln.launches, thada.launches) == before
+    assert (tflash.launches, tln.launches, tln.fwd_vec_launches, tln.fwd_generic_launches,
+            thada.launches) == before
