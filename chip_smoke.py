@@ -94,12 +94,34 @@ ends the run with a nonzero exit code, and no phase falls back to the CPU:
 14. train_e2e, train_e2e_lora -- one loss and every adapter gradient (LoKr,
    LoRA) at batch 1, card (bf16, kernels) against the port on the CPU
    (fp32, plain versions);
-15. train_sdxl_lora -- the SD1.5 model freed, a full-width SDXL UNet (bf16,
+15. train_e2e_dora -- phase 14 for DoRA LoHa and DoRA LoKr (``dora_wd``;
+   the merged route with plain autograd, ``dora_scale`` among the
+   gradients);
+16. files -- the LoKr adapter trained in phase 9 and a DoRA LoHa adapter
+   saved by ``save_weights`` (.safetensors fp32 with metadata and bf16, .pt
+   fp32): keys, dtypes and metadata read back (the safetensors header
+   parsed by the port's own reader), a network built on the card from each
+   file (bit for bit from the fp32 files; one UNet call against the live
+   adapters' within rel L2 1e-3, bf16 within 3e-2), ``onfly_merge`` against
+   the live adapters and ``onfly_restore`` bit for bit; then a trainer
+   checkpoint after 2 LoKr steps loaded into a fresh trainer: adapter
+   tensors, AdamW state, step and both generators bit for bit;
+17. train_sdxl_lora -- the SD1.5 model freed, a full-width SDXL UNet (bf16,
    random seeded weights, ``remat="transformer"``) trains LoRA at batch 4,
    128x128 latents, context (4, 77, 2048), ``added_cond`` (4, 2816): the
    checks of phase 9, and the peak memory;
-16. train_sdxl_lokr, train_sdxl_loha -- the same with LoKr and LoHa;
-17. train_sdxl_e2e, train_sdxl_e2e_lora -- phase 14 on the SDXL model at
+18. train_sdxl_lokr, train_sdxl_loha -- the same with LoKr and LoHa;
+19. train_sdxl_dora_loha -- DoRA LoHa with the trainer's max-norm
+   (``scale_weight_norms``) at half the median of the modules' dW norms, 3
+   steps: the checks of phase 9 with the max-norm pass's LoHa forwards in
+   the hand count (on the fast variant), at least one module scaled and
+   every module's norm at most the limit after each step; then one step
+   without the pass, one with it, and the pass alone, host-clocked;
+20. train_sdxl_premerge -- LoKr with ``merge_mode="premerge"``: one loss and
+   every adapter gradient against the interceptor route (phase 14's
+   bounds), then 2 steps with the checks of phase 9 (factored 0), s/step
+   and peak memory beside train_sdxl_lokr's;
+21. train_sdxl_e2e, train_sdxl_e2e_lora -- phase 14 on the SDXL model at
    64x64 latents.
 
 Every serving and training leg fails if a flash input took the padded
@@ -455,7 +477,7 @@ def path_shapes(cfg, batch: int, hw: int) -> dict:
 
 
 def want_counts(shapes: dict, algo: str, train: bool, remat: bool, split: bool = False,
-                full: bool = False) -> dict:
+                full: bool = False, max_norm: bool = False, premerge: bool = False) -> dict:
     """Launches of every kernel, and factored layer applications, per UNet
     call (serving, no gradient) or per train step. With ``remat`` (the
     Transformer2DModels checkpointed) the backward runs each
@@ -463,17 +485,21 @@ def want_counts(shapes: dict, algo: str, train: bool, remat: bool, split: bool =
     forwards, its factored layers and its GroupNorm (the act-free one) run
     twice per step. ``split``: LoHa's backward is the split form. ``full``:
     the kohya "full" targets adapt conv_in, so a gradient reaches every
-    GroupNorm. The fused LoRA matmul is never dispatched on this path."""
+    GroupNorm. ``max_norm``: the trainer's max-norm pass forms every LoHa
+    layer's dW once more a step. ``premerge``: every adapter is merged once a
+    step before the model runs (no recompute of a merge, no factored
+    layer). The fused LoRA matmul is never dispatched on this path."""
     def tot(key):
         return sum(shapes[key].values())
 
     again = 2 if train and remat else 1
     loha = algo == "loha"
     hada_bwd = tot("hada") if train and loha else 0
+    merges = (1 if premerge else again) + (1 if train and max_norm else 0)
     gn_in_transformers = sum(n for (_, _, act), n in shapes["gn"].items() if act is None)
     return {
         "flash_fwd": again * tot("flash"), "layer_norm_fwd": again * tot("ln"),
-        "hada_fwd": again * tot("hada") if loha else 0,
+        "hada_fwd": merges * tot("hada") if loha else 0,
         "group_norm_fwd": tot("gn") + (again - 1) * gn_in_transformers,
         "flash_bwd": tot("flash") if train else 0, "layer_norm_bwd": tot("ln") if train else 0,
         "hada_bwd": 0 if split else hada_bwd,
@@ -481,7 +507,7 @@ def want_counts(shapes: dict, algo: str, train: bool, remat: bool, split: bool =
         "geglu_bwd": tot("geglu") if train else 0,
         "lora_fused_nt": 0, "lora_fused_nn": 0,
         "hada_bwd_split": hada_bwd if split else 0,
-        "factored": again * shapes["factored"] if train and not loha else 0,
+        "factored": again * shapes["factored"] if train and not loha and not premerge else 0,
     }
 
 
@@ -514,6 +540,11 @@ def want_counts(shapes: dict, algo: str, train: bool, remat: bool, split: bool =
 # twice: flash fwd 2 x 70 = 140, LayerNorm fwd 2 x 210 = 420, hada fwd 2 x 722
 # = 1444, factored 2 x 120 = 240, GroupNorm fwd 46 + 11 = 57; and each
 # backward once: flash 70, LayerNorm 210, hada 722, GroupNorm 39, GEGLU 70.
+# DoRA LoHa takes the same route (the merged weight, rescaled); with the
+# trainer's max-norm pass each LoHa layer's dW is formed once more after
+# the optimizer step: hada fwd 1444 + 722 = 2166. Premerge merges every
+# layer once before the model runs and takes no factored layer: LoKr
+# factored 0 (a LoHa premerge step would run hada fwd 722).
 #
 # LoRA (attn-mlp) has no kernel of its own on the merged path: its layers
 # run W + dW through cuBLAS, and its factored layers are the linear ones
@@ -541,24 +572,29 @@ SD15_FULL_ADAPTED = 282
 
 
 def hand_counts(base: dict, adapted: int, factored: int, algo: str, train: bool,
-                again: int, split: bool = False) -> dict:
+                again: int, split: bool = False, max_norm: bool = False,
+                premerge: bool = False) -> dict:
     """The launch counts above for one algorithm (hada for LoHa, fused1 or
-    split backward; factored layers for LoKr and LoRA when training)."""
+    split backward, one more forward a layer for max-norm, one forward a
+    layer under premerge; factored layers for LoKr and LoRA when training
+    on the interceptor route)."""
     loha = algo == "loha"
     out = {name: base.get(name, 0) for name in KERNELS}
-    out["hada_fwd"] = again * adapted if loha else 0
+    merges = (1 if premerge else again) + (1 if train and max_norm else 0)
+    out["hada_fwd"] = merges * adapted if loha else 0
     out["hada_bwd"] = adapted if train and loha and not split else 0
     out["hada_bwd_split"] = adapted if train and loha and split else 0
-    out["factored"] = again * factored if train and not loha else 0
+    out["factored"] = again * factored if train and not loha and not premerge else 0
     return out
 
 
 def checked_counts(cfg, batch, hw, algo, train, remat, base, adapted, factored,
-                   split=False, full=False) -> dict:
+                   split=False, full=False, max_norm=False, premerge=False) -> dict:
     """The census's launch counts, failed unless they equal the hand count."""
-    got = want_counts(path_shapes(cfg, batch, hw), algo, train, remat, split=split, full=full)
+    got = want_counts(path_shapes(cfg, batch, hw), algo, train, remat, split=split, full=full,
+                      max_norm=max_norm, premerge=premerge)
     want = hand_counts(base, adapted, factored, algo, train, 2 if train and remat else 1,
-                       split=split)
+                       split=split, max_norm=max_norm, premerge=premerge)
     if got != want:
         fail(f"the UNet census gives {got}, the hand count {want}")
     return got
@@ -1745,11 +1781,13 @@ FULL_UNET_TARGETS = {
 }
 
 
-def adapter_state_dict(model, algo: str, device, seed: int, preset=None) -> dict:
+def adapter_state_dict(model, algo: str, device, seed: int, preset=None, dora=False) -> dict:
     """A LyCORIS adapter (dim 8, alpha 4; LoKr factor 8; 3x3 convs conv_dim 8,
-    conv_alpha 4) on the attn-mlp targets, or ``preset``, in the reference
-    key grammar, with seeded nonzero factors: LoKr's lokr_w2(_b), LoHa's
-    hada_w2_a and LoRA's lora_up start at zero, which would make dW = 0."""
+    conv_alpha 4; with ``dora``, DoRA on the output side) on the attn-mlp
+    targets, or ``preset``, in the reference key grammar, with seeded
+    nonzero factors: LoKr's lokr_w2(_b), LoHa's hada_w2_a and LoRA's
+    lora_up start at zero, which would make dW = 0 (DoRA's dora_scale, the
+    row norms of the layer's weight, moves by the same noise)."""
     import torch
     from lycoris_tpu_torch import LycorisNetwork, create_lycoris
 
@@ -1757,7 +1795,7 @@ def adapter_state_dict(model, algo: str, device, seed: int, preset=None) -> dict
     try:
         src = create_lycoris(model, 1.0, linear_dim=LORA_RANK, linear_alpha=4.0, algo=algo,
                              factor=8, conv_dim=LORA_RANK, conv_alpha=4.0, device=device,
-                             seed=seed)
+                             seed=seed, dora_wd=dora)
     finally:
         LycorisNetwork.reset_preset()
     gen = torch.Generator(device=device).manual_seed(seed + 1)
@@ -1977,7 +2015,7 @@ def phase_e2e(model, sd):
 
 
 # ---------------------------------------------------------------------------
-# phases 9-16: the training paths
+# phases 9-21: the training paths
 # ---------------------------------------------------------------------------
 
 
@@ -2000,7 +2038,7 @@ def make_net(model, sd, algo=None, rates=None):
 
 
 def train(model, algo, sd, batch, want, steps, results, card, tag, path=None, adapted=None,
-          rates=None, drop_seed=None):
+          rates=None, drop_seed=None, trainer_kw=None, step_check=None, after=None):
     """``steps`` AdamW steps of ``DiffusionTrainer`` on the adapter in ``sd``
     (the first a warm-up); per step: launches of every kernel and factored
     layer (``want``), every LayerNorm backward vectorised, finite loss; then
@@ -2011,7 +2049,10 @@ def train(model, algo, sd, batch, want, steps, results, card, tag, path=None, ad
     ``adapted``: the adapter-module count the network must have. The
     launches of the kernels whose ``path`` is ``path`` go into the kernel
     table. ``drop_seed``, if given, reseeds the trainer's drop-seed
-    generator."""
+    generator. ``trainer_kw`` goes to the trainer (``merge_mode``,
+    ``scale_weight_norms``); ``step_check(tr, net)`` runs after each step's
+    checks, ``after(tr, net)`` after the last step's. Returns the trained
+    adapter's state dict."""
     import torch
     from lycoris_tpu_torch.modules import base as mbase
     from lycoris_tpu_torch.trainer import DiffusionTrainer
@@ -2021,7 +2062,8 @@ def train(model, algo, sd, batch, want, steps, results, card, tag, path=None, ad
     if adapted is not None and len(net.loras) != adapted:
         fail(f"{tag} {len(net.loras)} adapter modules, want {adapted}")
     tr = DiffusionTrainer(model, net, lr=1e-4, weight_dtype=torch.bfloat16,
-                          generator=torch.Generator(device=dev).manual_seed(21))
+                          generator=torch.Generator(device=dev).manual_seed(21),
+                          **(trainer_kw or {}))
     if drop_seed is not None:
         tr.drop_generator.manual_seed(drop_seed)
     kept = set(net.lora_map)
@@ -2057,6 +2099,8 @@ def train(model, algo, sd, batch, want, steps, results, card, tag, path=None, ad
         losses.append(float(loss))
         if not math.isfinite(losses[-1]):
             fail(f"{tag} loss {losses[-1]} at step {len(losses)}")
+        if step_check is not None:
+            step_check(tr, net)
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"{tag} launches per step {want} over {steps} steps, every LayerNorm forward and "
         f"backward vectorised, every LoHa and GroupNorm kernel on its fast variant; "
@@ -2091,9 +2135,13 @@ def train(model, algo, sd, batch, want, steps, results, card, tag, path=None, ad
         f"{peak:.2f} GiB ({card}; host-clocked smoke reading, not a benchmark)")
     results["training"][tag.strip("[]")] = {"s_per_step": secs, "losses": losses,
                                             "peak_gib": peak, "gn_copies": copies}
+    if after is not None:
+        after(tr, net)
+    trained = {k: v.clone() for k, v in net.state_dict().items()}
     net.restore()
     del tr, net, base, before
     torch.cuda.empty_cache()
+    return trained
 
 
 def sd15_batch():
@@ -2288,6 +2336,271 @@ def phase_train_e2e(model, sd, cfg_cpu, tag, ctx_dim=768, added_dim=None):
         fail(f"{tag} loss rel {loss_rel:.3e} / gradient rel L2 {grad_rel:.3e} over bound")
 
 
+# ---------------------------------------------------------------------------
+# phases 16, 19 and 20: adapter files, a trainer checkpoint, DoRA with
+# max-norm, premerge
+# ---------------------------------------------------------------------------
+
+
+def adapter_tensors(net) -> dict:
+    """Every tensor of every adapter module (parameters and buffers)."""
+    return {f"{lyco.lora_name}.{k}": v for lyco in net.loras for k, v in lyco.params.items()}
+
+
+def phase_files(model, sds, batch, card):
+    """Adapter files and a trainer checkpoint at full SD1.5 width. For each
+    adapter in ``sds`` (the LoKr trained in phase 9, a DoRA LoHa):
+    ``save_weights`` to .safetensors in fp32 (with metadata) and bf16 and to
+    .pt in fp32; each file's keys and dtypes (the safetensors header parsed
+    by ``utils/safetensors_io``) and metadata; a network built on the card
+    from each file: its tensors bit for bit the live network's from the
+    fp32 files, and one UNet call (batch 1, 64x64) within rel L2 1e-3 of the
+    live adapters' (fp32 files) or 3e-2 (bf16); then ``onfly_merge``: the
+    plain model's call within 1e-3 of the live adapters', and every base
+    weight bit for bit after ``onfly_restore``. Then ``save_checkpoint``
+    after 2 LoKr steps at b8 and ``load_checkpoint`` into a fresh trainer:
+    adapter tensors, AdamW state, step and both generators' states bit for
+    bit, and the next noise and timestep draws the same."""
+    import os
+    import tempfile
+
+    import torch
+    from lycoris_tpu_torch import create_lycoris_from_weights
+    from lycoris_tpu_torch.trainer import DiffusionTrainer
+    from lycoris_tpu_torch.utils import safetensors_io
+    from lycoris_tpu_torch.wrapper import load_file_sd
+
+    tag = "[files]"
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(29)
+    x = torch.randn(1, 4, 64, 64, generator=gen, device=dev).to(torch.bfloat16)
+    ctx = torch.randn(1, 77, 768, generator=gen, device=dev).to(torch.bfloat16)
+    t = torch.tensor([501], dtype=torch.int32, device=dev)
+
+    def call(net):
+        net.apply_to(merged_forward=True)
+        with torch.no_grad():
+            out = model(x, t, ctx).float()
+        net.restore()
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, sd in sds.items():
+            live = make_net(model, sd)
+            live_sd = live.state_dict()
+            y_live = call(live)
+            for fname, dtype, metadata in (("fp32.safetensors", None, {"adapter": name}),
+                                           ("bf16.safetensors", torch.bfloat16, None),
+                                           ("fp32.pt", None, None)):
+                path = os.path.join(tmp, f"{name}_{fname}")
+                t0 = time.perf_counter()
+                live.save_weights(path, dtype=dtype, metadata=metadata)
+                save_s = time.perf_counter() - t0
+                want_dtype = dtype or torch.float32
+                if path.endswith(".safetensors"):
+                    header, _ = safetensors_io.read_header(path)
+                    got_meta = header.pop("__metadata__", None)
+                    dtypes = {h["dtype"] for h in header.values()}
+                    if got_meta != metadata or dtypes != {safetensors_io.NAMES[want_dtype]}:
+                        fail(f"{tag} {name}_{fname}: metadata {got_meta} dtypes {dtypes}")
+                else:
+                    header = load_file_sd(path)
+                    if {v.dtype for v in header.values()} != {want_dtype}:
+                        fail(f"{tag} {name}_{fname}: dtypes {({v.dtype for v in header.values()})}")
+                if set(header) != set(live_sd):
+                    fail(f"{tag} {name}_{fname}: keys differ from state_dict()'s")
+                t0 = time.perf_counter()
+                net, _ = create_lycoris_from_weights(1.0, path, model)
+                load_s = time.perf_counter() - t0
+                if any(v.device.type != "cuda" for v in adapter_tensors(net).values()):
+                    fail(f"{tag} {name}_{fname}: an adapter tensor is not on the card")
+                exact = dtype is None
+                if exact:
+                    got_sd = net.state_dict()
+                    diff = [k for k in live_sd if not torch.equal(got_sd[k], live_sd[k])]
+                    if diff:
+                        fail(f"{tag} {name}_{fname}: {len(diff)} tensors differ, e.g. {diff[:3]}")
+                err, bnd = rel_l2(call(net), y_live), 1e-3 if exact else 3e-2
+                log(f"{tag} {name}_{fname}: {len(header)} tensors, saved in {save_s:.3f} s, "
+                    f"loaded on the card in {load_s:.3f} s; tensors bit for bit "
+                    f"{'yes' if exact else 'n/a (bf16)'}; UNet call vs the live adapters rel "
+                    f"L2 {err:.3e} (bound {bnd:g})")
+                if not err <= bnd:
+                    fail(f"{tag} {name}_{fname}: UNet call rel L2 {err:.3e} over {bnd:g}")
+                del net
+            base = [p.detach().clone() for p in model.parameters()]
+            live.onfly_merge(1.0)
+            with torch.no_grad():
+                y_merged = model(x, t, ctx).float()
+            live.onfly_restore()
+            err = rel_l2(y_merged, y_live)
+            same = all(torch.equal(p, b) for p, b in zip(model.parameters(), base))
+            log(f"{tag} {name} onfly_merge: plain model vs live adapters rel L2 {err:.3e} "
+                f"(bound 1e-3); base weights bit for bit after onfly_restore: {same}")
+            if not (err <= 1e-3 and same):
+                fail(f"{tag} {name} onfly_merge rel L2 {err:.3e}, restored {same}")
+            del live, base
+            torch.cuda.empty_cache()
+
+        # a trainer checkpoint: 2 LoKr steps, save, load into a fresh trainer
+        path = os.path.join(tmp, "trainer.pt")
+        net = make_net(model, sds["lokr"])
+        tr = DiffusionTrainer(model, net, lr=1e-4, weight_dtype=torch.bfloat16,
+                              generator=torch.Generator(device=dev).manual_seed(31))
+        for _ in range(2):
+            tr.train_step(batch)
+        t0 = time.perf_counter()
+        tr.save_checkpoint(path)
+        save_s = time.perf_counter() - t0
+        net.restore()
+        net2 = make_net(model, sds["lokr"])
+        tr2 = DiffusionTrainer(model, net2, lr=1e-4, weight_dtype=torch.bfloat16,
+                               generator=torch.Generator(device=dev).manual_seed(32))
+        t0 = time.perf_counter()
+        tr2.load_checkpoint(path)
+        load_s = time.perf_counter() - t0
+        a, b = adapter_tensors(net), adapter_tensors(net2)
+        bad = [k for k in a if not torch.equal(a[k], b[k])]
+        sa, sb = tr.optimizer.state_dict()["state"], tr2.optimizer.state_dict()["state"]
+        bad += [f"adamw {i} {k}" for i in sa for k in sa[i]
+                if i not in sb or not torch.equal(sa[i][k], sb[i][k])]
+        bad += [f"generator {g}" for g in ("generator", "drop_generator")
+                if not torch.equal(getattr(tr, g).get_state(), getattr(tr2, g).get_state())]
+        if tr2.step != tr.step:
+            bad.append(f"step {tr2.step} != {tr.step}")
+        shape = tuple(batch["latents"].shape)
+        draws = [(torch.randn(shape, generator=g, device=dev),
+                  torch.randint(0, 1000, (shape[0],), generator=g, device=dev))
+                 for g in (tr.generator, tr2.generator)]
+        if not (torch.equal(draws[0][0], draws[1][0]) and torch.equal(draws[0][1], draws[1][1])):
+            bad.append("the next noise or timestep draws")
+        log(f"{tag} trainer checkpoint after {tr.step} LoKr steps ({len(a)} adapter tensors, "
+            f"{len(sa)} AdamW states): saved in {save_s:.3f} s, loaded in {load_s:.3f} s; "
+            f"differences after the load: {bad or 'none'}; next draws equal")
+        if bad:
+            fail(f"{tag} the resumed trainer differs: {bad[:5]}")
+        net2.restore()
+        del tr, tr2, net, net2
+    torch.cuda.empty_cache()
+
+
+def dw_norms(net):
+    """Each adapter module's dW norm (its ``get_diff_weight``), on the card."""
+    import torch
+
+    with torch.no_grad():
+        return torch.stack([lyco.get_diff_weight()[0].float().norm() for lyco in net.loras])
+
+
+def phase_sdxl_dora_max_norm(model, sd, batch, results, card):
+    """SDXL DoRA LoHa with the trainer's max-norm at half the median of the
+    modules' dW norms: 3 steps with the checks of phase 9 (the max-norm
+    pass's LoHa forwards in the hand count, every one on the fast variant,
+    dora_scale among the tensors that must change), and after each step at
+    least one module scaled and every module's norm at most the limit x
+    (1 + 1e-3); then one step without the pass and one with it, and the
+    pass alone, host-clocked."""
+    import torch
+    from lycoris_tpu_torch.models.unet import sdxl_config
+
+    tag = "[train_sdxl_dora_loha]"
+    net = make_net(model, sd)
+    if not all(lyco.wd for lyco in net.loras):
+        fail(f"{tag} a module without DoRA")
+    norms = dw_norms(net)
+    limit = 0.5 * float(norms.median())
+    log(f"{tag} max-norm limit {limit:.6e}: half the median of the {norms.numel()} modules' "
+        f"dW norms ({float(norms.min()):.4e}..{float(norms.max()):.4e})")
+    del net
+    want = checked_counts(sdxl_config(), SDXL_BATCH, SDXL_HW, "loha", True, True, SDXL_STEP,
+                          SDXL_ADAPTED, SDXL_FACTORED, max_norm=True)
+    scaled = []
+
+    def step_check(tr, net):
+        n_scaled = int(tr.max_norm_stats[0])
+        worst = float(dw_norms(net).max())
+        scaled.append(n_scaled)
+        if not (n_scaled > 0 and worst <= limit * (1 + 1e-3)):
+            fail(f"{tag} max-norm: {n_scaled} modules scaled, largest norm {worst:.6e} "
+                 f"against the limit {limit:.6e}")
+
+    def timing(tr, net):
+        secs = {}
+        for label, lim in (("without", None), ("with", limit)):
+            tr.scale_weight_norms = lim
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr.train_step(batch)
+            torch.cuda.synchronize()
+            secs[label] = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        net.apply_max_norm_stacked(limit)
+        torch.cuda.synchronize()
+        pass_ms = (time.perf_counter() - t0) * 1e3
+        log(f"{tag} one step without the max-norm pass {secs['without']:.4f} s, one with it "
+            f"{secs['with']:.4f} s: the pass adds {(secs['with'] - secs['without']) * 1e3:.1f} "
+            f"ms a step by that difference; the pass alone ({len(net.loras)} modules, "
+            f"synchronised) {pass_ms:.1f} host ms ({card}; single host-clocked readings)")
+        results["training"][tag.strip("[]")].update(
+            limit=limit, modules_scaled=scaled, step_without_s=secs["without"],
+            step_with_s=secs["with"], max_norm_pass_ms=pass_ms)
+
+    train(model, "loha", sd, batch, want, 3, results, card, tag,
+          trainer_kw={"scale_weight_norms": limit}, step_check=step_check, after=timing)
+    log(f"{tag} modules scaled per step {scaled} of {SDXL_ADAPTED}")
+
+
+def phase_sdxl_premerge(model, sd, batch, results, card):
+    """SDXL LoKr with ``merge_mode="premerge"``: one loss and every adapter
+    gradient against the interceptor route on the same batch, noise and
+    timesteps (both bf16 on the card; phase 14's bounds), then 2 steps with
+    the checks of phase 9 (factored 0), and s/step and peak memory beside
+    ``train_sdxl_lokr``'s."""
+    import torch
+    from lycoris_tpu_torch.models.unet import sdxl_config
+    from lycoris_tpu_torch.trainer import DiffusionTrainer
+
+    tag = "[train_sdxl_premerge]"
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(37)
+    noise = torch.randn(batch["latents"].shape, generator=gen, device=dev)
+    t = torch.randint(0, 1000, (SDXL_BATCH,), generator=gen, device=dev)
+    got = {}
+    for mode in ("premerge", "interceptor"):
+        net = make_net(model, sd)
+        tr = DiffusionTrainer(model, net, weight_dtype=torch.bfloat16, merge_mode=mode)
+        reset_counts()
+        with tr.adapted():
+            loss = tr.loss_fn(batch["latents"], batch["context"], noise, t, batch["added_cond"])
+            loss.backward()
+        factored = read_counts()["factored"]
+        grads = torch.cat([p.grad.float().reshape(-1)
+                           for _, sub in sorted(net.trainable_params().items())
+                           for _, p in sorted(sub.items())])
+        got[mode] = (float(loss.detach()), grads, factored)
+        net.restore()
+        del tr, net, loss
+        torch.cuda.empty_cache()
+    (loss_p, g_p, f_p), (loss_i, g_i, f_i) = got["premerge"], got["interceptor"]
+    loss_rel, grad_rel = abs(loss_p - loss_i) / abs(loss_i), rel_l2(g_p, g_i)
+    log(f"{tag} b{SDXL_BATCH} loss premerge {loss_p:.6f} vs interceptor {loss_i:.6f}: rel "
+        f"{loss_rel:.3e} (bound 3e-2); adapter gradient ({g_i.numel()} values) rel L2 "
+        f"{grad_rel:.3e} (bound 5e-2); factored layers premerge {f_p}, interceptor {f_i}")
+    if not (loss_rel <= 3e-2 and grad_rel <= 5e-2 and bool(torch.isfinite(g_p).all())
+            and f_p == 0 and f_i == 2 * SDXL_FACTORED):
+        fail(f"{tag} premerge vs interceptor: loss rel {loss_rel:.3e}, gradient rel L2 "
+             f"{grad_rel:.3e}, factored {f_p} / {f_i}")
+    want = checked_counts(sdxl_config(), SDXL_BATCH, SDXL_HW, "lokr", True, True, SDXL_STEP,
+                          SDXL_ADAPTED, SDXL_FACTORED, premerge=True)
+    train(model, "lokr", sd, batch, want, 2, results, card, tag,
+          trainer_kw={"merge_mode": "premerge"})
+    for leg in ("train_sdxl_lokr", "train_sdxl_premerge"):
+        r = results["training"][leg]
+        log(f"{tag} {leg}: steady s/step {min(r['s_per_step'][1:]):.4f}, peak memory "
+            f"{r['peak_gib']:.2f} GiB ({card})")
+
+
 def ln_fwd_sums(row: dict) -> None:
     """The LayerNorm forward row's sums over its rotating-copy shapes, each
     weighted by its launches: the generic variant's ms per SDXL b4 step and
@@ -2415,17 +2728,23 @@ def main() -> int:
                "loha": adapter_state_dict(model, "loha", dev, seed=2),
                "lora": adapter_state_dict(model, "lora", dev, seed=6)}
         sd_conv = adapter_state_dict(model, "locon", dev, seed=7, preset=FULL_UNET_TARGETS)
+        sds_dora = {"loha": adapter_state_dict(model, "loha", dev, seed=10, dora=True),
+                    "lokr": adapter_state_dict(model, "lokr", dev, seed=11, dora=True)}
     for algo, steps in (("lokr", 20), ("loha", 10), ("lora", 20)):
         with phase(algo):
             serve(model, algo, sds[algo], requests=3, steps=steps, results=results, card=card)
     with phase("e2e"):
         phase_e2e(model, sds["lokr"])
     batch = sd15_batch()
+    trained = {}
     for algo, steps in (("lokr", 5), ("loha", 3), ("lora", 5)):
         with phase(f"train_{algo}"):
             want = checked_counts(sd15_config(), TRAIN_BATCH, 64, algo, True, False, SD15_STEP,
                                   SD15_ADAPTED, SD15_FACTORED)
-            train(model, algo, sds[algo], batch, want, steps, results, card, f"[train_{algo}]")
+            trained[algo] = train(model, algo, sds[algo], batch, want, steps, results, card,
+                                  f"[train_{algo}]")
+    trained_lokr = trained.pop("lokr")
+    del trained
     with phase("train_locon_conv"):
         full = path_shapes(sd15_config(), TRAIN_BATCH, 64)["full_adapted"]
         if full != SD15_FULL_ADAPTED:
@@ -2442,9 +2761,15 @@ def main() -> int:
     for algo, tag in (("lokr", "[train_e2e]"), ("lora", "[train_e2e_lora]")):
         with phase(tag.strip("[]")):
             phase_train_e2e(model, sds[algo], sd15_config(torch.float32), tag)
+    with phase("train_e2e_dora"):
+        for algo in ("loha", "lokr"):
+            phase_train_e2e(model, sds_dora[algo], sd15_config(torch.float32),
+                            f"[train_e2e_dora_{algo}]")
+    with phase("files"):
+        phase_files(model, {"lokr": trained_lokr, "dora_loha": sds_dora["loha"]}, batch, card)
 
     # SDXL: the SD1.5 model freed first
-    del model, sds, sd_conv, batch
+    del model, sds, sds_dora, sd_conv, batch, trained_lokr
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -2455,7 +2780,8 @@ def main() -> int:
     with torch.no_grad():
         sds = {"lora": adapter_state_dict(model, "lora", dev, seed=8),
                "lokr": adapter_state_dict(model, "lokr", dev, seed=4),
-               "loha": adapter_state_dict(model, "loha", dev, seed=5)}
+               "loha": adapter_state_dict(model, "loha", dev, seed=5),
+               "dora_loha": adapter_state_dict(model, "loha", dev, seed=9, dora=True)}
     batch = sdxl_batch()
     for algo, steps in (("lora", 4), ("lokr", 4), ("loha", 3)):
         with phase(f"train_sdxl_{algo}"):
@@ -2463,6 +2789,10 @@ def main() -> int:
                                   SDXL_STEP, SDXL_ADAPTED, SDXL_FACTORED)
             train(model, algo, sds[algo], batch, want, steps, results, card,
                   f"[train_sdxl_{algo}]", path="train_sdxl")
+    with phase("train_sdxl_dora_loha"):
+        phase_sdxl_dora_max_norm(model, sds["dora_loha"], batch, results, card)
+    with phase("train_sdxl_premerge"):
+        phase_sdxl_premerge(model, sds["lokr"], batch, results, card)
     del batch
     torch.cuda.empty_cache()
     for algo, tag in (("lokr", "[train_sdxl_e2e]"), ("lora", "[train_sdxl_e2e_lora]")):

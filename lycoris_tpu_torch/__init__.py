@@ -2,11 +2,12 @@
 
 The port so far: the SD1.5/SDXL UNet (:mod:`.models.unet`, with whole-block
 checkpointing), LoRA/LoCon (the default), LoKr and LoHa adapters
-(:mod:`.modules`) targeted and
-applied by :class:`LycorisNetwork`, DDIM sampling with CFG
-(:mod:`.sampler`), and adapter training by :class:`DiffusionTrainer`
-(:mod:`.trainer`) with the factored merged backward
-(:mod:`.functional.merged`). Flash attention, LayerNorm, the LoHa delta
+(:mod:`.modules`, with DoRA) targeted and
+applied by :class:`LycorisNetwork`, which reads and writes adapter files
+(``.safetensors`` by :mod:`.utils.safetensors_io`, or ``torch.save``),
+DDIM sampling with CFG (:mod:`.sampler`), and adapter training by
+:class:`DiffusionTrainer` (:mod:`.trainer`: the factored merged backward of
+:mod:`.functional.merged` or premerge, max-norm, checkpoint resume). Flash attention, LayerNorm, the LoHa delta
 weight and GroupNorm(+SiLU) run hand-written CUDA kernels on the card,
 forward and backward, and so does the GEGLU backward (:mod:`.ops`), beside
 the opt-in split LoHa backward and the fused LoRA matmul

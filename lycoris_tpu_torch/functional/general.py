@@ -87,6 +87,41 @@ def rebuild_tucker(t, wa, wb):
 
 
 # ---------------------------------------------------------------------------
+# DoRA
+# ---------------------------------------------------------------------------
+
+
+def out_norm(weight):
+    """The L2 norm of each output row of ``weight`` (O, I, *k), shaped
+    (O, 1, *1): DoRA's ``wd_on_out`` norm."""
+    return weight.reshape(weight.shape[0], -1).norm(dim=1).reshape(
+        weight.shape[0], *[1] * (weight.ndim - 1))
+
+
+def in_norm(weight):
+    """The L2 norm of each input column of ``weight`` (O, I, *k) over O and
+    the kernel, shaped (1, I, *1): DoRA's norm without ``wd_on_out``."""
+    return weight.transpose(0, 1).reshape(weight.shape[1], -1).norm(dim=1).reshape(
+        weight.shape[1], *[1] * (weight.ndim - 1)).transpose(0, 1)
+
+
+def apply_dora_scale(org_weight, rebuild, dora_scale, scale):
+    """Weight-decompose (DoRA) merge, column-norm variant (JAX
+    functional/general.py:144-163; reference general.py:95-108)."""
+    weight = (org_weight + rebuild).to(dora_scale.dtype)
+    diff_weight = weight / in_norm(weight) * dora_scale - org_weight
+    return org_weight + diff_weight * scale
+
+
+def apply_dora_scale_on_out(org_weight, rebuild, dora_scale, scale):
+    """Weight-decompose (DoRA) merge, row-norm (``wd_on_out``) variant (JAX
+    functional/general.py:166-179)."""
+    weight = (org_weight + rebuild).to(dora_scale.dtype)
+    diff_weight = weight / out_norm(weight) * dora_scale - org_weight
+    return org_weight + diff_weight * scale
+
+
+# ---------------------------------------------------------------------------
 # Channels-first linear / convNd ops
 # ---------------------------------------------------------------------------
 

@@ -36,7 +36,7 @@ import torch
 from torch import nn
 
 from ..functional import general
-from ..functional.general import convnd, layer_norm, linear
+from ..functional.general import convnd, in_norm, layer_norm, linear, out_norm
 
 
 def _hashable_kw(kw: dict) -> tuple:
@@ -159,6 +159,42 @@ def dropout(gen, x, p: float):
     return torch.where(keep, x / (1.0 - p), 0.0).to(x.dtype)
 
 
+def apply_weight_decompose(weight, dora_scale, wd_on_out: bool, multiplier=1.0):
+    """DoRA's norm rescale of ``weight`` (W + dW) with the multiplier
+    interpolating between ``weight`` and the rescaled one (JAX
+    modules/base.py:181-205). The eps is that of ``dora_scale``'s dtype, the
+    dtype ``weight`` is cast to first."""
+    weight = weight.to(dora_scale.dtype)
+    eps = torch.finfo(weight.dtype).eps
+    scale = dora_scale / ((out_norm(weight) if wd_on_out else in_norm(weight)) + eps)
+    return weight * (multiplier * (scale - 1) + 1)
+
+
+def infer_wd_on_out(dora_scale, out_dim: int) -> bool:
+    """``wd_on_out`` from a saved ``dora_scale``'s shape: (O, 1, ...) on the
+    output, (1, I, ...) on the input (JAX modules/base.py:208-216)."""
+    shape = tuple(getattr(dora_scale, "shape", ()))
+    if len(shape) == 0:
+        return True
+    return shape[0] != 1 or out_dim == 1
+
+
+def init_dora_scale(org_weight, wd_on_out: bool):
+    """The row (``wd_on_out``) or column norms of the layer's weight, fp32
+    (JAX modules/base.py:219-234)."""
+    w = org_weight.detach().float()
+    return out_norm(w) if wd_on_out else in_norm(w)
+
+
+def max_norm_ratio(orig_norm, max_norm: float):
+    """(scaled, ratio) of max-norm for a dW of norm ``orig_norm``: the
+    norm clipped below at half the limit, then ``ratio`` = min(norm, limit)
+    / norm, ``scaled`` where that is not 1 (JAX locon.py:223-231)."""
+    norm = orig_norm.clamp(min=max_norm / 2)
+    desired = norm.clamp(max=max_norm)
+    return norm != desired, desired / norm
+
+
 def as_float(alpha) -> float:
     if alpha is None:
         return 0.0
@@ -198,6 +234,19 @@ class LycorisBaseModule(nn.Module):
         self.bypass_mode = bool(bypass_mode)
         self.not_supported = layer.module_type not in self.support_module
         self.trainable: set[str] = set()
+        self.wd = False
+        self.wd_on_out = True
+
+    def _init_dora(self, weight_decompose, wd_on_out, org_weight, device):
+        """DoRA's ``dora_scale``, trainable, from the layer's weight (zeros
+        without one, as the JAX modules)."""
+        self.wd, self.wd_on_out = bool(weight_decompose), bool(wd_on_out)
+        if not self.wd:
+            return
+        if org_weight is None:
+            org_weight = torch.zeros(self.shape)
+        self.trainable.add("dora_scale")
+        self._set("dora_scale", init_dora_scale(org_weight, self.wd_on_out).to(device))
 
     # -- tensors under their reference keys ----------------------------------
     def _owner(self, key: str, create: bool = False):
@@ -286,11 +335,36 @@ class LycorisBaseModule(nn.Module):
                 scalar.fill_(1.0)
 
     # -- compute API ------------------------------------------------------------
-    def get_diff_weight(self, multiplier=1.0):
+    def get_weight(self, train=False, seed=None):
         raise NotImplementedError
 
+    def get_diff_weight(self, multiplier=1.0):
+        return self.get_weight() * self._p("scalar") * multiplier, None
+
     def get_merged_weight(self, org_weight, org_bias=None, multiplier=1.0):
-        raise NotImplementedError
+        """W + dW * multiplier, or under DoRA the rescale of W + dW."""
+        diff = self.get_diff_weight(1.0)[0].reshape(org_weight.shape)
+        if self.wd:
+            return apply_weight_decompose(org_weight + diff, self._p("dora_scale"),
+                                          self.wd_on_out, multiplier), org_bias
+        return org_weight + diff * multiplier, org_bias
+
+    def apply_max_norm(self, max_norm):
+        """Scale this module's tensors in place so that the norm of its dW is
+        at most ``max_norm``; ``(params, scaled, norm after scaling)`` with
+        0-dim device tensors, or ``(params, None, None)`` for a module
+        without max-norm (JAX modules/base.py:350-353)."""
+        return self.params, None, None
+
+    @torch.no_grad()
+    def _max_norm_on_scalar(self, max_norm):
+        """Max-norm through ``scalar``: the norm of dW = get_weight * scalar
+        (LoCon, LoHa)."""
+        scalar = self._p("scalar")
+        orig = (self.get_weight() * scalar).norm()
+        scaled, ratio = max_norm_ratio(orig, max_norm)
+        scalar.mul_(torch.where(scaled, ratio, 1.0).to(scalar.dtype))
+        return self.params, scaled, orig * ratio
 
     def bypass_forward_diff(self, x, scale=1.0, train=False, seed=None):
         raise NotImplementedError
@@ -338,6 +412,10 @@ class LycorisBaseModule(nn.Module):
             full = base + self.bypass_forward_diff(x, scale=multiplier, train=train, seed=seed)
         else:
             diff = self.get_weight(train, seed).to(org_weight.dtype) * self._p("scalar")
-            new_weight = org_weight + diff * multiplier
+            if self.wd:
+                new_weight = apply_weight_decompose(org_weight + diff, self._p("dora_scale"),
+                                                    self.wd_on_out, multiplier)
+            else:
+                new_weight = org_weight + diff * multiplier
             full = base + self.op(x, (new_weight - org_weight).to(x.dtype))
         return self._module_dropout_mix(seed, train, base, full)

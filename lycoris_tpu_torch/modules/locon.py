@@ -14,8 +14,9 @@ the JAX package does.
 In training, rank dropout masks the out-dim rows of the rebuilt dW, or in
 bypass mode the rank of the down output, and plain dropout applies to the
 bypass output only (JAX locon.py:186-194, 314-331); module dropout as in
-``modules/base.py``. DoRA (``weight_decompose``) waits for a later slice
-and raises ``NotImplementedError`` by name.
+``modules/base.py``. DoRA (``weight_decompose``) and max-norm (through
+``scalar``) as in ``modules/base.py``; a DoRA layer takes no factored
+backward.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ import torch
 from ..functional import locon
 from ..functional.general import kaiming_uniform
 from ..functional.merged import lora_dtheta
-from .base import LayerInfo, LycorisBaseModule, as_float, to_tensor
+from .base import LayerInfo, LycorisBaseModule, as_float, infer_wd_on_out, to_tensor
 
 
 class LoConModule(LycorisBaseModule):
@@ -40,13 +41,11 @@ class LoConModule(LycorisBaseModule):
                  dropout=0.0, rank_dropout=0.0, module_dropout=0.0, use_tucker=False,
                  use_scalar=False, rank_dropout_scale=False, weight_decompose=False,
                  wd_on_out=True, bypass_mode=None, rs_lora=False, generator=None, device=None,
-                 dtype=torch.float32, **kwargs):
+                 dtype=torch.float32, org_weight=None, **kwargs):
         super().__init__(lora_name, layer, multiplier, dropout, rank_dropout, module_dropout,
                          rank_dropout_scale, bypass_mode)
         if self.not_supported:
             raise ValueError(f"{self.module_type} is not supported in LoRA/LoCon algo.")
-        if weight_decompose:
-            raise NotImplementedError("LoCon weight_decompose (DoRA) is not ported yet")
         self.lora_dim = lora_dim
         self.tucker = False
         self.rs_lora = rs_lora
@@ -72,6 +71,7 @@ class LoConModule(LycorisBaseModule):
         if self.tucker:
             self.trainable.add("lora_mid.weight")
             self._set("lora_mid.weight", kaiming_uniform((lora_dim, lora_dim, *k_size), **kw))
+        self._init_dora(weight_decompose, wd_on_out, org_weight, device)
 
         alpha = as_float(alpha)
         alpha = lora_dim if alpha == 0.0 else alpha
@@ -86,11 +86,13 @@ class LoConModule(LycorisBaseModule):
     @classmethod
     def make_module_from_state_dict(cls, lora_name, layer, up, down, mid, alpha, dora_scale):
         """The module for saved tensors (reference locon.py:144-168): rank from
-        ``down``, tucker from ``mid``, shapes re-inferred from the layer."""
+        ``down``, tucker from ``mid``, DoRA's side from ``dora_scale``'s
+        shape, shapes re-inferred from the layer."""
         module = cls(lora_name, layer, 1, down.shape[0], alpha, use_tucker=mid is not None,
-                     weight_decompose=dora_scale is not None)
+                     weight_decompose=dora_scale is not None,
+                     wd_on_out=infer_wd_on_out(dora_scale, layer.shape[0]))
         for key, val in (("lora_up.weight", up), ("lora_down.weight", down),
-                         ("lora_mid.weight", mid)):
+                         ("lora_mid.weight", mid), ("dora_scale", dora_scale)):
             if val is not None and module._p(key) is not None:
                 v = to_tensor(val)
                 module._set(key, v.reshape(module._p(key).shape).clone())
@@ -106,13 +108,6 @@ class LoConModule(LycorisBaseModule):
                                    gamma=self.scale).reshape(self.shape)
         return self._rank_masked(weight, train, seed)
 
-    def get_diff_weight(self, multiplier=1.0):
-        return self.get_weight() * self._p("scalar") * multiplier, None
-
-    def get_merged_weight(self, org_weight, org_bias=None, multiplier=1.0):
-        diff = self.get_diff_weight(1.0)[0].reshape(org_weight.shape)
-        return org_weight + diff * multiplier, org_bias
-
     def custom_state_dict(self):
         src = self.params
         dest = {
@@ -122,15 +117,21 @@ class LoConModule(LycorisBaseModule):
         }
         if self.tucker:
             dest["lora_mid.weight"] = src["lora_mid.weight"]
+        if self.wd:
+            dest["dora_scale"] = src["dora_scale"]
         return {k: v.detach() for k, v in dest.items()}
+
+    def apply_max_norm(self, max_norm):
+        """Max-norm through ``scalar`` (JAX locon.py:223-231)."""
+        return self._max_norm_on_scalar(max_norm)
 
     def factored_merged_fns(self, multiplier):
         """(recon_fn, dtheta_fn) for the dense-dW-free merged backward
         (functional/merged.py), or None where this configuration needs plain
-        autograd (convolutions, tucker, rank dropout). The fused one-kernel
+        autograd (convolutions, tucker, DoRA, rank dropout). The fused one-kernel
         product (``ops/lora_fused.py``) is not dispatched here, as in the JAX
         package: the merged path stays the default."""
-        if self.layer.is_conv or self.tucker or self.rank_dropout:
+        if self.layer.is_conv or self.tucker or self.wd or self.rank_dropout:
             return None
         c = self.scale * multiplier
         want_scalar = "scalar" in self.trainable

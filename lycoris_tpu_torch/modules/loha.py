@@ -6,7 +6,8 @@ Keys ``hada_w1_a/b, hada_w2_a/b, hada_t1/t2, alpha``; non-tucker factors
 (``functional/loha.py`` -> ``ops/hada.py``). In training, rank dropout
 masks the out-dim rows of dW (in either mode) and plain dropout applies to
 the bypass output only (JAX loha.py:206-211, 264-265); module dropout as in
-``modules/base.py``. DoRA waits for a later slice.
+``modules/base.py``. DoRA (``weight_decompose``) and max-norm (through
+``scalar``) as in ``modules/base.py``.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ import math
 import torch
 
 from ..functional import loha as F_loha
-from .base import LayerInfo, LycorisBaseModule, as_float, to_tensor
+from .base import LayerInfo, LycorisBaseModule, as_float, infer_wd_on_out, to_tensor
 
 
 class LohaModule(LycorisBaseModule):
@@ -30,13 +31,11 @@ class LohaModule(LycorisBaseModule):
                  dropout=0.0, rank_dropout=0.0, module_dropout=0.0, use_tucker=False,
                  use_scalar=False, rank_dropout_scale=False, weight_decompose=False,
                  wd_on_out=True, bypass_mode=None, rs_lora=False, generator=None,
-                 device=None, dtype=torch.float32, **kwargs):
+                 device=None, dtype=torch.float32, org_weight=None, **kwargs):
         super().__init__(lora_name, layer, multiplier, dropout, rank_dropout, module_dropout,
                          rank_dropout_scale, bypass_mode)
         if self.not_supported:
             raise ValueError(f"{self.module_type} is not supported in LoHa algo.")
-        if weight_decompose:
-            raise NotImplementedError("LoHa weight_decompose (DoRA) is not ported yet")
         self.lora_dim = lora_dim
         self.rs_lora = rs_lora
         self.use_scalar = use_scalar
@@ -70,6 +69,7 @@ class LohaModule(LycorisBaseModule):
             self._set("hada_w2_a", normal((w_shape[0], lora_dim), 0.1) if use_scalar
                       else zeros((w_shape[0], lora_dim)))
             self._set("hada_w2_b", normal((lora_dim, w_shape[1]), 1.0))
+        self._init_dora(weight_decompose, wd_on_out, org_weight, device)
 
         alpha = as_float(alpha)
         alpha = lora_dim if alpha == 0.0 else alpha
@@ -85,9 +85,11 @@ class LohaModule(LycorisBaseModule):
     def make_module_from_state_dict(cls, lora_name, layer, w1a, w1b, w2a, w2b, t1, t2, alpha,
                                     dora_scale):
         module = cls(lora_name, layer, 1, w1b.shape[0], alpha, use_tucker=t1 is not None,
-                     weight_decompose=dora_scale is not None)
+                     weight_decompose=dora_scale is not None,
+                     wd_on_out=infer_wd_on_out(dora_scale, layer.shape[0]))
         for key, val in [("hada_w1_a", w1a), ("hada_w1_b", w1b), ("hada_w2_a", w2a),
-                         ("hada_w2_b", w2b), ("hada_t1", t1), ("hada_t2", t2)]:
+                         ("hada_w2_b", w2b), ("hada_t1", t1), ("hada_t2", t2),
+                         ("dora_scale", dora_scale)]:
             if val is not None:
                 module._set(key, to_tensor(val).clone())
         return module
@@ -104,13 +106,6 @@ class LohaModule(LycorisBaseModule):
         )
         return self._rank_masked(weight.reshape(self.shape), train, seed)
 
-    def get_diff_weight(self, multiplier=1.0):
-        return self.get_weight() * self._p("scalar") * multiplier, None
-
-    def get_merged_weight(self, org_weight, org_bias=None, multiplier=1.0):
-        diff = self.get_diff_weight(1.0)[0].reshape(org_weight.shape)
-        return org_weight + diff * multiplier, org_bias
-
     def custom_state_dict(self):
         src = self.params
         dest = {
@@ -123,7 +118,14 @@ class LohaModule(LycorisBaseModule):
         if self.tucker:
             dest["hada_t1"] = src["hada_t1"]
             dest["hada_t2"] = src["hada_t2"]
+        if self.wd:
+            dest["dora_scale"] = src["dora_scale"]
         return {k: v.detach() for k, v in dest.items()}
+
+    def apply_max_norm(self, max_norm):
+        """Max-norm through ``scalar`` (JAX loha.py:250-258); on the card
+        dW comes from the LoHa forward kernel."""
+        return self._max_norm_on_scalar(max_norm)
 
     def bypass_forward_diff(self, x, scale=1.0, train=False, seed=None):
         diff_weight = self.get_weight(train, seed) * self._p("scalar") * scale

@@ -8,7 +8,8 @@ deviations from the reference). In training, rank dropout masks the
 out-dim rows of dW (in either mode) and plain dropout applies to the bypass
 output only: the merged forward ignores it, as the JAX module does (JAX
 lokr.py:307-312, 446-447); module dropout as in ``modules/base.py``. DoRA
-(``weight_decompose``) waits for a later slice.
+(``weight_decompose``) as in ``modules/base.py``; a DoRA layer takes no
+factored backward. Max-norm scales every factor by ratio ** (1 / factors).
 """
 
 from __future__ import annotations
@@ -20,7 +21,8 @@ import torch
 from ..functional.general import factorization, kaiming_uniform, rebuild_tucker
 from ..functional.lokr import bypass_diff_with_scale, make_kron
 from ..functional.merged import lokr_dtheta
-from .base import LayerInfo, LycorisBaseModule, as_float, to_tensor
+from .base import (LayerInfo, LycorisBaseModule, as_float, infer_wd_on_out, max_norm_ratio,
+                   to_tensor)
 
 
 class LokrModule(LycorisBaseModule):
@@ -38,13 +40,11 @@ class LokrModule(LycorisBaseModule):
                  rank_dropout_scale=False, weight_decompose=False, wd_on_out=True,
                  full_matrix=False, bypass_mode=None, rs_lora=False,
                  unbalanced_factorization=False, generator=None, device=None,
-                 dtype=torch.float32, **kwargs):
+                 dtype=torch.float32, org_weight=None, **kwargs):
         super().__init__(lora_name, layer, multiplier, dropout, rank_dropout, module_dropout,
                          rank_dropout_scale, bypass_mode)
         if self.not_supported:
             raise ValueError(f"{self.module_type} is not supported in LoKr algo.")
-        if weight_decompose:
-            raise NotImplementedError("LoKr weight_decompose (DoRA) is not ported yet")
 
         factor = int(factor)
         self.lora_dim = lora_dim
@@ -111,6 +111,7 @@ class LokrModule(LycorisBaseModule):
             self._set("lokr_w1_a", kaiming_uniform(w1a_shape, **kw))
             self._set("lokr_w1_b", kaiming_uniform(w1b_shape, **kw))
         self.trainable = {k for k in self.trainable if self._p(k) is not None}
+        self._init_dora(weight_decompose, wd_on_out, org_weight, device)
 
         alpha = as_float(alpha)
         alpha = lora_dim if alpha == 0.0 else alpha
@@ -176,10 +177,12 @@ class LokrModule(LycorisBaseModule):
 
         module = cls(lora_name, layer, 1, lora_dim, alpha, use_tucker=t2 is not None,
                      decompose_both=w1 is None and w2 is None, factor=factor,
-                     weight_decompose=dora_scale is not None, full_matrix=full_matrix)
+                     weight_decompose=dora_scale is not None,
+                     wd_on_out=infer_wd_on_out(dora_scale, layer.shape[0]),
+                     full_matrix=full_matrix)
         for key, val in [("lokr_w1", w1), ("lokr_w1_a", w1a), ("lokr_w1_b", w1b),
                          ("lokr_w2", w2), ("lokr_w2_a", w2a), ("lokr_w2_b", w2b),
-                         ("lokr_t2", t2)]:
+                         ("lokr_t2", t2), ("dora_scale", dora_scale)]:
             if val is not None:
                 v = to_tensor(val)
                 cur = module._p(key)
@@ -209,9 +212,9 @@ class LokrModule(LycorisBaseModule):
     def factored_merged_fns(self, multiplier):
         """(recon_fn, dtheta_fn) for the dense-dW-free merged backward
         (functional/merged.py), or None where this configuration needs plain
-        autograd (conv kernels, tucker, rank dropout). ``theta`` is the
+        autograd (conv kernels, tucker, DoRA, rank dropout). ``theta`` is the
         module's tensors by key (:attr:`params`)."""
-        if self.layer.is_conv or self.tucker or self.rank_dropout:
+        if self.layer.is_conv or self.tucker or self.wd or self.rank_dropout:
             return None
 
         def w1_of(theta):
@@ -253,13 +256,6 @@ class LokrModule(LycorisBaseModule):
 
         return recon_fn, dtheta_fn
 
-    def get_diff_weight(self, multiplier=1.0):
-        return self.get_weight() * self._p("scalar") * multiplier, None
-
-    def get_merged_weight(self, org_weight, org_bias=None, multiplier=1.0):
-        diff = self.get_diff_weight(1.0)[0].reshape(org_weight.shape)
-        return org_weight + diff * multiplier, org_bias
-
     def custom_state_dict(self):
         src = self.params
         dest = {"alpha": src["alpha"]}
@@ -275,7 +271,24 @@ class LokrModule(LycorisBaseModule):
             dest["lokr_w2_b"] = src["lokr_w2_b"]
             if self.tucker:
                 dest["lokr_t2"] = src["lokr_t2"]
+        if self.wd:
+            dest["dora_scale"] = src["dora_scale"]
         return {k: v.detach() for k, v in dest.items()}
+
+    @torch.no_grad()
+    def apply_max_norm(self, max_norm):
+        """Max-norm on the norm of dW without ``scalar``: each factor scaled
+        by ratio ** (1 / factors) (JAX lokr.py:354-366)."""
+        orig = self.get_weight().norm()
+        scaled, ratio = max_norm_ratio(orig, max_norm)
+        n_factors = 4 - self.use_w1 - self.use_w2 + (not self.use_w2 and self.tucker)
+        r = torch.where(scaled, ratio ** (1 / n_factors), 1.0)
+        for k in ("lokr_w1", "lokr_w1_a", "lokr_w1_b", "lokr_w2", "lokr_w2_a", "lokr_w2_b",
+                  "lokr_t2"):
+            p = self._p(k)
+            if p is not None:
+                p.mul_(r.to(p.dtype))
+        return self.params, scaled, orig * ratio
 
     # -- forward paths -----------------------------------------------------------
     def _functional_weights(self):

@@ -7,27 +7,42 @@
   ``weight_dtype``; only the adapter parameters train, with AdamW at the
   JAX package's (optax's) defaults: betas (0.9, 0.999), eps 1e-8 and
   weight decay 1e-4 (not torch's 1e-2);
-- the adapters live in the model's forward (``LycorisNetwork.apply_to``),
-  merged into each layer's weight by default, so the wide LoKr layers take
-  the factored backward (``functional/merged.py``);
+- ``merge_mode="interceptor"`` (the default): the adapters live in the
+  model's forward (``LycorisNetwork.apply_to``), merged into each layer's
+  weight by default, so the wide LoKr layers take the factored backward
+  (``functional/merged.py``); ``merge_mode="premerge"``: each step merges
+  every adapter into its layer's weight up front
+  (``LycorisNetwork.premerged``), and the model runs as a plain model on
+  those weights, with plain autograd back to the adapters;
 - each step draws a dropout seed (the JAX trainer's ``drop_rng``,
   trainer.py:175) from a CPU generator of its own, ``drop_generator``,
   seeded with ``generator``'s seed, and runs its forward and backward
   inside ``LycorisNetwork.training_step(seed)``: adapters with dropout
   train with it. The noise and timestep draws of ``generator`` are
-  untouched by it.
+  untouched by it;
+- ``scale_weight_norms``: after each optimizer step every module with
+  max-norm is scaled in place so that the norm of its dW is at most the
+  limit (kohya's ``--scale_weight_norms``), and ``max_norm_stats`` holds
+  (modules scaled, mean norm, largest norm) as 0-dim device tensors: the
+  step does not wait for the card;
+- :meth:`~DiffusionTrainer.save_checkpoint` / ``load_checkpoint`` keep the
+  adapter tensors (parameters and buffers), the AdamW state, ``step`` and
+  the states of ``generator`` and ``drop_generator`` in one ``torch.save``
+  file, so that a resumed run repeats the uninterrupted one (the JAX
+  trainer takes its rng from the caller; this one draws its own).
 
 The trainer runs on the device of the model it is given and moves nothing
 to the CPU. It updates the network's own parameters in place, so
 :meth:`DiffusionTrainer.sync_to_network` has nothing to copy.
 
-Not ported yet: ``premerge``, max-norm, param groups, the flat optimizer,
-checkpoint/resume and mesh sharding; ``auto_layout`` is XLA machinery and
-has no counterpart.
+Not ported: the flat optimizer and mesh sharding; ``auto_layout`` is XLA
+machinery and has no counterpart; ``param_groups``, which the JAX trainer
+accepts and never reads.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 
 import torch
@@ -44,28 +59,44 @@ class DiffusionTrainer:
     MSE objective."""
 
     def __init__(self, model, net, lr: float = 1e-4, weight_dtype=torch.bfloat16,
-                 merged_forward: bool = True, generator: torch.Generator | None = None):
+                 merged_forward: bool = True, generator: torch.Generator | None = None,
+                 merge_mode: str = "interceptor", scale_weight_norms: float | None = None):
+        if merge_mode not in ("interceptor", "premerge"):
+            raise ValueError(f"merge_mode must be 'interceptor' or 'premerge', not {merge_mode!r}")
         self.model = model
         self.net = net
         self.weight_dtype = weight_dtype
+        self.merge_mode = merge_mode
+        self.scale_weight_norms = scale_weight_norms
+        self.max_norm_stats = None  # (keys scaled, mean norm, max norm), device tensors
         self.device = next(model.parameters()).device
         model.requires_grad_(False)
         model.to(dtype=weight_dtype)
-        net.apply_to(merged_forward=merged_forward)
+        if merge_mode == "interceptor":
+            net.apply_to(merged_forward=merged_forward)
         self.alphas_cumprod = torch.from_numpy(
             ddpm_alphas_cumprod(NUM_TRAIN_TIMESTEPS)).to(self.device)
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
         self.generator = generator
         self.drop_generator = torch.Generator().manual_seed(generator.initial_seed())
-        params = [p for sub in net.trainable_params().values() for p in sub.values()]
-        self.optimizer = torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+        self.optimizer = torch.optim.AdamW(net.prepare_optimizer_params(), lr=lr,
+                                           betas=(0.9, 0.999), eps=1e-8,
                                            weight_decay=WEIGHT_DECAY)
         self.step = 0
 
+    def adapted(self):
+        """The block the adapted model's forward and backward run in: under
+        premerge the network's merged weights (``LycorisNetwork.premerged``),
+        else nothing to enter (the adapters are applied)."""
+        if self.merge_mode == "premerge":
+            return self.net.premerged()
+        return contextlib.nullcontext()
+
     def loss_fn(self, latents, context, noise, t, added_cond=None):
         """eps-MSE of the adapted model on ``latents`` noised with the given
-        ``noise`` (fp32, latents' shape) at timesteps ``t`` (int, (B,))."""
+        ``noise`` (fp32, latents' shape) at timesteps ``t`` (int, (B,)).
+        Under premerge, call it and run the backward inside :meth:`adapted`."""
         wd = self.weight_dtype
         b = latents.shape[0]
         a = self.alphas_cumprod[t].reshape(b, 1, 1, 1)
@@ -86,13 +117,50 @@ class DiffusionTrainer:
         t = torch.randint(0, NUM_TRAIN_TIMESTEPS, (b,), generator=self.generator,
                           device=self.device)
         seed = int(torch.randint(0, 2**62, (), generator=self.drop_generator))
-        with self.net.training_step(seed):
-            loss = self.loss_fn(latents, batch["context"], noise, t, batch.get("added_cond"))
+        return self._step(batch, noise, t, seed)
+
+    def _step(self, batch: dict, noise, t, seed: int):
+        """The step of :meth:`train_step` on the given noise, timesteps and
+        drop seed."""
+        with self.net.training_step(seed), self.adapted():
+            loss = self.loss_fn(batch["latents"], batch["context"], noise, t,
+                                batch.get("added_cond"))
             self.optimizer.zero_grad(set_to_none=True)
             loss.backward()
         self.optimizer.step()
+        if self.scale_weight_norms:
+            scaled, norms = self.net.apply_max_norm_stacked(self.scale_weight_norms)
+            if norms.numel():
+                self.max_norm_stats = (scaled.sum(), norms.mean(), norms.max())
+            else:
+                self.max_norm_stats = (scaled.sum(), norms.sum(), norms.sum())
         self.step += 1
         return loss.detach()
+
+    def save_checkpoint(self, path) -> None:
+        """The adapter tensors (parameters and buffers), the AdamW state,
+        ``step`` and both generators' states, in one ``torch.save`` file."""
+        torch.save({
+            "adapters": {f"{lyco.lora_name}.{k}": v.detach()
+                         for lyco in self.net.loras for k, v in lyco.params.items()},
+            "optimizer": self.optimizer.state_dict(),
+            "step": self.step,
+            "generator": self.generator.get_state(),
+            "drop_generator": self.drop_generator.get_state(),
+        }, path)
+
+    def load_checkpoint(self, path) -> None:
+        """Resume from :meth:`save_checkpoint`'s file into this trainer,
+        whose network has the same modules."""
+        state = torch.load(path, map_location="cpu", weights_only=True)
+        with torch.no_grad():
+            for lyco in self.net.loras:
+                for k, v in lyco.params.items():
+                    v.copy_(state["adapters"][f"{lyco.lora_name}.{k}"])
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.step = int(state["step"])
+        self.generator.set_state(state["generator"])
+        self.drop_generator.set_state(state["drop_generator"])
 
     def benchmark(self, batch: dict, warmup: int = 3, iters: int = 10):
         """(steps per second over ``iters`` steps after ``warmup``, last loss);

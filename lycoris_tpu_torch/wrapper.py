@@ -23,16 +23,27 @@ adapter with a nonzero ``dropout``, ``rank_dropout`` or ``module_dropout``
 then leaves the merged and factored routes for its own delta-over-base
 forward with the dropout trio, its draws seeded from the step's seed and its
 ``lora_name`` (the JAX interceptor's ``train=True, rng=...``,
-wrapper.py:635-651). Everywhere else the route is the one above.
+wrapper.py:635-651). Everywhere else the route is the one above. A DoRA
+layer (``dora_wd``) takes the merged route with plain autograd: its modules
+decline the factored backward, as the JAX modules do.
 :meth:`~LycorisNetwork.merge_to` folds the adapters into the layers'
-weights in place. State dicts use the reference key grammar; file I/O
-(safetensors) is not ported yet, so they pass in memory.
+weights in place; :meth:`~LycorisNetwork.onfly_merge` does the same and
+keeps the layers' own weights for :meth:`~LycorisNetwork.onfly_restore`.
+:meth:`~LycorisNetwork.premerged` is the premerge route of the trainer:
+inside it every mergeable layer holds its merged weight, formed with
+autograd from the adapters, and the model runs as a plain model.
+State dicts use the reference key grammar, and
+:meth:`~LycorisNetwork.save_weights`, :meth:`~LycorisNetwork.load_weights`
+and ``create_lycoris_from_weights(file=...)`` read and write them as
+``.safetensors`` (``utils/safetensors_io.py``) or as a ``torch.save`` file of
+CPU tensors for any other extension, as the JAX package does.
 """
 
 from __future__ import annotations
 
 import contextlib
 import fnmatch
+import os
 import re
 import zlib
 from typing import Any
@@ -49,7 +60,7 @@ from .modules.base import fold_in
 from .modules.locon import LoConModule
 from .modules.loha import LohaModule
 from .modules.lokr import LokrModule
-from .utils import str_bool
+from .utils import safetensors_io, str_bool
 from .utils.preset import read_preset
 
 VALID_PRESET_KEYS = [
@@ -166,13 +177,12 @@ def create_lycoris(module, multiplier=1.0, linear_dim=4, linear_alpha=1, **kwarg
 
 def create_lycoris_from_weights(multiplier, file, module, weights_sd=None, **kwargs):
     """Build a network from a state dict in the reference key grammar, the
-    algorithm of each layer detected from its keys (reference wrapper.py:148-194).
-    Each adapter goes to ``device`` if given, else to its layer's device.
-    Returns ``(network, weights_sd)``."""
+    algorithm of each layer detected from its keys (reference wrapper.py:148-194):
+    ``weights_sd``, or if that is None the adapter file ``file``
+    (:func:`load_file_sd`). Each adapter goes to ``device`` if given, else
+    to its layer's device, its tensors in fp32. Returns ``(network, weights_sd)``."""
     if weights_sd is None:
-        raise NotImplementedError(
-            "loading adapter files is not ported yet; pass the state dict as weights_sd="
-        )
+        weights_sd = load_file_sd(file)
     graph = _as_graph(module)
     prefixes: dict[str, Any] = {}
     for key in weights_sd:
@@ -203,6 +213,14 @@ def create_lycoris_from_weights(multiplier, file, module, weights_sd=None, **kwa
     network.loras = nn.ModuleList(loras)
     logger.info(f"{len(network.loras)} Modules Loaded")
     return network, weights_sd
+
+
+def load_file_sd(file) -> dict:
+    """A flat state dict of CPU tensors from ``.safetensors`` or, for any
+    other extension, a ``torch.save`` file (JAX wrapper.py:214-223)."""
+    if os.path.splitext(file)[1] == ".safetensors":
+        return safetensors_io.load_file(file)
+    return torch.load(file, map_location="cpu", weights_only=True)
 
 
 class LycorisNetwork(nn.Module):
@@ -335,7 +353,8 @@ class LycorisNetwork(nn.Module):
             return _module_class(algo_name)(
                 lora_name, li, self.multiplier, dim, alpha_, self.dropout, self.rank_dropout,
                 self.module_dropout, use_tucker=use_tucker_,
-                generator=module_generator(lora_name), device=device, dtype=dtype, **cfg,
+                generator=module_generator(lora_name), device=device, dtype=dtype,
+                org_weight=node.weights()[0], **cfg,
             )
 
         def create_modules_(prefix, root_name, algo, current_lora_map, configs={}):
@@ -456,6 +475,25 @@ class LycorisNetwork(nn.Module):
         """The adapters' trainable parameters, ``{lora_name: {key: Parameter}}``."""
         return {lyco.lora_name: dict(lyco.named_parameters()) for lyco in self.loras}
 
+    def get_trainable_params(self) -> dict:
+        return self.trainable_params()
+
+    def prepare_optimizer_params(self, lr=None) -> list:
+        """One torch optimizer parameter group of every trainable adapter
+        tensor, with ``lr`` if given (JAX wrapper.py:860-864)."""
+        group = {"params": [p for sub in self.trainable_params().values() for p in sub.values()]}
+        if lr is not None:
+            group["lr"] = lr
+        return [group]
+
+    def set_multiplier(self, multiplier):
+        self.multiplier = multiplier
+        for lyco in self.loras:
+            lyco.multiplier = multiplier
+
+    def is_mergeable(self) -> bool:
+        return True
+
     # -- lifecycle ------------------------------------------------------------
     def _factored_apply(self, lyco, node, x, w, b, mult):
         """The layer through ``factored_merged_apply`` (dense-dW-free
@@ -542,6 +580,39 @@ class LycorisNetwork(nn.Module):
         self._patched = {}
         return self
 
+    @contextlib.contextmanager
+    def premerged(self, multiplier=1.0):
+        """Inside the block every mergeable, non-bypass adapted layer holds
+        its merged weight (``get_merged_weight``: W + dW, or DoRA's rescale
+        of it), cast to its weight's dtype and formed with autograd from the
+        adapter tensors, in place of its own; the model runs as a plain
+        model on them (the JAX trainer's premerge, ``traced_merge``,
+        wrapper.py:765-799). Keep the backward inside the block too: the
+        recompute of a checkpointed block reads the layers' weights again.
+        The network must not be applied at the same time."""
+        if self._patched:
+            raise RuntimeError("premerged on an applied network: call restore() first")
+        swapped = []
+        try:
+            for lora_name, lyco in self.lora_map.items():
+                if lyco.not_supported or lyco.bypass_mode:
+                    continue
+                node = self.node_map[lora_name]
+                w, b = node.weights()
+                w_m, b_m = lyco.get_merged_weight(w, b, multiplier=multiplier)
+                merged = {"weight": w_m.to(w.dtype)}
+                if b_m is not None and b_m is not b:
+                    merged["bias"] = b_m.to(b.dtype)
+                # in place in the module's parameter dict, as torch.func's
+                # functional_call swaps them, so that their order stays
+                for name, t in merged.items():
+                    swapped.append((node.module, name, node.module._parameters[name]))
+                    node.module._parameters[name] = t
+            yield self
+        finally:
+            for mod, name, param in reversed(swapped):
+                mod._parameters[name] = param
+
     @torch.no_grad()
     def merge_to(self, weight=1.0):
         """Fold every adapter into its layer's weight, in place (reference
@@ -559,11 +630,75 @@ class LycorisNetwork(nn.Module):
                 b.copy_(b_m.to(b.dtype))
         return self
 
+    def onfly_merge(self, weight=1.0):
+        """:meth:`merge_to` that keeps a copy of every adapted layer's
+        weight and bias for :meth:`onfly_restore` (JAX wrapper.py:813-823)."""
+        if self._patched:
+            raise RuntimeError("onfly_merge on an applied network: call restore() first")
+        self._onfly_saved = [
+            (w, w.detach().clone(), b, None if b is None else b.detach().clone())
+            for w, b in (self.node_map[ln].weights() for ln in self.lora_map)]
+        return self.merge_to(weight)
+
+    @torch.no_grad()
+    def onfly_restore(self):
+        """Copy back the layers' weights and biases :meth:`onfly_merge` kept."""
+        for w, w0, b, b0 in self._onfly_saved:
+            w.copy_(w0)
+            if b is not None:
+                b.copy_(b0)
+        del self._onfly_saved
+        return self
+
+    @torch.no_grad()
+    def apply_max_norm_stacked(self, max_norm):
+        """Max-norm over every module that has it, in place: ``(scaled,
+        norms)``, one slot a module, fp32 tensors on the adapters' device
+        with no host sync (the counterpart of the JAX
+        ``apply_max_norm_traced``, wrapper.py:825-848)."""
+        flags, norms = [], []
+        for lyco in self.loras:
+            _, scaled, norm = lyco.apply_max_norm(max_norm)
+            if scaled is not None:
+                flags.append(scaled)
+                norms.append(norm)
+        if not flags:
+            z = torch.zeros(0, device=_model_device(self.graph))
+            return z, z
+        return torch.stack(flags).float(), torch.stack(norms).float()
+
+    def apply_max_norm_regularization(self, max_norm):
+        """Max-norm over every module, in place: ``(keys_scaled, mean_norm,
+        max_norm)`` as host numbers, ``(0, 0, 0)`` if no module was scaled
+        (JAX wrapper.py:850-858)."""
+        flags, norms = self.apply_max_norm_stacked(max_norm)
+        keys_scaled = int(flags.sum())
+        if keys_scaled == 0:
+            return 0, 0, 0
+        return keys_scaled, float(norms.mean()), float(norms.max())
+
     # -- checkpoint I/O ---------------------------------------------------------
-    def state_dict(self, *args, **kwargs) -> dict:
-        """Flat ``{lora_name}.{key}`` tensors in the reference key grammar."""
-        return {f"{lyco.lora_name}.{k}": v
+    def state_dict(self, *args, dtype=None, **kwargs) -> dict:
+        """Flat ``{lora_name}.{key}`` tensors in the reference key grammar,
+        cast to ``dtype`` if given."""
+        return {f"{lyco.lora_name}.{k}": v if dtype is None else v.to(dtype)
                 for lyco in self.loras for k, v in lyco.custom_state_dict().items()}
+
+    def save_weights(self, file, dtype=None, metadata=None):
+        """Write :meth:`state_dict` to ``file``: ``.safetensors`` with
+        ``metadata`` (an empty one written as none), any other extension
+        through ``torch.save`` of CPU tensors (JAX wrapper.py:905-916)."""
+        if metadata is not None and len(metadata) == 0:
+            metadata = None
+        sd = {k: v.detach().cpu().contiguous() for k, v in self.state_dict(dtype=dtype).items()}
+        if os.path.splitext(file)[1] == ".safetensors":
+            safetensors_io.save_file(sd, file, metadata)
+        else:
+            torch.save(sd, file)
+
+    def load_weights(self, file):
+        """Load the adapter file ``file`` into this network's modules."""
+        return self.load_state_dict(load_file_sd(file), strict=False)
 
     def load_state_dict(self, sd: dict, strict: bool = False):
         missing, loaded = [], 0

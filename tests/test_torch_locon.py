@@ -200,13 +200,16 @@ def test_factored_fns_decline_what_needs_autograd():
 
 
 def test_unported_options_name_themselves():
-    """DoRA is not ported and raises by name; the dropout trio is ported
+    """DoRA is ported (tests/test_torch_dora.py): it builds a trainable
+    ``dora_scale`` of the layer's row norms; the dropout trio is ported
     (tests/test_torch_dropout.py) and accepted: each rate is stored and
     changes the training forward of a bypass module, not its inference
     forward."""
     li = LayerInfo.linear(24, 16)
-    with pytest.raises(NotImplementedError, match="weight_decompose"):
-        LoConModule("t", li, 1.0, 4, 1.0, weight_decompose=True)
+    dora = LoConModule("t", li, 1.0, 4, 1.0, weight_decompose=True,
+                       org_weight=torch.randn(24, 16))
+    scale = dict(dora.named_parameters())["dora_scale"]
+    assert scale.requires_grad and tuple(scale.shape) == (24, 1)
     x, w = torch.randn(3, 16), torch.randn(24, 16)
     for what in ("dropout", "rank_dropout", "module_dropout"):
         m = LoConModule("t", li, 1.0, 4, 1.0, bypass_mode=True, **{what: 0.5})
