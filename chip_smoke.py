@@ -122,15 +122,39 @@ ends the run with a nonzero exit code, and no phase falls back to the CPU:
    bounds), then 2 steps with the checks of phase 9 (factored 0), s/step
    and peak memory beside train_sdxl_lokr's;
 21. train_sdxl_e2e, train_sdxl_e2e_lora -- phase 14 on the SDXL model at
-   64x64 latents.
+   64x64 latents;
+22. kohya_sdxl -- the kohya front end at full width: ``create_network``
+   (LoKr factor 8, attn-mlp) over CLIP-L, CLIP-G (bf16) and the SDXL UNet,
+   the adapters of each tree held to its config (72, 192, 722); the
+   encoders on b4 x 77 token ids, each call's LayerNorms on the variant
+   ``fwd_plan`` names (CLIP-L's C = 768 generic, CLIP-G's 1280 vectorised);
+   3 UNet steps through ``sub_networks["lora_unet"]`` with the checks of
+   phase 9; ``save_weights`` (fp16) with ``sshs_model_hash`` equal to the
+   hash of the file's tensors; ``create_network_from_weights`` on fresh
+   models: the encoders and a UNet call within rel L2 3e-2 of the live
+   network; ``merge_to``: the plain encoders within 1e-3 of the live ones;
+23. train_toml_sdxl_lokr -- ``python -m lycoris_tpu_torch.train`` (its
+   ``main``) on ``example_configs/training_configs/lokr_sdxl_tpu.toml``
+   (SDXL, remat=True, b2, 128x128) for 3 steps, ``output_dir`` in a
+   temporary copy: finite losses, every kernel on its planned variant, the
+   saved file reloaded by ``create_network_from_weights``;
+24. train_toml_sd15_loha -- the same on ``loha_tpu.toml`` (SD1.5 b8, LoHa
+   dim 16): every LoHa launch on the generic variant (the fast one is rank
+   8).
+
+Phase 2 also holds the LayerNorm forward at the CLIP encoders' shapes (b4
+x 77 rows; C = 768 and 1280; bf16 timed), whose rows join the kernel line's
+``shapes`` under path "clip" with their sums per CLIP-L + CLIP-G call
+(``clip``), outside the UNet sums.
 
 Every serving and training leg fails if a flash input took the padded
 copy (``flash.pad_copies``): the UNets' layouts are read by TMA in place.
 Every serving and training leg (and the e2e comparisons) fails unless each
-LayerNorm forward and backward took the vectorised variant, every LoHa leg
-(serving and training) unless each LoHa forward, fused backward and split
-backward took the fast variant, and every serving and training leg unless
-each GroupNorm forward and backward took the fast variant.
+UNet LayerNorm forward and backward took the vectorised variant, every LoHa
+leg (serving and training) unless each LoHa forward, fused backward and split
+backward took the fast variant (the generic one in train_toml_sd15_loha), and
+every serving and training leg unless each GroupNorm forward and backward
+took the fast variant.
 
 The line before the last is the kernel table as JSON. Each kernel names the
 path its launches are read from (``path``): SDXL training (the first SDXL
@@ -816,7 +840,9 @@ class Checks:
     def layer_norm_fwd(self, path, rows, c, dtype, per_call, timed):
         """Both variants against the plain version; the call must take the
         variant :func:`layer_norm.fwd_plan` names, the vectorised one at
-        every shape in bf16 (the path's dtype). Timed on rotating copies of
+        every UNet shape in bf16 (the path's dtype; on the "clip" path,
+        CLIP-L's C = 768 takes the generic one, and its rows go into no
+        UNet sum). Timed on rotating copies of
         x over :data:`ROTATE_BYTES` with the outputs held, so each call reads
         x from HBM, as on the path: the vectorised and generic variants, the
         plain version and ``F.layer_norm`` on the same copies; each shape's
@@ -833,7 +859,7 @@ class Checks:
         y = layer_norm.layer_norm(x, w, b, 1e-5)
         got = (layer_norm.fwd_vec_launches - n0[0], layer_norm.fwd_generic_launches - n0[1])
         vec = int(layer_norm.vec_lanes(c, x.element_size()) > 0)
-        if got != (vec, 1 - vec) or (dtype == torch.bfloat16 and not vec):
+        if got != (vec, 1 - vec) or (dtype == torch.bfloat16 and not vec and path != "clip"):
             fail(f"layer_norm_fwd {path} ({rows},{c}) {dtype}: {got[0]} vectorised and "
                  f"{got[1]} generic launches, want the vectorised variant {bool(vec)}")
         y_gen = layer_norm.layer_norm_fwd(x, w, b, 1e-5, vectorised=False)
@@ -867,7 +893,8 @@ class Checks:
             plan = layer_norm.fwd_plan(rows, c, es, layer_norm._sms(x.get_device()))
             share = (f"{bnd / ms:.1%} of its bound" if ms >= bnd else
                      "UNDER its HBM bound: the timing did not reach HBM")
-            log(f"[kernels] layer_norm_fwd {path} ({rows},{c}) vectorised (lanes {plan.lanes}, "
+            log(f"[kernels] layer_norm_fwd {path} ({rows},{c}) "
+                f"{'vectorised' if plan.lanes else 'generic'} (lanes {plan.lanes}, "
                 f"{plan.warps} warps a block, {plan.grid} blocks), {len(copies)} rotating "
                 f"copies: kernel {ms:.4f} ms, {share} {bnd:.4f} ms ({by}); generic variant "
                 f"{generic_ms:.4f} ms ({generic_ms / ms:.2f}x); F.layer_norm {lib:.4f} ms "
@@ -879,7 +906,7 @@ class Checks:
                  "copy_ms": copy_ms, "per": per_call, "plan": list(plan)})
             del copies
         record(self.results, "layer_norm_fwd", path, compare(dtype, y, y_ref), f"({rows},{c})",
-               times, per_call)
+               times, per_call if path in ("sd15", "sdxl") else 0)
         record(self.results, "layer_norm_fwd", path, compare(dtype, y_gen, y_ref),
                f"({rows},{c}) generic variant")
 
@@ -1519,6 +1546,15 @@ def _paths(train: bool):
             ("sdxl", path_shapes(sdxl_config(), SDXL_BATCH, SDXL_HW), both[:1], both[1:], 2))
 
 
+def clip_ln_shapes() -> dict:
+    """(rows, C) -> launches of the LayerNorm forward in one call of CLIP-L
+    and one of CLIP-G on ``SDXL_BATCH`` x 77 token ids."""
+    from lycoris_tpu_torch.models.clip import clip_g_config, clip_l_config
+
+    return {(SDXL_BATCH * CONTEXT_TOKENS, c.hidden_size): 2 * c.num_layers + 1
+            for c in (clip_l_config(), clip_g_config())}
+
+
 def phase_kernels(results: dict):
     """Each forward kernel at the SD1.5 serving shapes (per UNet call) and the
     SDXL training shapes (per train step: the transformers' forwards twice),
@@ -1544,6 +1580,11 @@ def phase_kernels(results: dict):
             for dt in dts:
                 ck.group_norm_fwd(path, b, c, s, act, dt, n * (again if act is None else 1),
                                   dt == dts[0])
+    # the LayerNorms of the CLIP-L and CLIP-G encoders at b4 x 77 tokens,
+    # per encoder call (two a layer and the final one)
+    for (rows, c), n in clip_ln_shapes().items():
+        for dt in (torch.bfloat16, torch.float32):
+            ck.layer_norm_fwd("clip", rows, c, dt, n, dt == torch.bfloat16)
     # the GroupNorm forwards of a SD1.5 train step (batch 8), timed per shape
     for (c, s, act), n in path_shapes(sd15_config(), TRAIN_BATCH, 64)["gn"].items():
         ck.group_norm_fwd("sd15_b8", TRAIN_BATCH, c, s, act, torch.bfloat16, n, True)
@@ -1838,13 +1879,15 @@ def read_counts() -> dict:
             "factored": merged.applications}
 
 
-def check_fast(tag: str, counts: dict) -> None:
+def check_fast(tag: str, counts: dict, hada_variant: str = "fast") -> None:
     """Fail unless every LoHa forward, fused backward and split backward,
     and every GroupNorm forward and backward, since the last reset took the
     fast variant, and every LayerNorm forward and backward the vectorised
     one (every LoHa layer of the SD1.5 and SDXL paths is rank 8, every
-    GroupNorm shape holds whole 16-byte rows, every LayerNorm width is one
-    the vectorised variant takes in bf16)."""
+    GroupNorm shape holds whole 16-byte rows, every UNet LayerNorm width is
+    one the vectorised variant takes in bf16). ``hada_variant="generic"``:
+    every LoHa forward and fused backward took the generic variant instead
+    (a LoHa of another rank than 8)."""
     from lycoris_tpu_torch.ops import group_norm, hada
     from lycoris_tpu_torch.ops import layer_norm as ln
 
@@ -1852,9 +1895,13 @@ def check_fast(tag: str, counts: dict) -> None:
                                 ("GroupNorm", group_norm, "group_norm_fwd", "group_norm_bwd")):
         got = (ops.fast_launches, ops.generic_launches, ops.bwd_fast_launches,
                ops.bwd_generic_launches)
-        if got != (counts[fwd], 0, counts[bwd], 0):
+        want = (counts[fwd], 0, counts[bwd], 0)
+        if ops is hada and hada_variant == "generic":
+            want = (0, counts[fwd], 0, counts[bwd])
+        if got != want:
             fail(f"{tag} {what}: forward {got[0]} fast and {got[1]} generic of {counts[fwd]}, "
-                 f"backward {got[2]} fast and {got[3]} generic of {counts[bwd]}")
+                 f"backward {got[2]} fast and {got[3]} generic of {counts[bwd]} (want "
+                 f"{hada_variant if ops is hada else 'fast'})")
     split = (hada.split_fast_launches, hada.split_generic_launches)
     if split != (counts["hada_bwd_split"], 0):
         fail(f"{tag} LoHa split backward: {split[0]} fast and {split[1]} generic of "
@@ -2601,12 +2648,374 @@ def phase_sdxl_premerge(model, sd, batch, results, card):
             f"{r['peak_gib']:.2f} GiB ({card})")
 
 
-def ln_fwd_sums(row: dict) -> None:
+# ---------------------------------------------------------------------------
+# phases 22-24: the kohya front end and the TOML trainer
+# ---------------------------------------------------------------------------
+
+
+def build_clips(device, seed):
+    """CLIP-L and CLIP-G (bf16, full width and depth) with seeded weights."""
+    import torch
+    from lycoris_tpu_torch.models.clip import CLIPTextModel, clip_g_config, clip_l_config
+
+    return [CLIPTextModel(cfg, device=device, param_dtype=torch.bfloat16,
+                          generator=torch.Generator(device=device).manual_seed(seed + i)).eval()
+            for i, cfg in enumerate((clip_l_config(torch.bfloat16),
+                                     clip_g_config(torch.bfloat16)))]
+
+
+def run_encoders(tag, encoders, call, card) -> list:
+    """``call(i)`` for each encoder (no grad), each output finite and of
+    shape (b, 77, hidden); each call's LayerNorm forwards counted by
+    variant, all on the one ``fwd_plan`` names for the width (CLIP-L's 768:
+    generic; CLIP-G's 1280: vectorised). Returns the outputs in fp32."""
+    import torch
+    from lycoris_tpu_torch.ops import layer_norm as ln
+
+    outs = []
+    for i, te in enumerate(encoders):
+        c, n = te.cfg.hidden_size, 2 * te.cfg.num_layers + 1
+        lanes = ln.fwd_plan(SDXL_BATCH * CONTEXT_TOKENS, c, 2).lanes
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out = call(i)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got = (ln.launches, ln.fwd_vec_launches, ln.fwd_generic_launches)
+        want = (n, n, 0) if lanes else (n, 0, n)
+        log(f"{tag} encoder {i + 1} (C = {c}): {secs * 1e3:.2f} host ms a call; LayerNorm "
+            f"forwards {got[1]} vectorised, {got[2]} generic of {got[0]} (want "
+            f"{'vectorised' if lanes else 'generic'}, fwd_plan lanes {lanes}) ({card})")
+        if got != want:
+            fail(f"{tag} encoder {i + 1} LayerNorm launches {got}, want {want}")
+        if (out.shape != (SDXL_BATCH, CONTEXT_TOKENS, c)
+                or not bool(torch.isfinite(out.float()).all())):
+            fail(f"{tag} encoder {i + 1} output not finite / shape {tuple(out.shape)}")
+        outs.append(out.float())
+    return outs
+
+
+def clip_cpu_copy(te):
+    """The port's CLIP on the CPU in fp32 with ``te``'s weights."""
+    import dataclasses
+
+    import torch
+    from lycoris_tpu_torch.models.clip import CLIPTextModel
+
+    cpu = CLIPTextModel(dataclasses.replace(te.cfg, dtype=torch.float32), device="meta")
+    cpu.load_state_dict({k: v.cpu().float() for k, v in te.state_dict().items()}, assign=True)
+    return cpu.eval()
+
+
+def file_rounding(sd16: dict, sd32: dict) -> tuple[float, float]:
+    """(rel L2 of the fp16 file's tensors against the fp32 file's over all
+    of them, the share of nonzero fp32 values under fp16's smallest normal)."""
+    import torch
+
+    num = sum(float((sd16[k].double() - v.double()).square().sum()) for k, v in sd32.items())
+    den = sum(float(v.double().square().sum()) for v in sd32.values())
+    tiny = sum(int(((v != 0) & (v.abs() < torch.finfo(torch.float16).tiny)).sum())
+               for v in sd32.values())
+    return math.sqrt(num / den), tiny / sum(v.numel() for v in sd32.values())
+
+
+def phase_kohya_sdxl(model, batch, results, card):
+    """The kohya front end at full width: ``create_network`` (LoKr factor 8,
+    attn-mlp) over CLIP-L, CLIP-G and the SDXL UNet (``model``), each tree's
+    adapter count held to its config's (12 x 6, 32 x 6, 722); the encoders
+    on b4 x 77 token ids and a UNet call with no adapters, then with the
+    adapters live, each live output at least rel L2 6e-2 from its base (2x
+    the fp16 reload bound, so a reload that drops a tree's adapters fails
+    it; 60x the fp32 reload's); 3 UNet
+    steps through ``sub_networks["lora_unet"]`` with the launch counts of
+    ``train_sdxl_lokr``; ``save_weights`` (fp16) with ``sshs_model_hash``,
+    the hash of the file's tensors, and an fp32 copy of the file;
+    ``create_network_from_weights`` of each file on fresh models of the
+    same weights: both encoders and a UNet call within rel L2 3e-2 of the
+    live network's from the fp16 file (PR 13's bound for a reduced-precision
+    file), within 1e-3 from the fp32 one (predicted 0); then ``merge_to``:
+    the plain encoders within rel L2 1e-3 of the live ones, and within 3e-2
+    of the port's fp32 CLIP on the CPU with the same merged weights (the
+    bound of the UNet's ``e2e`` phase). ``model`` keeps the merged weights."""
+    import os
+    import tempfile
+
+    import torch
+    from lycoris_tpu_torch.kohya import (LycorisNetworkKohya, create_network,
+                                         create_network_from_weights)
+    from lycoris_tpu_torch.models.unet import sdxl_config
+    from lycoris_tpu_torch.trainer import DiffusionTrainer
+    from lycoris_tpu_torch.utils import precalculate_safetensors_hashes, safetensors_io
+
+    tag = "[kohya_sdxl]"
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(43)
+    encoders = build_clips(dev, 40)
+    try:
+        net = create_network(1.0, LORA_RANK, 4.0, None, encoders, model, algo="lokr", factor=8,
+                             preset="attn-mlp", seed=41)
+    finally:
+        LycorisNetworkKohya.reset_preset()
+    census = {p: len(sub.loras) for p, sub in net.sub_networks.items()}
+    want_census = {"lora_te1": 6 * encoders[0].cfg.num_layers,
+                   "lora_te2": 6 * encoders[1].cfg.num_layers, "lora_unet": SDXL_ADAPTED}
+    log(f"{tag} adapters by tree {census} (want {want_census}: q, k, v, out, fc1, fc2 a CLIP "
+        f"layer; the UNet's attn-mlp census); {len(list(net.parameters()))} parameter tensors "
+        f"in {len(net.loras)} modules, each registered once")
+    if census != want_census or len(net.loras) != sum(want_census.values()):
+        fail(f"{tag} adapter census {census} != {want_census}")
+    with torch.no_grad():
+        for p in net.parameters():
+            p.add_(torch.randn(p.shape, generator=gen, device=dev) * ADAPTER_FILL_STD)
+    ids = torch.randint(0, encoders[0].cfg.vocab_size, (SDXL_BATCH, CONTEXT_TOKENS),
+                        generator=gen, device=dev)
+    x = torch.randn(1, 4, SDXL_HW, SDXL_HW, generator=gen, device=dev).to(torch.bfloat16)
+    ctx = torch.randn(1, CONTEXT_TOKENS, 2048, generator=gen, device=dev).to(torch.bfloat16)
+    added = torch.randn(1, SDXL_ADDED, generator=gen, device=dev).to(torch.bfloat16)
+    t = torch.tensor([501], dtype=torch.int32, device=dev)
+    base = run_encoders(f"{tag} base", encoders, lambda i: encoders[i](ids), card)
+    with torch.no_grad():
+        base.append(model(x, t, ctx, added_cond=added).float())
+    net.apply_to(apply_text_encoder=True, apply_unet=True)
+
+    # 3 UNet steps through the UNet's sub-network, as the TOML trainer runs it
+    want = checked_counts(sdxl_config(), SDXL_BATCH, SDXL_HW, "lokr", True, True, SDXL_STEP,
+                          SDXL_ADAPTED, SDXL_FACTORED)
+    tr = DiffusionTrainer(model, net.sub_networks["lora_unet"], lr=1e-4,
+                          weight_dtype=torch.bfloat16,
+                          generator=torch.Generator(device=dev).manual_seed(44))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    secs, losses = [], []
+    for _ in range(3):
+        reset_counts()
+        t0 = time.perf_counter()
+        loss = tr.train_step(batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        counts = read_counts()
+        if counts != want:
+            fail(f"{tag} launch counts per step {counts} != {want}")
+        check_no_pad_copies(tag)
+        check_fast(tag, counts)
+        losses.append(float(loss))
+        if not math.isfinite(losses[-1]):
+            fail(f"{tag} loss {losses[-1]}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"{tag} UNet steps through sub_networks['lora_unet']: launches per step as "
+        f"train_sdxl_lokr ({want}); losses {[round(x, 5) for x in losses]}; s/step "
+        f"{[round(x, 4) for x in secs]} (the first includes warm-up), peak memory {peak:.2f} "
+        f"GiB ({card}; host-clocked)")
+    results["training"]["kohya_sdxl"] = {"s_per_step": secs, "losses": losses,
+                                         "peak_gib": peak}
+    del tr
+
+    live = run_encoders(f"{tag} live", encoders,
+                        lambda i: net.apply_text_encoder(i, ids), card)
+    with torch.no_grad():
+        live.append(net.apply_unet(x, t, ctx, added_cond=added).float())
+    moved = [rel_l2(lv, b) for lv, b in zip(live, base)]
+    log(f"{tag} live adapters vs no adapters: CLIP-L, CLIP-G, UNet call rel L2 "
+        f"{', '.join(f'{e:.3e}' for e in moved)} (each at least 6e-2, 2x the fp16 reload "
+        f"bound)")
+    if not all(e >= 6e-2 for e in moved):
+        fail(f"{tag} the adapters move the outputs by rel L2 {moved}, under 6e-2")
+    del base
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "kohya_sdxl.safetensors")
+        t0 = time.perf_counter()
+        net.save_weights(path, dtype=torch.float16, metadata={"ss_network_module": "kohya"})
+        save_s = time.perf_counter() - t0
+        header, _ = safetensors_io.read_header(path)
+        meta = header.pop("__metadata__")
+        file_hash, _ = precalculate_safetensors_hashes(safetensors_io.load_file(path), {})
+        log(f"{tag} save_weights fp16: {len(header)} tensors in {save_s:.3f} s; metadata "
+            f"{meta}; the hash of the file's tensors {file_hash}")
+        if meta.get("sshs_model_hash") != file_hash or meta.get("ss_network_module") != "kohya":
+            fail(f"{tag} sshs_model_hash {meta.get('sshs_model_hash')} != {file_hash}")
+        if {v["dtype"] for v in header.values()} != {"F16"}:
+            fail(f"{tag} the file is not fp16 throughout")
+        path32 = os.path.join(tmp, "kohya_sdxl_fp32.safetensors")
+        net.save_weights(path32, dtype=torch.float32)
+        rounding, tiny = file_rounding(safetensors_io.load_file(path),
+                                       safetensors_io.load_file(path32))
+        log(f"{tag} the fp16 file against the fp32 one: rel L2 {rounding:.3e} over every "
+            f"tensor; {tiny:.3e} of the nonzero values under fp16's smallest normal")
+
+        # each file reloaded on fresh models with the same weights
+        fresh = build_unet(dev, torch.bfloat16, seed=3, config="sdxl", remat="transformer")
+        fresh_encoders = build_clips(dev, 40)
+        for f, name, bound_ in ((path, "fp16", 3e-2), (path32, "fp32", 1e-3)):
+            t0 = time.perf_counter()
+            net2, _ = create_network_from_weights(1.0, f, None, fresh_encoders, fresh)
+            load_s = time.perf_counter() - t0
+            census2 = {p: len(sub.loras) for p, sub in net2.sub_networks.items()}
+            if census2 != want_census:
+                fail(f"{tag} reloaded census {census2} != {want_census}")
+            net2.apply_to(apply_text_encoder=True, apply_unet=True)
+            again = run_encoders(f"{tag} reloaded {name}", fresh_encoders,
+                                 lambda i: net2.apply_text_encoder(i, ids), card)
+            with torch.no_grad():
+                again.append(net2.apply_unet(x, t, ctx, added_cond=added).float())
+            errs = [rel_l2(a, b) for a, b in zip(again, live)]
+            log(f"{tag} create_network_from_weights ({name} file) on fresh models in "
+                f"{load_s:.3f} s: CLIP-L, CLIP-G, UNet call vs the live network rel L2 "
+                f"{', '.join(f'{e:.3e}' for e in errs)} (bound {bound_:g})")
+            if not all(e <= bound_ for e in errs):
+                fail(f"{tag} network reloaded from the {name} file differs: rel L2 {errs}")
+            net2.restore()
+            del net2, again
+        del fresh, fresh_encoders
+        torch.cuda.empty_cache()
+
+    net.merge_to()
+    merged = run_encoders(f"{tag} merged", encoders, lambda i: encoders[i](ids), card)
+    errs = [rel_l2(m, lv) for m, lv in zip(merged, live)]
+    log(f"{tag} merge_to: plain CLIP-L, CLIP-G vs live adapters rel L2 "
+        f"{', '.join(f'{e:.3e}' for e in errs)} (bound 1e-3)")
+    if not all(e <= 1e-3 for e in errs):
+        fail(f"{tag} merged encoders differ from the live adapters: rel L2 {errs}")
+
+    # the card's bf16 encoders against the port's fp32 CLIP on the CPU
+    errs = []
+    for te, got in zip(encoders, merged):
+        cpu = clip_cpu_copy(te)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            want_out = cpu(ids.cpu())
+        errs.append(rel_l2(got.cpu(), want_out))
+        log(f"{tag} merged encoder C = {te.cfg.hidden_size}: card bf16 vs CPU fp32 plain rel "
+            f"L2 {errs[-1]:.3e} (bound 3e-2; CPU call {time.perf_counter() - t0:.1f} s)")
+        del cpu
+    if not all(e <= 3e-2 for e in errs):
+        fail(f"{tag} the card's bf16 encoders differ from the CPU fp32 port: rel L2 {errs}")
+    del net, encoders, live, merged
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def step_events(rows: list):
+    """While open, a row per ``DiffusionTrainer.train_step``: its seconds
+    (to the device's end), the seconds Python's garbage collector ran in
+    it, and the caching allocator's device allocations, frees and retries
+    in it, to name the cause of a slow step."""
+    import torch
+    from lycoris_tpu_torch.trainer import DiffusionTrainer
+
+    gc_s, gc_t0 = [0.0], [0.0]
+
+    def on_gc(what, info):
+        if what == "start":
+            gc_t0[0] = time.perf_counter()
+        else:
+            gc_s[0] += time.perf_counter() - gc_t0[0]
+
+    def snap():
+        m = torch.cuda.memory_stats()
+        return (gc_s[0], m.get("num_device_alloc", 0), m.get("num_device_free", 0),
+                m.get("num_alloc_retries", 0))
+
+    train_step = DiffusionTrainer.train_step
+
+    def timed_step(self, *args, **kw):
+        before, t0 = snap(), time.perf_counter()
+        out = train_step(self, *args, **kw)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        d = [b - a for a, b in zip(before, snap())]
+        rows.append({"s": round(secs, 4), "gc_s": round(d[0], 4), "device_allocs": d[1],
+                     "device_frees": d[2], "alloc_retries": d[3]})
+        return out
+
+    DiffusionTrainer.train_step = timed_step
+    gc.callbacks.append(on_gc)
+    try:
+        yield
+    finally:
+        DiffusionTrainer.train_step = train_step
+        gc.callbacks.remove(on_gc)
+
+
+def phase_train_toml(name, tag, results, card, adapted, hada_variant="fast"):
+    """``python -m lycoris_tpu_torch.train`` (its ``main``, in this process)
+    on a copy of ``example_configs/training_configs/<name>`` with
+    ``output_dir`` in a temporary directory, ``--max_steps 3``: every loss
+    finite, the launches of the run on the variants the planners name
+    (``hada_variant`` for LoHa), and the saved fp16 file reloaded by
+    ``create_network_from_weights`` (``adapted`` modules, every tensor as in
+    the file) on a UNet of the config on the meta device."""
+    import os
+    import tempfile
+
+    import torch
+    from lycoris_tpu_torch import train as front
+    from lycoris_tpu_torch.kohya import create_network_from_weights
+    from lycoris_tpu_torch.models.unet import UNet2DConditionModel, sd15_config, sdxl_config
+    from lycoris_tpu_torch.utils import safetensors_io
+
+    text = (ROOT / "example_configs" / "training_configs" / name).read_text()
+    with tempfile.TemporaryDirectory() as tmp:
+        out_dir = os.path.join(tmp, "out")
+        text, n = re.subn(r"(?m)^output_dir\s*=.*$", f"output_dir = {json.dumps(out_dir)}", text)
+        if n != 1:
+            fail(f"{tag} {name}: {n} output_dir lines")
+        cfg = os.path.join(tmp, name)
+        with open(cfg, "w") as f:
+            f.write(text)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        events = []
+        t0 = time.perf_counter()
+        with step_events(events):
+            res = front.main(["--config", cfg, "--max_steps", "3"])
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        losses, secs = res["losses"], res["seconds"]
+        log(f"{tag} {name}, 3 steps: losses {[round(x, 5) for x in losses]}; s/step "
+            f"{[round(x, 4) for x in secs]} (the first includes warm-up); {wall:.2f} s in all "
+            f"(model built, trained, saved); peak memory {peak:.2f} GiB; launches {counts} "
+            f"({card}; host-clocked)")
+        log(f"{tag} each train_step (its share of the s/step above): {events}")
+        if len(losses) != 3 or res["start_step"] != 0 or not all(map(math.isfinite, losses)):
+            fail(f"{tag} losses {losses} from step {res['start_step']}")
+        check_no_pad_copies(tag)
+        check_fast(tag, counts, hada_variant)
+        if hada_variant == "generic" and not (counts["hada_fwd"] and counts["hada_bwd"]):
+            fail(f"{tag} no LoHa launches: {counts}")
+        results["training"][tag.strip("[]")] = {"s_per_step": secs, "losses": losses,
+                                                "peak_gib": peak, "launches": counts,
+                                                "train_step_events": events}
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        cfg_fn = sdxl_config if "sdxl" in name else sd15_config
+        meta_unet = UNet2DConditionModel(cfg_fn(torch.bfloat16), device="meta")
+        net, sd = create_network_from_weights(1.0, res["saved"], None, None, meta_unet,
+                                              device="cuda")
+        got = net.state_dict(dtype=torch.float16)
+        same = set(got) == set(sd) and all(torch.equal(got[k].cpu(), sd[k]) for k in sd)
+        header, _ = safetensors_io.read_header(res["saved"])
+        log(f"{tag} {res['saved'].rsplit('/', 1)[-1]}: {len(net.loras)} adapters reloaded "
+            f"(want {adapted}), tensors as in the file: {same}; sshs_model_hash "
+            f"{header['__metadata__'].get('sshs_model_hash')}")
+        if len(net.loras) != adapted or not same:
+            fail(f"{tag} the saved file reloads as {len(net.loras)} adapters, tensors same {same}")
+        del net, sd, got
+    torch.cuda.empty_cache()
+
+
+def ln_fwd_sums(row: dict, card: str) -> None:
     """The LayerNorm forward row's sums over its rotating-copy shapes, each
     weighted by its launches: the generic variant's ms per SDXL b4 step and
     SD1.5 serving call beside the vectorised one's, logged with the share of
-    the bound and the library's; then the path shapes where the vectorised
-    variant is slower than ``F.layer_norm`` or than the generic one."""
+    the bound and the library's; then the UNet path shapes where the
+    vectorised variant is slower than ``F.layer_norm`` or than the generic
+    one; then the CLIP sums (per CLIP-L and CLIP-G call at b4, ``clip``)."""
     keys = ("ms", "generic_ms", "plain_ms", "library_ms", "bound_ms", "copy_ms")
 
     def tot(path):
@@ -2621,11 +3030,24 @@ def ln_fwd_sums(row: dict) -> None:
             f"{r['bound_ms']:.3f} ms; generic {r['generic_ms']:.3f} ms; F.layer_norm "
             f"{r['library_ms']:.3f} ms; plain {r['plain_ms']:.3f} ms; copies of x "
             f"{r['copy_ms']:.3f} ms")
+    unet = [sh for sh in row["shapes"] if sh["path"] in ("sd15", "sdxl")]
     for other, what in (("library_ms", "F.layer_norm"), ("generic_ms", "the generic variant")):
-        slower = [f"{sh['path']} {tuple(sh['shape'])}" for sh in row["shapes"]
-                  if sh["ms"] > sh[other]]
+        slower = [f"{sh['path']} {tuple(sh['shape'])}" for sh in unet if sh["ms"] > sh[other]]
         log(f"[kernels] layer_norm_fwd path shapes where the vectorised variant is slower "
-            f"than {what}: {slower or 'none'} of {len(row['shapes'])}")
+            f"than {what}: {slower or 'none'} of {len(unet)}")
+    row["clip"] = tot("clip")
+    for sh in row["shapes"]:
+        if sh["path"] == "clip":
+            log(f"[kernels] layer_norm_fwd CLIP {tuple(sh['shape'])} bf16, "
+                f"{'vectorised' if sh['plan'][0] else 'generic'} variant: {sh['ms']:.4f} ms a "
+                f"launch ({sh['bound_ms'] / sh['ms']:.1%} of its bound {sh['bound_ms']:.4f}); "
+                f"generic {sh['generic_ms']:.4f}, F.layer_norm {sh['library_ms']:.4f}, plain "
+                f"{sh['plain_ms']:.4f}; x {sh['per']} a call ({card})")
+    r = row["clip"]
+    log(f"[kernels] layer_norm_fwd per CLIP-L + CLIP-G call at b{SDXL_BATCH} (rotating "
+        f"copies): {r['ms']:.3f} ms, {r['bound_ms'] / r['ms']:.1%} of its bound "
+        f"{r['bound_ms']:.3f} ms; generic {r['generic_ms']:.3f} ms; F.layer_norm "
+        f"{r['library_ms']:.3f} ms; plain {r['plain_ms']:.3f} ms ({card})")
 
 
 def gn_step_sums(row: dict) -> None:
@@ -2799,6 +3221,18 @@ def main() -> int:
         with phase(tag.strip("[]")):
             phase_train_e2e(model, sds[algo], sdxl_config(torch.float32), tag, ctx_dim=2048,
                             added_dim=SDXL_ADDED)
+    with phase("kohya_sdxl"):
+        phase_kohya_sdxl(model, sdxl_batch(), results, card)
+    del model, sds
+    gc.collect()
+    torch.cuda.empty_cache()
+    with phase("train_toml_sdxl_lokr"):
+        phase_train_toml("lokr_sdxl_tpu.toml", "[train_toml_sdxl_lokr]", results, card,
+                         SDXL_ADAPTED)
+    with phase("train_toml_sd15_loha"):
+        # LoHa dim 16: every hada launch takes the generic variant (the fast one is rank 8)
+        phase_train_toml("loha_tpu.toml", "[train_toml_sd15_loha]", results, card,
+                         SD15_ADAPTED, hada_variant="generic")
 
     for name, meta in KERNELS.items():
         if results[name]["launches"] <= 0:
@@ -2841,7 +3275,7 @@ def main() -> int:
             log(f"[kernels] layer_norm_bwd path shapes slower than F.layer_norm's backward: "
                 f"{slower or 'none'} of {len(row['shapes'])}")
         if row["name"] == "layer_norm_fwd":
-            ln_fwd_sums(row)
+            ln_fwd_sums(row, card)
         if row["name"] in ("group_norm_fwd", "group_norm_bwd"):
             gn_step_sums(row)
         if row["name"] == "hada_bwd_split":

@@ -12,7 +12,10 @@ weight and GroupNorm(+SiLU) run hand-written CUDA kernels on the card,
 forward and backward, and so does the GEGLU backward (:mod:`.ops`), beside
 the opt-in split LoHa backward and the fused LoRA matmul
 (:func:`.ops.lora_fused.fused_lora_matmul`); on the CPU each runs its plain
-PyTorch version. The package never imports JAX.
+PyTorch version. The kohya front end (:mod:`.kohya`) targets the UNet and
+the CLIP text encoders (:mod:`.models.clip`), and ``python -m
+lycoris_tpu_torch.train`` trains from the repo's TOML configs. The package
+never imports JAX.
 """
 
 __version__ = "0.1.0"

@@ -84,6 +84,29 @@ def make_weight(w1d, w1u, w2d, w2u, scale):
     return hada_weight(w1d, w1u, w2d, w2u, scale)
 
 
+def weight_gen(org_weight_shape, rank: int, tucker: bool = True, dtype=torch.float32,
+               generator=None, device=None):
+    """(w1d, w1u, w2d, w2u, t1, t2) for a layer of torch weight shape
+    ``(out, in, *k)`` (or a tensor of that shape), the JAX ``weight_gen``'s
+    shapes and init (w1u zero; t1, t2 only for a tucker convolution)."""
+    if hasattr(org_weight_shape, "shape"):
+        org_weight_shape = org_weight_shape.shape
+    out_dim, in_dim, *k = org_weight_shape
+
+    def normal(shape, std):
+        return torch.randn(shape, dtype=dtype, device=device, generator=generator) * std
+
+    tucker = bool(k) and tucker
+    up = (rank, out_dim) if tucker else (out_dim, rank)
+    w1d = normal((rank, in_dim), 1.0)
+    w1u = torch.zeros(up, dtype=dtype, device=device)
+    w2d = normal((rank, in_dim), 1.0)
+    w2u = normal(up, 0.1)
+    if not tucker:
+        return w1d, w1u, w2d, w2u, None, None
+    return w1d, w1u, w2d, w2u, normal((rank, rank, *k), 0.1), normal((rank, rank, *k), 0.1)
+
+
 def diff_weight(*weights, gamma=1.0):
     """dW for LoHa, shaped (O, I, *k) (reference loha.py:119-147)."""
     w1d, w1u, w2d, w2u, t1, t2 = weights
@@ -103,3 +126,12 @@ def diff_weight(*weights, gamma=1.0):
             gamma,
         )
     return result.reshape(O, I, *k)
+
+
+def bypass_forward_diff(x, org_out, *weights, gamma=1.0, extra_args={}):
+    """LoHa has no factored bypass: dW by :func:`diff_weight`, applied once
+    (reference loha.py:150-165); ``org_out`` is unused."""
+    from .general import op_by_ndim
+
+    diff_w = diff_weight(*weights, gamma=gamma)
+    return op_by_ndim(diff_w.ndim)(x.to(diff_w.dtype), diff_w, **extra_args)

@@ -2,15 +2,19 @@
 ``lycoris_tpu/functional/lokr.py``).
 
 - ``make_kron``: dW = scale * (w1 kron w2), w1 broadcast over w2's spatial dims.
+- ``weight_gen``: the factors of a layer, by the module's branch table
+  (reference lokr.py:41-121).
 - ``diff_weight``: rebuild w1 and w2 (full, LoRA pair or tucker), then kron
   with scale gamma / rank (reference lokr.py:124-151).
-- ``bypass_diff_with_scale``: the grouped-matmul Kronecker bypass that never
-  forms dW (reference lokr.py:154-247).
+- ``bypass_forward_diff`` / ``bypass_diff_with_scale``: the grouped-matmul
+  Kronecker bypass that never forms dW (reference lokr.py:154-247).
 """
 
 from __future__ import annotations
 
-from .general import linear, op_by_ndim, rebuild_tucker
+import torch
+
+from .general import factorization, kaiming_uniform, linear, op_by_ndim, rebuild_tucker
 
 
 def make_kron(w1, w2, scale=1.0, out_dtype=None):
@@ -27,6 +31,54 @@ def make_kron(w1, w2, scale=1.0, out_dtype=None):
     if out_dtype is not None:
         prod = prod.to(out_dtype)
     return prod.reshape(p * u, q * v, *spatial)
+
+
+def weight_gen(org_weight_shape, rank: int, tucker: bool = True, factor: int = -1,
+               decompose_both: bool = False, full_matrix: bool = False,
+               unbalanced_factorization: bool = False, dtype=torch.float32, generator=None,
+               device=None):
+    """(w1, w1a, w1b, w2, w2a, w2b, t2), None for the unused slots, for a
+    layer of torch weight shape ``(out, in, *k)`` (or a tensor of that
+    shape): the JAX ``weight_gen``'s branches and init (w2 or w2b zero)."""
+    if hasattr(org_weight_shape, "shape"):
+        org_weight_shape = org_weight_shape.shape
+    out_dim, in_dim, *k = org_weight_shape
+    in_m, in_n = factorization(in_dim, factor)
+    out_l, out_k = factorization(out_dim, factor)
+    if unbalanced_factorization:
+        out_l, out_k = out_k, out_l
+    shape = ((out_l, out_k), (in_m, in_n))
+    tucker = bool(k) and tucker and any(i != 1 for i in k)
+    if decompose_both and rank < max(shape[0][0], shape[1][0]) / 2 and not (k and full_matrix):
+        w1_shapes = ((shape[0][0], rank), (rank, shape[1][0]))
+    else:
+        w1_shapes = ((shape[0][0], shape[1][0]),)
+    if k:
+        if rank >= max(shape[0][1], shape[1][1]) / 2 or full_matrix:
+            w2_shapes = ((shape[0][1], shape[1][1], *k),)
+        elif tucker:
+            w2_shapes = ((rank, shape[0][1]), (rank, shape[1][1]), (rank, rank, *k))
+        else:
+            w2_shapes = ((shape[0][1], rank), (rank, shape[1][1], *k))
+    elif rank < max(shape[0][1], shape[1][1]) / 2:
+        w2_shapes = ((shape[0][1], rank), (rank, shape[1][1]))
+    else:
+        w2_shapes = ((shape[0][1], shape[1][1]),)
+
+    kw = dict(dtype=dtype, generator=generator, device=device)
+    w1 = w1a = w1b = w2 = w2a = w2b = t2 = None
+    if len(w2_shapes) == 1:
+        w2 = torch.zeros(w2_shapes[0], dtype=dtype, device=device)
+    else:
+        if len(w2_shapes) == 3:
+            t2 = kaiming_uniform(w2_shapes[2], **kw)
+        w2a = kaiming_uniform(w2_shapes[0], **kw)
+        w2b = torch.zeros(w2_shapes[1], dtype=dtype, device=device)
+    if len(w1_shapes) == 1:
+        w1 = kaiming_uniform(w1_shapes[0], **kw)
+    else:
+        w1a, w1b = (kaiming_uniform(s_, **kw) for s_ in w1_shapes)
+    return w1, w1a, w1b, w2, w2a, w2b, t2
 
 
 def diff_weight(*weights, gamma=1.0):
@@ -49,6 +101,14 @@ def diff_weight(*weights, gamma=1.0):
         else:
             w2 = rebuild_tucker(t, w2a, w2b)
     return make_kron(w1, w2, scale)
+
+
+def bypass_forward_diff(h, org_out, *weights, gamma=1.0, extra_args={}):
+    """The Kronecker bypass of :func:`diff_weight`'s dW (scale gamma / rank,
+    the rank of the LoRA pair that exists); ``org_out`` is unused."""
+    w1, w1a, w1b, w2, w2a, w2b, t = weights
+    rank = w1b.shape[0] if w1 is None else w2b.shape[0] if w2 is None else gamma
+    return bypass_diff_with_scale(h, *weights, scale=gamma / rank, extra_args=extra_args)
 
 
 def bypass_diff_with_scale(h, *weights, scale=1.0, extra_args={}):

@@ -1,5 +1,5 @@
-"""Host models of the port: torch-layout layers and the SD UNet."""
+"""Host models of the port: torch-layout layers, the SD UNet and the CLIP text encoder."""
 
-from . import layers, unet
+from . import clip, layers, unet
 
-__all__ = ["layers", "unet"]
+__all__ = ["clip", "layers", "unet"]

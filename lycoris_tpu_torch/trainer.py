@@ -20,6 +20,15 @@
   inside ``LycorisNetwork.training_step(seed)``: adapters with dropout
   train with it. The noise and timestep draws of ``generator`` are
   untouched by it;
+- ``optimizer``, ``lr_schedule`` and ``max_grad_norm``, the counterpart of
+  the optax chain the JAX trainer takes as ``optimizer=`` (``train.py``:
+  ``clip_by_global_norm``, then ``adamw`` on a schedule): ``optimizer`` makes
+  the torch optimizer from the network's param groups, ``lr_schedule(step)``
+  is every group's lr at each step (optax evaluates its schedule at the
+  update count, 0 first), and the gradients are first scaled by
+  ``max_grad_norm / max(norm, max_grad_norm)`` over their global L2 norm,
+  as ``optax.clip_by_global_norm`` does (torch's ``clip_grad_norm_`` adds
+  1e-6 to the norm), on the device with no host sync;
 - ``scale_weight_norms``: after each optimizer step every module with
   max-norm is scaled in place so that the norm of its dW is at most the
   limit (kohya's ``--scale_weight_norms``), and ``max_norm_stats`` holds
@@ -43,6 +52,7 @@ accepts and never reads.
 from __future__ import annotations
 
 import contextlib
+import functools
 import time
 
 import torch
@@ -54,13 +64,26 @@ NUM_TRAIN_TIMESTEPS = 1000
 WEIGHT_DECAY = 1e-4
 
 
+@torch.no_grad()
+def clip_by_global_norm(grads: list, max_norm: float) -> None:
+    """Scale ``grads`` in place by ``max_norm / norm`` where their global L2
+    norm is at least ``max_norm`` (``optax.clip_by_global_norm``), with the
+    choice made on the device."""
+    if not grads:
+        return
+    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)).float())
+    scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
+    torch._foreach_mul_(grads, scale)
+
+
 class DiffusionTrainer:
     """Fine-tune the adapters of ``net`` on ``model`` with an eps-prediction
     MSE objective."""
 
     def __init__(self, model, net, lr: float = 1e-4, weight_dtype=torch.bfloat16,
                  merged_forward: bool = True, generator: torch.Generator | None = None,
-                 merge_mode: str = "interceptor", scale_weight_norms: float | None = None):
+                 merge_mode: str = "interceptor", scale_weight_norms: float | None = None,
+                 optimizer=None, lr_schedule=None, max_grad_norm: float | None = None):
         if merge_mode not in ("interceptor", "premerge"):
             raise ValueError(f"merge_mode must be 'interceptor' or 'premerge', not {merge_mode!r}")
         self.model = model
@@ -80,9 +103,12 @@ class DiffusionTrainer:
             generator = torch.Generator(device=self.device).manual_seed(0)
         self.generator = generator
         self.drop_generator = torch.Generator().manual_seed(generator.initial_seed())
-        self.optimizer = torch.optim.AdamW(net.prepare_optimizer_params(), lr=lr,
-                                           betas=(0.9, 0.999), eps=1e-8,
-                                           weight_decay=WEIGHT_DECAY)
+        if optimizer is None:
+            optimizer = functools.partial(torch.optim.AdamW, lr=lr, betas=(0.9, 0.999),
+                                          eps=1e-8, weight_decay=WEIGHT_DECAY)
+        self.optimizer = optimizer(net.prepare_optimizer_params())
+        self.lr_schedule = lr_schedule
+        self.max_grad_norm = max_grad_norm
         self.step = 0
 
     def adapted(self):
@@ -127,6 +153,21 @@ class DiffusionTrainer:
                                 batch.get("added_cond"))
             self.optimizer.zero_grad(set_to_none=True)
             loss.backward()
+        self._update()
+        self.step += 1
+        return loss.detach()
+
+    def _update(self) -> None:
+        """The optimizer's step on the gradients: the global-norm clip, the
+        schedule's lr, the step, then max-norm."""
+        if self.max_grad_norm:
+            clip_by_global_norm(
+                [p.grad for g in self.optimizer.param_groups for p in g["params"]
+                 if p.grad is not None], self.max_grad_norm)
+        if self.lr_schedule is not None:
+            lr = float(self.lr_schedule(self.step))
+            for g in self.optimizer.param_groups:
+                g["lr"] = lr
         self.optimizer.step()
         if self.scale_weight_norms:
             scaled, norms = self.net.apply_max_norm_stacked(self.scale_weight_norms)
@@ -134,8 +175,6 @@ class DiffusionTrainer:
                 self.max_norm_stats = (scaled.sum(), norms.mean(), norms.max())
             else:
                 self.max_norm_stats = (scaled.sum(), norms.sum(), norms.sum())
-        self.step += 1
-        return loss.detach()
 
     def save_checkpoint(self, path) -> None:
         """The adapter tensors (parameters and buffers), the AdamW state,

@@ -82,9 +82,11 @@ def load_file(path) -> dict[str, torch.Tensor]:
     return out
 
 
-def save_file(tensors: dict, path, metadata: dict | None = None) -> None:
-    """Write ``tensors`` (name -> tensor, any device) and ``metadata``
-    (str -> str, or None) to ``path``."""
+def serialize(tensors: dict, metadata: dict | None = None) -> bytes:
+    """The file's bytes for ``tensors`` (name -> tensor, any device) and
+    ``metadata`` (str -> str, or None): the bytes ``safetensors.numpy.save``
+    gives for the same arrays and metadata (an empty dict is written as an
+    empty ``__metadata__``, None as none)."""
     _check_host()
     if metadata is not None:
         bad = [k for k, v in metadata.items() if not (isinstance(k, str) and isinstance(v, str))]
@@ -108,9 +110,13 @@ def save_file(tensors: dict, path, metadata: dict | None = None) -> None:
         offset += nbytes
     raw = json.dumps(header, separators=(",", ":"), ensure_ascii=False).encode()
     raw += b" " * (-len(raw) % 8)
+    parts = [struct.pack("<Q", len(raw)), raw]
+    parts += [t.reshape(-1).view(torch.uint8).numpy().tobytes() for _, t in items if t.numel()]
+    return b"".join(parts)
+
+
+def save_file(tensors: dict, path, metadata: dict | None = None) -> None:
+    """Write :func:`serialize`'s bytes for ``tensors`` and ``metadata`` to ``path``."""
+    data = serialize(tensors, metadata)
     with open(path, "wb") as f:
-        f.write(struct.pack("<Q", len(raw)))
-        f.write(raw)
-        for _, t in items:
-            if t.numel():
-                f.write(t.reshape(-1).view(torch.uint8).numpy().tobytes())
+        f.write(data)

@@ -175,25 +175,29 @@ def create_lycoris(module, multiplier=1.0, linear_dim=4, linear_alpha=1, **kwarg
     )
 
 
-def create_lycoris_from_weights(multiplier, file, module, weights_sd=None, **kwargs):
+def create_lycoris_from_weights(multiplier, file, module, weights_sd=None, lora_prefix=None,
+                                **kwargs):
     """Build a network from a state dict in the reference key grammar, the
     algorithm of each layer detected from its keys (reference wrapper.py:148-194):
     ``weights_sd``, or if that is None the adapter file ``file``
-    (:func:`load_file_sd`). Each adapter goes to ``device`` if given, else
-    to its layer's device, its tensors in fp32. Returns ``(network, weights_sd)``."""
+    (:func:`load_file_sd`); ``lora_prefix`` (the class's ``LORA_PREFIX`` by
+    default) is the prefix of its layers' keys. Each adapter goes to
+    ``device`` if given, else to its layer's device, its tensors in fp32.
+    Returns ``(network, weights_sd)``."""
     if weights_sd is None:
         weights_sd = load_file_sd(file)
+    lora_prefix = lora_prefix or LycorisNetwork.LORA_PREFIX
     graph = _as_graph(module)
     prefixes: dict[str, Any] = {}
     for key in weights_sd:
         if "." in key:
             prefixes[key.split(".")[0]] = None
     for name, node in graph.named_modules():
-        lora_name = f"{LycorisNetwork.LORA_PREFIX}_{name}".replace(".", "_")
+        lora_name = f"{lora_prefix}_{name}".replace(".", "_")
         if lora_name in prefixes:
             prefixes[lora_name] = node
 
-    network = LycorisNetwork(graph, init_only=True)
+    network = LycorisNetwork(graph, init_only=True, lora_prefix_override=lora_prefix)
     network.multiplier = multiplier
     loras = []
     for lora_name, node in prefixes.items():
@@ -276,7 +280,12 @@ class LycorisNetwork(nn.Module):
     def __init__(self, module, multiplier=1.0, lora_dim=4, conv_lora_dim=4, alpha=1,
                  conv_alpha=1, use_tucker=False, dropout=0, rank_dropout=0, module_dropout=0,
                  network_module: str = "locon", train_norm=False, init_only=False, seed: int = 0,
-                 device=None, dtype=torch.float32, **kwargs):
+                 device=None, dtype=torch.float32, lora_prefix_override=None,
+                 target_module_override=None, target_name_override=None, **kwargs):
+        """``*_override`` replace the preset's lora prefix, target classes
+        and target names for this network alone (the kohya sub-networks').
+        With ``init_only`` the network is an empty shell and ``module`` may
+        be None."""
         super().__init__()
         root_kwargs = kwargs
         self.loras = nn.ModuleList()
@@ -295,7 +304,13 @@ class LycorisNetwork(nn.Module):
         self.name_algo_map = dict(cls.NAME_ALGO_MAP)
         self.use_fnmatch = cls.USE_FNMATCH
         self.target_exclude_name = list(cls.TARGET_EXCLUDE_NAME)
-        self.graph = _as_graph(module)
+        if lora_prefix_override is not None:
+            self.lora_prefix = lora_prefix_override
+        if target_module_override is not None:
+            self.target_replace_module = list(target_module_override)
+        if target_name_override is not None:
+            self.target_replace_name = list(target_name_override)
+        self.graph = None if module is None and init_only else _as_graph(module)
         self.multiplier = multiplier if not init_only else 1
         if init_only:
             self.lora_dim = 0

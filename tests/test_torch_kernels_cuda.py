@@ -106,6 +106,28 @@ def test_cuda_layer_norm_fwd_variants(cuda, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [768, 1280])
+def test_cuda_layer_norm_fwd_clip_shapes(cuda, dtype, c):
+    """The CLIP encoders' LayerNorms at b4 x 77 tokens (CLIP-L C = 768,
+    CLIP-G C = 1280) against the plain version, each through the variant
+    ``fwd_plan`` names (vectorised only for bf16 C = 1280) and through the
+    generic one."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    x, w, b = _ln_inputs(4 * 77, c, dtype, g, cuda)
+    want = tln.layer_norm_plain(x, w, b, 1e-5)
+    vec = int(tln.fwd_plan(4 * 77, c, x.element_size()).lanes > 0)
+    assert vec == int(dtype == torch.bfloat16 and c == 1280)
+    n = _ln_fwd_counts()
+    y = tln.layer_norm(x, w, b, 1e-5)
+    gen = tln.layer_norm_fwd(x, w, b, 1e-5, vectorised=False)
+    got = tuple(now - was for now, was in zip(_ln_fwd_counts(), n))
+    assert got == (2, vec, 2 - vec)
+    _check(y, want, dtype)
+    _check(gen, want, dtype)
+
+
+@pytest.mark.cuda
 def test_cuda_layer_norm_fwd_repeats_bit_for_bit(cuda):
     """The vectorised variant sums in a fixed order: 50 calls, and a call
     on a second stream, give the same bits (bf16, three path shapes)."""

@@ -161,6 +161,24 @@ def test_layer_norm_fwd_plan_at_path_shapes(model, batch, hw):
                 0, tln.GENERIC_WARPS, -(-rows // tln.GENERIC_WARPS))
 
 
+@pytest.mark.parametrize("c,es,lanes", [(768, 2, 0), (1280, 2, 32), (768, 4, 0), (1280, 4, 0)])
+def test_layer_norm_fwd_plan_at_clip_shapes(c, es, lanes):
+    """The CLIP encoders' LayerNorms at b4 x 77 tokens: CLIP-G's C = 1280
+    takes the vectorised variant in bf16 (32 lanes, one-warp blocks, a
+    block a row group); CLIP-L's C = 768 is no multiple of 40 bf16 values
+    (``VECS`` 16-byte vectors a lane) and takes the generic one, as fp32
+    does at both widths."""
+    rows = 4 * 77
+    plan = tln.fwd_plan(rows, c, es)
+    assert plan.lanes == lanes == tln.vec_lanes(c, es)
+    if lanes:
+        assert plan == (32, 1, rows)
+    else:
+        assert plan == (0, tln.GENERIC_WARPS, rows // tln.GENERIC_WARPS)
+    rpb = _ln_rows_per_block(plan)
+    assert (plan.grid - 1) * rpb < rows <= plan.grid * rpb
+
+
 def test_layer_norm_fwd_plan_small_and_odd():
     """SD1.5's smallest shapes spread over the SMs with one-warp blocks
     (256 rows of C = 1280: 256 blocks, not 64 four-warp ones); the largest
