@@ -106,24 +106,51 @@ ends the run with a nonzero exit code, and no phase falls back to the CPU:
    the live adapters and ``onfly_restore`` bit for bit; then a trainer
    checkpoint after 2 LoKr steps loaded into a fresh trainer: adapter
    tensors, AdamW state, step and both generators bit for bit;
-17. train_sdxl_lora -- the SD1.5 model freed, a full-width SDXL UNet (bf16,
+17. train_ia3, train_glora, train_dylora, train_full -- (IA)^3 (the ``ia3``
+   preset), GLoRA, DyLoRA (block_size 2) and Full on the attn-mlp targets
+   at b8, 2 steps each with the checks of phase 9 (no adapter kernel,
+   factored 0; DyLoRA's network trained as built, its files load as LoCon),
+   then one step under torch.profiler: s/step, device ms and kernels a
+   step, and peak memory (Full's fp32 deltas and their AdamW moments);
+18. train_e2e_oft -- phase 14 for Diag-OFT (dim 8, constraint 1e-4,
+   rescaled), BOFT (dim 16) and LoRA with ``train_norm``;
+19. train_sdxl_lora -- the SD1.5 model freed, a full-width SDXL UNet (bf16,
    random seeded weights, ``remat="transformer"``) trains LoRA at batch 4,
    128x128 latents, context (4, 77, 2048), ``added_cond`` (4, 2816): the
    checks of phase 9, and the peak memory;
-18. train_sdxl_lokr, train_sdxl_loha -- the same with LoKr and LoHa;
-19. train_sdxl_dora_loha -- DoRA LoHa with the trainer's max-norm
+20. train_sdxl_lokr, train_sdxl_loha -- the same with LoKr and LoHa;
+21. train_sdxl_dora_loha -- DoRA LoHa with the trainer's max-norm
    (``scale_weight_norms``) at half the median of the modules' dW norms, 3
    steps: the checks of phase 9 with the max-norm pass's LoHa forwards in
    the hand count (on the fast variant), at least one module scaled and
    every module's norm at most the limit after each step; then one step
    without the pass, one with it, and the pass alone, host-clocked;
-20. train_sdxl_premerge -- LoKr with ``merge_mode="premerge"``: one loss and
+22. train_sdxl_premerge -- LoKr with ``merge_mode="premerge"``: one loss and
    every adapter gradient against the interceptor route (phase 14's
    bounds), then 2 steps with the checks of phase 9 (factored 0), s/step
    and peak memory beside train_sdxl_lokr's;
-21. train_sdxl_e2e, train_sdxl_e2e_lora -- phase 14 on the SDXL model at
+23. train_sdxl_oft -- Diag-OFT (dim 8, constraint 1e-4, rescaled) on the
+   SDXL attn-mlp targets at b4: 3 steps with the checks of phase 9 (the
+   UNet's own launches, factored 0), one profiled step (s/step, device ms
+   and kernels a step, peak memory), and the adapters' own work alone: the
+   722 merged weights (Cayley transform and rotation) formed, and formed
+   and differentiated, device ms and kernels by torch.profiler;
+24. train_sdxl_boft -- the same for BOFT at dim 16 (blocks of 10, 7 to 11
+   stages), then its two forms of the rotation (the dense Q and the direct
+   chain) forward and backward at the weights (1280, 1280) and (10240,
+   1280), each form at each, timed and held to each other;
+25. train_sdxl_norm -- LoRA (dim 8) with ``train_norm``: 722 LoRA layers
+   and 221 Norm modules (210 LayerNorms, 11 Transformer2DModel
+   GroupNorms), 3 steps with the checks of phase 9 and every norm backward
+   on the dw/db side of its fast variant (GroupNorm backward 40 a step: the
+   first Transformer2DModel's norm now trains), one profiled step; then
+   the LayerNorm and GroupNorm backwards with dw/db at the step's shapes
+   against their plain versions, timed on rotating copies against
+   ``F.layer_norm``'s and ``F.group_norm``'s autograd backwards for x,
+   weight and bias (the ``*_bwd_wb`` rows of the kernel line);
+26. train_sdxl_e2e, train_sdxl_e2e_lora -- phase 14 on the SDXL model at
    64x64 latents;
-22. kohya_sdxl -- the kohya front end at full width: ``create_network``
+27. kohya_sdxl -- the kohya front end at full width: ``create_network``
    (LoKr factor 8, attn-mlp) over CLIP-L, CLIP-G (bf16) and the SDXL UNet,
    the adapters of each tree held to its config (72, 192, 722); the
    encoders on b4 x 77 token ids, each call's LayerNorms on the variant
@@ -133,12 +160,12 @@ ends the run with a nonzero exit code, and no phase falls back to the CPU:
    hash of the file's tensors; ``create_network_from_weights`` on fresh
    models: the encoders and a UNet call within rel L2 3e-2 of the live
    network; ``merge_to``: the plain encoders within 1e-3 of the live ones;
-23. train_toml_sdxl_lokr -- ``python -m lycoris_tpu_torch.train`` (its
+28. train_toml_sdxl_lokr -- ``python -m lycoris_tpu_torch.train`` (its
    ``main``) on ``example_configs/training_configs/lokr_sdxl_tpu.toml``
    (SDXL, remat=True, b2, 128x128) for 3 steps, ``output_dir`` in a
    temporary copy: finite losses, every kernel on its planned variant, the
    saved file reloaded by ``create_network_from_weights``;
-24. train_toml_sd15_loha -- the same on ``loha_tpu.toml`` (SD1.5 b8, LoHa
+29. train_toml_sd15_loha -- the same on ``loha_tpu.toml`` (SD1.5 b8, LoHa
    dim 16): every LoHa launch on the generic variant (the fast one is rank
    8).
 
@@ -159,8 +186,10 @@ took the fast variant.
 The line before the last is the kernel table as JSON. Each kernel names the
 path its launches are read from (``path``): SDXL training (the first SDXL
 leg that runs it) for the kernels of the adapter path, ``lora_fused_op`` for
-the fused LoRA matmul, ``train_loha_split`` for the split LoHa backward; the
-run fails if a kernel was never launched there. Times are device ms per SDXL
+the fused LoRA matmul, ``train_loha_split`` for the split LoHa backward,
+``train_sdxl_norm`` for the LayerNorm and GroupNorm backwards that form dw
+and db (``layer_norm_bwd_wb``, ``group_norm_bwd_wb``); the run fails if a
+kernel was never launched there. Times are device ms per SDXL
 train step (kernel, plain, library, bound; each shape's time weighted by
 its launches, or for the fused LoRA matmul and the split LoHa backward,
 which no SDXL step dispatches, its layers per step: ``per`` says which), with the
@@ -311,27 +340,45 @@ def iters_for(nbytes: float) -> int:
     return max(3, min(100, int(2e9 / max(nbytes, 1.0))))
 
 
-def device_ms_by_kernel(fn, calls: int = 20) -> dict:
-    """Device ms per call of each kernel that ``fn`` launches, by the
-    kernel's name: torch.profiler over ``calls`` calls after two warm-up
-    calls; empty if the profiler saw no device time."""
+def device_events(fn, calls: int, warmup: int) -> list:
+    """The device events (kernels, copies, sets) of ``calls`` calls of ``fn``
+    after ``warmup``, traced by torch.profiler. Only the device activity is
+    traced, and its raw events are read: a step of 10^5 kernels traced with
+    its host ops and read through ``key_averages()`` took minutes to
+    post-process."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(2):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
+    return [e for e in prof.profiler.kineto_results.events()
+            if e.device_type() == torch.autograd.DeviceType.CUDA]
+
+
+def kernel_totals(fn, calls: int, warmup: int = 1) -> tuple:
+    """(device ms, kernels) per call of ``fn``: the device time of every
+    event of :func:`device_events` summed; (None, 0) if the profiler saw no
+    device time."""
+    device = device_events(fn, calls, warmup)
+    ns = sum(e.duration_ns() for e in device)
+    if not ns:
+        return None, 0
+    return ns / 1e6 / calls, len(device) / calls
+
+
+def device_ms_by_kernel(fn, calls: int = 20) -> dict:
+    """Device ms per call of each kernel that ``fn`` launches, by the
+    kernel's name (:func:`device_events` after two warm-up calls); empty if
+    the profiler saw no device time."""
     out = {}
-    for evt in prof.key_averages():
-        us = getattr(evt, "self_device_time_total", None)
-        if us is None:
-            us = evt.self_cuda_time_total
-        if us:
-            out[evt.key] = us / 1e3 / calls
+    for e in device_events(fn, calls, 2):
+        if e.duration_ns():
+            out[e.name()] = out.get(e.name(), 0.0) + e.duration_ns() / 1e6 / calls
     return out
 
 
@@ -406,16 +453,21 @@ def unet_census(cfg, batch: int, hw: int) -> dict:
     every GroupNorm, "gn_grad" those a gradient reaches under attn-mlp
     adapters (every one after the first adapted layer, the first
     Transformer2DModel's proj_in, which follows that model's own norm),
-    "transformers" lists (channels, tokens, depth), "resnets" (in, out
-    channels), "samplers" counts the down- and upsamplers."""
-    gn, gn_grad, transformers, resnets = Counter(), Counter(), [], []
+    "gn_grad_norm" those it reaches when each Transformer2DModel's own norm
+    trains too (``train_norm``), "transformers" lists (channels, tokens,
+    depth), "resnets" (in, out channels), "samplers" counts the down- and
+    upsamplers."""
+    gn, gn_grad, gn_grad_norm = Counter(), Counter(), Counter()
+    transformers, resnets = [], []
     samplers = 0
     grad = False
 
-    def norm(c, res, act):
+    def norm(c, res, act, trained=False):
         gn[(c, res * res, act)] += 1
         if grad:
             gn_grad[(c, res * res, act)] += 1
+        if grad or trained:
+            gn_grad_norm[(c, res * res, act)] += 1
 
     def resnet(c_in, c_out, res):
         norm(c_in, res, "silu")
@@ -424,7 +476,7 @@ def unet_census(cfg, batch: int, hw: int) -> dict:
 
     def transformer(c, res, depth):
         nonlocal grad
-        norm(c, res, None)
+        norm(c, res, None, trained=True)
         transformers.append((c, res * res, depth))
         grad = True
 
@@ -456,8 +508,8 @@ def unet_census(cfg, batch: int, hw: int) -> dict:
             res *= 2
             samplers += 1
     norm(chs[0], res, "silu")  # conv_norm_out
-    return {"gn": gn, "gn_grad": gn_grad, "transformers": transformers, "resnets": resnets,
-            "samplers": samplers}
+    return {"gn": gn, "gn_grad": gn_grad, "gn_grad_norm": gn_grad_norm,
+            "transformers": transformers, "resnets": resnets, "samplers": samplers}
 
 
 def path_shapes(cfg, batch: int, hw: int) -> dict:
@@ -465,7 +517,7 @@ def path_shapes(cfg, batch: int, hw: int) -> dict:
     launches: "flash" (B*H, T, D) of the self-attentions that take the flash
     kernel, "ln" (rows, C), "geglu" (B, T, 2F), "hada" (O, I) of the
     attn-mlp adapted layers, "lora" (M, N, K) of their linear layers (M
-    rows of x, W (N, K)), "gn"/"gn_grad" (C, S, act); "factored" counts the
+    rows of x, W (N, K)), "gn"/"gn_grad"/"gn_grad_norm" (C, S, act); "factored" counts the
     LoKr/LoRA layers whose harmonic dimension takes the factored backward,
     "full_adapted" the layers the kohya "full" UNet targets adapt."""
     from lycoris_tpu_torch.functional.merged import worth_factoring
@@ -495,13 +547,15 @@ def path_shapes(cfg, batch: int, hw: int) -> dict:
     full = (sum(10 * depth + 2 for _, _, depth in census["transformers"])
             + sum(3 + (c_in != c_out) for c_in, c_out in census["resnets"])
             + census["samplers"] + 4)
-    return {"gn": census["gn"], "gn_grad": census["gn_grad"], "flash": flash, "ln": ln,
+    return {"gn": census["gn"], "gn_grad": census["gn_grad"],
+            "gn_grad_norm": census["gn_grad_norm"], "flash": flash, "ln": ln,
             "geglu": geglu, "hada": hada, "lora": lora, "factored": factored,
             "full_adapted": full}
 
 
 def want_counts(shapes: dict, algo: str, train: bool, remat: bool, split: bool = False,
-                full: bool = False, max_norm: bool = False, premerge: bool = False) -> dict:
+                full: bool = False, max_norm: bool = False, premerge: bool = False,
+                norm: bool = False) -> dict:
     """Launches of every kernel, and factored layer applications, per UNet
     call (serving, no gradient) or per train step. With ``remat`` (the
     Transformer2DModels checkpointed) the backward runs each
@@ -512,7 +566,12 @@ def want_counts(shapes: dict, algo: str, train: bool, remat: bool, split: bool =
     GroupNorm. ``max_norm``: the trainer's max-norm pass forms every LoHa
     layer's dW once more a step. ``premerge``: every adapter is merged once a
     step before the model runs (no recompute of a merge, no factored
-    layer). The fused LoRA matmul is never dispatched on this path."""
+    layer). ``norm`` (``train_norm``): every LayerNorm and each
+    Transformer2DModel's GroupNorm train, so their backwards also form dw
+    and db, and the first Transformer2DModel's GroupNorm, before any adapted
+    layer, runs its backward too. Only LoKr and LoRA/LoCon take the factored
+    backward; the other algorithms launch no adapter kernel. The fused LoRA
+    matmul is never dispatched on this path."""
     def tot(key):
         return sum(shapes[key].values())
 
@@ -527,11 +586,15 @@ def want_counts(shapes: dict, algo: str, train: bool, remat: bool, split: bool =
         "group_norm_fwd": tot("gn") + (again - 1) * gn_in_transformers,
         "flash_bwd": tot("flash") if train else 0, "layer_norm_bwd": tot("ln") if train else 0,
         "hada_bwd": 0 if split else hada_bwd,
-        "group_norm_bwd": tot("gn" if full else "gn_grad") if train else 0,
+        "group_norm_bwd": tot("gn" if full else "gn_grad_norm" if norm else "gn_grad")
+        if train else 0,
         "geglu_bwd": tot("geglu") if train else 0,
         "lora_fused_nt": 0, "lora_fused_nn": 0,
         "hada_bwd_split": hada_bwd if split else 0,
-        "factored": again * shapes["factored"] if train and not loha and not premerge else 0,
+        "layer_norm_bwd_wb": tot("ln") if train and norm else 0,
+        "group_norm_bwd_wb": gn_in_transformers if train and norm else 0,
+        "factored": (again * shapes["factored"]
+                     if train and has_factored(algo) and not premerge else 0),
     }
 
 
@@ -590,9 +653,35 @@ SD15_STEP = {"flash_fwd": 10, "layer_norm_fwd": 48, "group_norm_fwd": 61, "flash
 SD15_STEP_FULL = {**SD15_STEP, "group_norm_bwd": 61}
 SDXL_STEP = {"flash_fwd": 140, "layer_norm_fwd": 420, "group_norm_fwd": 57, "flash_bwd": 70,
              "layer_norm_bwd": 210, "group_norm_bwd": 39, "geglu_bwd": 70}
+# With train_norm (LoRA on attn-mlp) every LayerNorm and each
+# Transformer2DModel's GroupNorm train: their backwards form dw and db too
+# (SDXL: LayerNorm 210, GroupNorm 11 a step; SD1.5: 48 and 16), and the first
+# Transformer2DModel's GroupNorm, which comes before any adapted layer, now
+# runs its backward: GroupNorm bwd SDXL 39 + 1 = 40, SD1.5 58 + 1 = 59. The
+# adapted layers are the 722 (192) linear/1x1-conv layers plus those norms:
+# SDXL 722 + 210 + 11 = 943, SD1.5 192 + 48 + 16 = 256.
+#
+# Diag-OFT, BOFT, (IA)^3, GLoRA, DyLoRA and Full launch no adapter kernel
+# and take no factored backward (their merged weights run through cuBLAS):
+# the UNet's own counts, factored 0.
+
+
 SD15_ADAPTED, SD15_FACTORED = 192, 12
 SDXL_ADAPTED, SDXL_FACTORED = 722, 120
 SD15_FULL_ADAPTED = 282
+SDXL_STEP_NORM = {**SDXL_STEP, "group_norm_bwd": 40, "layer_norm_bwd_wb": 210,
+                  "group_norm_bwd_wb": 11}
+SD15_STEP_NORM = {**SD15_STEP, "group_norm_bwd": 59, "layer_norm_bwd_wb": 48,
+                  "group_norm_bwd_wb": 16}
+SDXL_NORM_ADAPTED, SD15_NORM_ADAPTED = 943, 256
+
+
+def has_factored(algo: str) -> bool:
+    """Whether ``algo``'s module class has a factored cotangent
+    (``factored_merged_fns``: LoRA/LoCon and LoKr)."""
+    from lycoris_tpu_torch.wrapper import network_module_dict
+
+    return hasattr(network_module_dict[algo], "factored_merged_fns")
 
 
 def hand_counts(base: dict, adapted: int, factored: int, algo: str, train: bool,
@@ -608,15 +697,18 @@ def hand_counts(base: dict, adapted: int, factored: int, algo: str, train: bool,
     out["hada_fwd"] = merges * adapted if loha else 0
     out["hada_bwd"] = adapted if train and loha and not split else 0
     out["hada_bwd_split"] = adapted if train and loha and split else 0
-    out["factored"] = again * factored if train and not loha and not premerge else 0
+    out["factored"] = (again * factored if train and has_factored(algo) and not premerge
+                       else 0)
     return out
 
 
 def checked_counts(cfg, batch, hw, algo, train, remat, base, adapted, factored,
-                   split=False, full=False, max_norm=False, premerge=False) -> dict:
-    """The census's launch counts, failed unless they equal the hand count."""
+                   split=False, full=False, max_norm=False, premerge=False,
+                   norm=False) -> dict:
+    """The census's launch counts, failed unless they equal the hand count
+    (``base``: the hand count of the kernels of the UNet itself)."""
     got = want_counts(path_shapes(cfg, batch, hw), algo, train, remat, split=split, full=full,
-                      max_norm=max_norm, premerge=premerge)
+                      max_norm=max_norm, premerge=premerge, norm=norm)
     want = hand_counts(base, adapted, factored, algo, train, 2 if train and remat else 1,
                        split=split, max_norm=max_norm, premerge=premerge)
     if got != want:
@@ -1279,6 +1371,80 @@ class Checks:
         record(self.results, "group_norm_bwd", path, compare(dtype, dx_gen, want[0]),
                f"{shape} generic variant")
 
+    def layer_norm_bwd_wb(self, rows, c, per_call, path="sdxl"):
+        """dx, dw and db in one call (the train_norm path's: the vectorised
+        variant, bf16) against the plain backward, timed on rotating copies
+        of x and dy with the outputs held: the kernel, the plain version and
+        ``F.layer_norm``'s autograd backward for x, w and b on the same
+        copies."""
+        import torch
+        import torch.nn.functional as F
+        from lycoris_tpu_torch.ops import layer_norm as ln
+
+        dtype = torch.bfloat16
+        x = self.rnd((rows, c), dtype, 2.0) + 0.5
+        w = self.rnd((c,), dtype, 0.5) + 1.0
+        b = self.rnd((c,), dtype, 0.5)
+        dy = self.rnd((rows, c), dtype)
+        n0 = (ln.bwd_vec_launches, ln.bwd_wb_launches)
+        got = ln.layer_norm_bwd(x, w, dy, 1e-5)
+        if (ln.bwd_vec_launches - n0[0], ln.bwd_wb_launches - n0[1]) != (1, 1):
+            fail(f"layer_norm_bwd_wb ({rows},{c}): not the vectorised variant's dw/db call")
+        want = ln.layer_norm_bwd_plain(x, w, dy, 1e-5)
+        n, es = x.numel(), x.element_size()
+        copies = [(x.clone(), dy.clone()) for _ in range(
+            max(2, math.ceil(ROTATE_BYTES / (2 * n * es))))]
+        # x and dy read, dx written, w read, dw and db (fp32) written
+        nbytes = 3 * n * es + c * es + 8 * c
+        it = max(iters_for(nbytes), len(copies))
+        times = _times(
+            rotating(lambda xc, gc: ln.layer_norm_bwd(xc, w, gc, 1e-5), copies, hold=True),
+            rotating(lambda xc, gc: ln.layer_norm_bwd_plain(xc, w, gc, 1e-5), copies, hold=True),
+            it, bound(16.0 * n, nbytes, "float32"),
+            lambda it: _library_bwd_ms(lambda xl, wl, bl: F.layer_norm(xl, (c,), wl, bl, 1e-5),
+                                       None, None, it,
+                                       copies=[((xc, w, b), gc) for xc, gc in copies]),
+            host=lambda: ln.layer_norm_bwd(x, w, dy, 1e-5))
+        del copies
+        record(self.results, "layer_norm_bwd_wb", path, compare_all(dtype, got, want),
+               f"({rows},{c}) dx+dw+db", times, per_call)
+
+    def group_norm_bwd_wb(self, n, c, s, per_call, path="sdxl"):
+        """dx, dgamma and dbeta (a Transformer2DModel's act-free GroupNorm
+        under train_norm: the fast variant, bf16, eps 1e-6) against the plain
+        backward, timed as :meth:`layer_norm_bwd_wb`, the library being
+        ``F.group_norm``'s autograd backward for x, gamma and beta."""
+        import torch
+        import torch.nn.functional as F
+        from lycoris_tpu_torch.ops import group_norm as gn
+
+        dtype, eps = torch.bfloat16, 1e-6
+        x, w, b, dh = self._gn_inputs(n, c, s, dtype, True)
+        _, mean, rstd = gn.group_norm_fwd(x, 32, w, b, eps, None)
+        n0 = (gn.bwd_fast_launches, gn.bwd_wb_launches)
+        got = gn.group_norm_bwd(x, dh, 32, w, b, mean, rstd, None)
+        if (gn.bwd_fast_launches - n0[0], gn.bwd_wb_launches - n0[1]) != (1, 1):
+            fail(f"group_norm_bwd_wb ({n},{c},{s}): not the fast variant's dgamma/dbeta call")
+        want = gn.group_norm_bwd_plain(x, dh, 32, w, b, eps, None)
+        e, es = x.numel(), x.element_size()
+        copies = [(x.clone(), dh.clone()) for _ in range(
+            max(2, math.ceil(ROTATE_BYTES / (2 * e * es))))]
+        nbytes = 3 * e * es + 2 * c * es + 8 * c
+        it = max(iters_for(nbytes), len(copies))
+        times = _times(
+            rotating(lambda xc, dc: gn.group_norm_bwd(xc, dc, 32, w, b, mean, rstd, None),
+                     copies, hold=True),
+            rotating(lambda xc, dc: gn.group_norm_bwd_plain(xc, dc, 32, w, b, eps, None),
+                     copies, hold=True),
+            it, bound(16.0 * e, nbytes, "float32"),
+            lambda it: _library_bwd_ms(lambda xl, wl, bl: F.group_norm(xl, 32, wl, bl, eps),
+                                       None, None, it,
+                                       copies=[((xc, w, b), dc) for xc, dc in copies]),
+            host=lambda: gn.group_norm_bwd(x, dh, 32, w, b, mean, rstd, None))
+        del copies
+        record(self.results, "group_norm_bwd_wb", path, compare_all(dtype, got, want),
+               f"({n},{c},{math.isqrt(s)},{math.isqrt(s)}) dx+dgamma+dbeta", times, per_call)
+
     def _lora_inputs(self, m, n, k, dtype, r=LORA_RANK):
         """x (M, K) and g (M, N) in ``dtype``, scaled so that y and dx are
         O(1); W (N, K) in ``dtype``; the rank-r factors fp32, as the path
@@ -1791,6 +1957,23 @@ KERNELS = {
         "replaces": "lycoris_tpu/ops/hada.py:225",
         "per": "the LoHa layers of one SDXL b4 train step (launches: the SD1.5 b8 split leg)",
     },
+    # the LayerNorm and GroupNorm backwards that also form dw and db (train_norm)
+    "layer_norm_bwd_wb": {
+        "route": "cuda",
+        "source": "lycoris_tpu_torch/csrc/ln_bwd.cu",
+        "path": "train_sdxl_norm",
+        "replaces": "lycoris_tpu/ops/layer_norm.py:104",
+        "per": "one SDXL b4 train_norm step: every LayerNorm's dx, dw and db (under \"sd15\": "
+               "one SD1.5 b8 train_norm step)",
+    },
+    "group_norm_bwd_wb": {
+        "route": "cuda",
+        "source": "lycoris_tpu_torch/csrc/gn_bwd.cu",
+        "path": "train_sdxl_norm",
+        "replaces": "lycoris_tpu/ops/group_norm_v2.py:125",
+        "per": "one SDXL b4 train_norm step: each Transformer2DModel GroupNorm's dx, dgamma, "
+               "dbeta (under \"sd15\": one SD1.5 b8 train_norm step)",
+    },
 }
 
 # what a kernel's times in the kernel line are summed over, unless its entry
@@ -1822,28 +2005,37 @@ FULL_UNET_TARGETS = {
 }
 
 
-def adapter_state_dict(model, algo: str, device, seed: int, preset=None, dora=False) -> dict:
-    """A LyCORIS adapter (dim 8, alpha 4; LoKr factor 8; 3x3 convs conv_dim 8,
-    conv_alpha 4; with ``dora``, DoRA on the output side) on the attn-mlp
-    targets, or ``preset``, in the reference key grammar, with seeded
-    nonzero factors: LoKr's lokr_w2(_b), LoHa's hada_w2_a and LoRA's
-    lora_up start at zero, which would make dW = 0 (DoRA's dora_scale, the
-    row norms of the layer's weight, moves by the same noise)."""
+def adapter_net(model, algo: str, device, seed: int, targets=None, dora=False, **net_kw):
+    """A LyCORIS network (dim 8, alpha 4; LoKr factor 8; 3x3 convs conv_dim 8,
+    conv_alpha 4; with ``dora``, DoRA on the output side; ``net_kw`` to
+    ``create_lycoris``, a ``preset`` among them) on the attn-mlp targets, or
+    ``targets`` (target_module / target_name), with seeded
+    nonzero factors: LoKr's lokr_w2(_b), LoHa's hada_w2_a, LoRA's lora_up,
+    the OFT blocks and the other algorithms' deltas start at zero, which
+    would make dW = 0 (DoRA's dora_scale, the row norms of the layer's
+    weight, moves by the same noise)."""
     import torch
     from lycoris_tpu_torch import LycorisNetwork, create_lycoris
 
-    LycorisNetwork.apply_preset(preset or {"target_module": ["Transformer2DModel"]})
+    LycorisNetwork.apply_preset(targets or {"target_module": ["Transformer2DModel"]})
     try:
-        src = create_lycoris(model, 1.0, linear_dim=LORA_RANK, linear_alpha=4.0, algo=algo,
-                             factor=8, conv_dim=LORA_RANK, conv_alpha=4.0, device=device,
-                             seed=seed, dora_wd=dora)
+        net = create_lycoris(model, 1.0, **{
+            "linear_dim": LORA_RANK, "linear_alpha": 4.0, "algo": algo, "factor": 8,
+            "conv_dim": LORA_RANK, "conv_alpha": 4.0, "device": device, "seed": seed,
+            "dora_wd": dora, **net_kw})
     finally:
         LycorisNetwork.reset_preset()
     gen = torch.Generator(device=device).manual_seed(seed + 1)
     with torch.no_grad():
-        for p in src.parameters():
+        for p in net.parameters():
             p.add_(torch.randn(p.shape, generator=gen, device=device) * ADAPTER_FILL_STD)
-    return src.state_dict()
+    return net
+
+
+def adapter_state_dict(model, algo: str, device, seed: int, targets=None, dora=False,
+                       **net_kw) -> dict:
+    """:func:`adapter_net`'s network in the reference key grammar."""
+    return adapter_net(model, algo, device, seed, targets, dora, **net_kw).state_dict()
 
 
 def reset_counts():
@@ -1862,11 +2054,14 @@ def reset_counts():
     hada.bwd_fast_launches = hada.bwd_generic_launches = 0
     group_norm.fast_launches = group_norm.generic_launches = 0
     group_norm.bwd_fast_launches = group_norm.bwd_generic_launches = 0
+    layer_norm.bwd_wb_launches = group_norm.bwd_wb_launches = 0
     merged.applications = 0
 
 
 def read_counts() -> dict:
-    """Launches of every kernel, and factored layer applications."""
+    """Launches of every kernel (and of the LayerNorm and GroupNorm
+    backwards, those that also formed dw and db), and factored layer
+    applications."""
     from lycoris_tpu_torch.functional import merged
     from lycoris_tpu_torch.ops import flash, geglu, group_norm, hada, layer_norm, lora_fused
 
@@ -1876,7 +2071,8 @@ def read_counts() -> dict:
             "hada_bwd": hada.bwd_launches, "group_norm_bwd": group_norm.bwd_launches,
             "geglu_bwd": geglu.bwd_launches, "lora_fused_nt": lora_fused.launches,
             "lora_fused_nn": lora_fused.dx_launches, "hada_bwd_split": hada.split_launches,
-            "factored": merged.applications}
+            "layer_norm_bwd_wb": layer_norm.bwd_wb_launches,
+            "group_norm_bwd_wb": group_norm.bwd_wb_launches, "factored": merged.applications}
 
 
 def check_fast(tag: str, counts: dict, hada_variant: str = "fast") -> None:
@@ -2062,7 +2258,7 @@ def phase_e2e(model, sd):
 
 
 # ---------------------------------------------------------------------------
-# phases 9-21: the training paths
+# phases 9-26: the training paths
 # ---------------------------------------------------------------------------
 
 
@@ -2085,7 +2281,8 @@ def make_net(model, sd, algo=None, rates=None):
 
 
 def train(model, algo, sd, batch, want, steps, results, card, tag, path=None, adapted=None,
-          rates=None, drop_seed=None, trainer_kw=None, step_check=None, after=None):
+          rates=None, drop_seed=None, trainer_kw=None, step_check=None, after=None, net=None,
+          profile=False):
     """``steps`` AdamW steps of ``DiffusionTrainer`` on the adapter in ``sd``
     (the first a warm-up); per step: launches of every kernel and factored
     layer (``want``), every LayerNorm backward vectorised, finite loss; then
@@ -2098,14 +2295,18 @@ def train(model, algo, sd, batch, want, steps, results, card, tag, path=None, ad
     table. ``drop_seed``, if given, reseeds the trainer's drop-seed
     generator. ``trainer_kw`` goes to the trainer (``merge_mode``,
     ``scale_weight_norms``); ``step_check(tr, net)`` runs after each step's
-    checks, ``after(tr, net)`` after the last step's. Returns the trained
-    adapter's state dict."""
+    checks, ``after(tr, net)`` after the last step's. ``net``: a network to
+    train in place of the one made from ``sd``. ``profile``: one more step
+    under torch.profiler, its device ms and kernels logged beside the steps'
+    host-clocked ms (:func:`step_profile`). Returns the trained adapter's
+    state dict."""
     import torch
     from lycoris_tpu_torch.modules import base as mbase
     from lycoris_tpu_torch.trainer import DiffusionTrainer
 
     dev = torch.device("cuda")
-    net = make_net(model, sd, algo, rates)
+    if net is None:
+        net = make_net(model, sd, algo, rates)
     if adapted is not None and len(net.loras) != adapted:
         fail(f"{tag} {len(net.loras)} adapter modules, want {adapted}")
     tr = DiffusionTrainer(model, net, lr=1e-4, weight_dtype=torch.bfloat16,
@@ -2181,7 +2382,10 @@ def train(model, algo, sd, batch, want, steps, results, card, tag, path=None, ad
         f"includes warm-up); steady {min(steady):.4f}-{max(steady):.4f} s/step, peak memory "
         f"{peak:.2f} GiB ({card}; host-clocked smoke reading, not a benchmark)")
     results["training"][tag.strip("[]")] = {"s_per_step": secs, "losses": losses,
-                                            "peak_gib": peak, "gn_copies": copies}
+                                            "peak_gib": peak, "gn_copies": copies,
+                                            "launches_per_step": want}
+    if profile:
+        results["training"][tag.strip("[]")].update(step_profile(tr, batch, tag, steady, card))
     if after is not None:
         after(tr, net)
     trained = {k: v.clone() for k, v in net.state_dict().items()}
@@ -2189,6 +2393,24 @@ def train(model, algo, sd, batch, want, steps, results, card, tag, path=None, ad
     del tr, net, base, before
     torch.cuda.empty_cache()
     return trained
+
+
+def step_profile(tr, batch, tag, steady, card) -> dict:
+    """One more train step of ``tr`` under torch.profiler: its kernels'
+    summed device ms and their count, beside the fastest steady step's
+    host-clocked ms (to the device's end); the device's busy share of a
+    step is their ratio."""
+    dev_ms, kernels = kernel_totals(lambda: tr.train_step(batch), calls=1, warmup=0)
+    host_ms = min(steady) * 1e3
+    if dev_ms is None:
+        log(f"{tag} one profiled step: the profiler saw no device time (device ms not "
+            f"measured); host-clocked {host_ms:.2f} ms a step ({card})")
+        return {"host_ms_per_step": host_ms, "device_ms_per_step": None,
+                "kernels_per_step": None}
+    log(f"{tag} one profiled step: {kernels:.0f} kernels, device {dev_ms:.2f} ms; host-clocked "
+        f"{host_ms:.2f} ms a step (the fastest steady step): the device busy {dev_ms / host_ms:.1%}"
+        f" of it ({card})")
+    return {"host_ms_per_step": host_ms, "device_ms_per_step": dev_ms, "kernels_per_step": kernels}
 
 
 def sd15_batch():
@@ -2311,11 +2533,12 @@ def phase_dropout(model, sd, batch, results, card):
     torch.cuda.empty_cache()
 
 
-def phase_train_e2e(model, sd, cfg_cpu, tag, ctx_dim=768, added_dim=None):
+def phase_train_e2e(model, sd, cfg_cpu, tag, ctx_dim=768, added_dim=None, kinds=None):
     """One eps-MSE loss and every adapter gradient (LoKr or LoRA) at full width,
     batch 1, 64x64 latents: the card (bf16, kernels, factored backward)
     against the port on the CPU (fp32, plain versions), with the same noise
-    and timestep."""
+    and timestep. ``kinds``, if given, is the count of adapter modules by
+    class name that the network must hold."""
     import torch
     from lycoris_tpu_torch import create_lycoris_from_weights
     from lycoris_tpu_torch.trainer import DiffusionTrainer
@@ -2339,6 +2562,8 @@ def phase_train_e2e(model, sd, cfg_cpu, tag, ctx_dim=768, added_dim=None):
         return float(loss.detach()), grads
 
     net, _ = create_lycoris_from_weights(1.0, None, model, weights_sd=sd)
+    if kinds is not None and Counter(type(lyco).__name__ for lyco in net.loras) != kinds:
+        fail(f"{tag} adapter modules {dict(Counter(type(lyco).__name__ for lyco in net.loras))}")
     reset_counts()
     got_loss, got = loss_and_grads(model, net, torch.bfloat16, (lat, ctx, noise, t, added))
     check_no_pad_copies(tag)
@@ -2384,7 +2609,7 @@ def phase_train_e2e(model, sd, cfg_cpu, tag, ctx_dim=768, added_dim=None):
 
 
 # ---------------------------------------------------------------------------
-# phases 16, 19 and 20: adapter files, a trainer checkpoint, DoRA with
+# phases 16, 21 and 22: adapter files, a trainer checkpoint, DoRA with
 # max-norm, premerge
 # ---------------------------------------------------------------------------
 
@@ -2649,7 +2874,270 @@ def phase_sdxl_premerge(model, sd, batch, results, card):
 
 
 # ---------------------------------------------------------------------------
-# phases 22-24: the kohya front end and the TOML trainer
+# phases 17-18 and 23-25: the other algorithms, (IA)^3, GLoRA, DyLoRA and
+# Full on SD1.5, Diag-OFT, BOFT and LoRA with train_norm on SDXL and against
+# the CPU port
+# ---------------------------------------------------------------------------
+
+SD15_ALGO_STEPS = 2
+SDXL_ALGO_STEPS = 3
+OFT_CONSTRAINT = 1e-4
+BOFT_DIM = 16  # the least dim with a BOFT factorisation at SD widths (blocks of 10)
+
+
+def check_kinds(tag, net, want: str) -> None:
+    """Fail unless every adapter of ``net`` is a ``want`` module."""
+    kinds = {type(lyco).__name__ for lyco in net.loras}
+    if kinds != {want}:
+        fail(f"{tag} adapter modules {sorted(kinds)}, want {want}")
+
+
+def phase_sd15_algos(model, batch, results, card):
+    """(IA)^3 (the ``ia3`` preset over the attn-mlp targets), GLoRA, DyLoRA
+    (block_size 2) and Full at b8, 64x64, each with phase 9's checks for
+    ``SD15_ALGO_STEPS`` steps (the UNet's own launches: no adapter kernel,
+    factored 0) and one profiled step; Full's peak memory holds its fp32
+    deltas and their AdamW moments. Each network is loaded from its state
+    dict as a file would be, but DyLoRA's, whose files load as LoCon: it is
+    trained as built."""
+    import torch
+    from lycoris_tpu_torch.models.unet import sd15_config
+
+    dev = torch.device("cuda")
+    for algo, kw, seed, kind in (("ia3", {"preset": "ia3"}, 30, "IA3Module"),
+                                 ("glora", {}, 31, "GLoRAModule"),
+                                 ("dylora", {"block_size": 2}, 32, "DyLoraModule"),
+                                 ("full", {}, 33, "FullModule")):
+        tag = f"[train_{algo}]"
+        with phase(tag.strip("[]")):
+            want = checked_counts(sd15_config(), TRAIN_BATCH, 64, algo, True, False, SD15_STEP,
+                                  SD15_ADAPTED, SD15_FACTORED)
+            with torch.no_grad():
+                net = adapter_net(model, algo, dev, seed, **kw)
+            sd = None
+            if algo != "dylora":
+                sd, net = net.state_dict(), None
+            train(model, algo, sd, batch, want, SD15_ALGO_STEPS, results, card, tag,
+                  adapted=SD15_ADAPTED, net=net, profile=True,
+                  after=lambda tr, n, tag=tag, kind=kind: check_kinds(tag, n, kind))
+            del sd, net
+
+
+def phase_e2e_oft(model):
+    """Phase 14's card-against-CPU check (batch 1, SD1.5) for Diag-OFT
+    (dim 8, the constraint, rescaled), BOFT (dim 16) and LoRA with
+    ``train_norm``."""
+    import torch
+    from lycoris_tpu_torch.models.unet import sd15_config
+
+    dev = torch.device("cuda")
+    for name, algo, kw, seed, kinds in (
+            ("oft", "diag-oft", dict(constraint=OFT_CONSTRAINT, rescaled=True), 34,
+             {"DiagOFTModule": SD15_ADAPTED}),
+            ("boft", "boft", dict(linear_dim=BOFT_DIM), 35, {"ButterflyOFTModule": SD15_ADAPTED}),
+            ("norm", "lora", dict(train_norm=True), 36,
+             {"LoConModule": SD15_ADAPTED, "NormModule": SD15_NORM_ADAPTED - SD15_ADAPTED})):
+        with torch.no_grad():
+            sd = adapter_state_dict(model, algo, dev, seed, **kw)
+        phase_train_e2e(model, sd, sd15_config(torch.float32), f"[train_e2e_{name}]",
+                        kinds=kinds)
+        del sd
+        torch.cuda.empty_cache()
+
+
+def adapter_pass(net, tag, card) -> dict:
+    """The device ms and kernels of the adapters' own work: every module's
+    merged weight formed once without a gradient ("fwd"), and formed and
+    differentiated for a cotangent of ones ("fwd_bwd"). A step with
+    remat="transformer" forms each merged weight twice (the forward and the
+    recompute) and differentiates it once: about fwd + fwd_bwd."""
+    import torch
+
+    pairs = [(lyco, net.node_map[ln].weights()[0]) for ln, lyco in net.lora_map.items()]
+    params = [p for lyco, _ in pairs for p in lyco.parameters()]
+
+    def fwd():
+        with torch.no_grad():
+            for lyco, w in pairs:
+                lyco.get_merged_weight(w)
+
+    def fwd_bwd():
+        outs = [lyco.get_merged_weight(w)[0] for lyco, w in pairs]
+        torch.autograd.grad(outs, params, [torch.ones_like(o) for o in outs], allow_unused=True)
+
+    out = {}
+    for name, fn in (("fwd", fwd), ("fwd_bwd", fwd_bwd)):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        host = time.perf_counter() - t0
+        ms, kernels = kernel_totals(fn, calls=1, warmup=0)
+        out[name] = {"device_ms": ms, "kernels": kernels, "host_s": host}
+    f, fb = out["fwd"], out["fwd_bwd"]
+    if f["device_ms"] is not None:
+        log(f"{tag} the adapters' merged weights ({len(pairs)} modules, Cayley and rotation): "
+            f"formed {f['device_ms']:.2f} device ms in {f['kernels']:.0f} kernels "
+            f"(host-clocked {f['host_s'] * 1e3:.1f} ms); formed and differentiated "
+            f"{fb['device_ms']:.2f} device ms in {fb['kernels']:.0f} kernels (host-clocked "
+            f"{fb['host_s'] * 1e3:.1f} ms); a step's share about "
+            f"{f['device_ms'] + fb['device_ms']:.2f} device ms in "
+            f"{f['kernels'] + fb['kernels']:.0f} kernels ({card})")
+    return out
+
+
+def boft_forms(card, dev=None, shapes=(((1280, 1280), False), ((10240, 1280), False),
+                                      ((4096, 1280), True), ((4096, 10240), True))) -> dict:
+    """BOFT's two forms of the rotation (dim 16: blocks of 10), the Cayley
+    transform, the rotation and the backward to the blocks (fp32, as the
+    module runs them, less the checkpoint's replay): of a weight, features
+    on axis 0, at an SDXL attention weight (1280, 1280), where the shape rule
+    takes the dense Q, and the SDXL ff net_0 weight (10240, 1280), where it
+    takes the chain; and of the bypass route's outputs, features last, at
+    SDXL b4 activations of the 1280 level (B*T = 4 * 1024 rows) of an
+    attention projection (1280 features: dense) and of ff net_0 (10240:
+    chain). Device ms by torch.profiler, each form at each shape, and the
+    two forms' results against each other."""
+    import torch
+    from lycoris_tpu_torch.functional import boft
+    from lycoris_tpu_torch.functional.general import power2factorization
+
+    dev = dev or torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(44)
+    out = {}
+    for shape, last in shapes:
+        dim = shape[-1] if last else shape[0]
+        b, n = power2factorization(dim, BOFT_DIM)
+        m = (n - 1).bit_count() + 1
+        blocks = (torch.randn(m, n, b, b, generator=gen, device=dev) * ADAPTER_FILL_STD
+                  ).requires_grad_(True)
+        w = torch.randn(*shape, generator=gen, device=dev) * shape[1] ** -0.5
+        g = torch.randn(*shape, generator=gen, device=dev)
+        rule = "dense" if boft.use_dense(shape, dim, last) else "chain"
+        row = {"blocks": [m, n, b, b], "rule": rule, "features": "last" if last else "first"}
+        results = {}
+        for form in ("dense", "chain"):
+            def step(form=form):
+                # each form as ``functional.boft._rotate_impl`` runs it, no checkpoint
+                r = boft._scaled_r(blocks, None, 1.0)
+                if form == "dense":
+                    q = boft.dense_rotation(r)
+                    y = w @ q.T if last else q @ w
+                elif last:
+                    y = boft._chain(w.movedim(-1, 0), r).movedim(0, -1)
+                else:
+                    y = boft._chain(w, r)
+                return y.detach(), torch.autograd.grad(y, blocks, g)[0]
+
+            results[form] = step()
+            ms, kernels = kernel_totals(step, calls=3)
+            row[form] = {"device_ms": ms, "kernels": kernels}
+        err = max(rel_l2(results["dense"][k], results["chain"][k]) for k in (0, 1))
+        what = f"activations {shape} (features last)" if last else f"weight {shape}"
+        if not err <= 1e-4:
+            fail(f"[boft_forms] {what}: the dense and the chain forms differ by rel L2 {err:.3e}")
+        d, c = row["dense"]["device_ms"], row["chain"]["device_ms"]
+        if d is not None:
+            log(f"[boft_forms] {what}, blocks {tuple(row['blocks'])}, forward and "
+                f"backward: dense Q {d:.3f} ms ({row['dense']['kernels']:.0f} kernels), chain "
+                f"{c:.3f} ms ({row['chain']['kernels']:.0f} kernels); the shape rule takes "
+                f"{rule}; forms agree to rel L2 {err:.1e} ({card})")
+        out[("act " if last else "") + "x".join(map(str, shape))] = row
+        del blocks, w, g, results
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_sdxl_oft(model, batch, results, card, algo):
+    """Diag-OFT (dim 8) or BOFT (dim 16) on the attn-mlp targets of the
+    SDXL UNet at b4, 128x128, constraint 1e-4 and rescaled:
+    ``SDXL_ALGO_STEPS`` steps with phase 9's checks (the UNet's own
+    launches, factored 0) and one profiled step; then the adapters' own
+    work (:func:`adapter_pass`), and for BOFT its two forms at two shapes
+    (:func:`boft_forms`)."""
+    import torch
+    from lycoris_tpu_torch.models.unet import sdxl_config
+
+    dev = torch.device("cuda")
+    name = "oft" if algo == "diag-oft" else "boft"
+    tag = f"[train_sdxl_{name}]"
+    kind = "DiagOFTModule" if algo == "diag-oft" else "ButterflyOFTModule"
+    want = checked_counts(sdxl_config(), SDXL_BATCH, SDXL_HW, algo, True, True, SDXL_STEP,
+                          SDXL_ADAPTED, SDXL_FACTORED)
+    kw = dict(constraint=OFT_CONSTRAINT, rescaled=True)
+    if algo == "boft":
+        kw["linear_dim"] = BOFT_DIM
+    with torch.no_grad():
+        sd = adapter_state_dict(model, algo, dev, 40 if algo == "diag-oft" else 41, **kw)
+
+    def after(tr, net):
+        check_kinds(tag, net, kind)
+        results["training"][tag.strip("[]")]["adapter_pass"] = adapter_pass(net, tag, card)
+
+    train(model, algo, sd, batch, want, SDXL_ALGO_STEPS, results, card, tag, path="train_sdxl",
+          adapted=SDXL_ADAPTED, profile=True, after=after)
+    copies = results["training"][tag.strip("[]")]["gn_copies"]
+    if copies:
+        fail(f"{tag} {copies} GroupNorm inputs or cotangents were copied (a merged conv "
+             "weight read as channels-last makes cuDNN return a channels-last gradient)")
+    if algo == "boft":
+        results["training"][tag.strip("[]")]["forms"] = boft_forms(card)
+    del sd
+    torch.cuda.empty_cache()
+
+
+def phase_sdxl_norm(model, batch, results, card):
+    """LoRA (dim 8) with ``train_norm`` on the SDXL attn-mlp targets at b4:
+    the 722 LoRA layers and a Norm module on each of the 210 LayerNorms and
+    11 Transformer2DModel GroupNorms, ``SDXL_ALGO_STEPS`` steps with phase
+    9's checks, every norm backward on the dw/db side of its fast variant
+    (``bwd_wb_launches``), one profiled step; then the LayerNorm and
+    GroupNorm backwards with dw/db at the shapes of this step and of an
+    SD1.5 b8 train_norm step, against the plain versions and timed against
+    ``F.layer_norm``'s and ``F.group_norm``'s autograd backwards (the kernel
+    line's ``*_bwd_wb`` rows, the SD1.5 sums under "sd15")."""
+    import torch
+    from lycoris_tpu_torch.models.unet import sd15_config, sdxl_config
+
+    dev = torch.device("cuda")
+    tag = "[train_sdxl_norm]"
+    want = checked_counts(sdxl_config(), SDXL_BATCH, SDXL_HW, "lora", True, True,
+                          SDXL_STEP_NORM, SDXL_ADAPTED, SDXL_FACTORED, norm=True)
+    with torch.no_grad():
+        sd = adapter_state_dict(model, "lora", dev, 42, train_norm=True)
+
+    def after(tr, net):
+        kinds = Counter(type(lyco).__name__ for lyco in net.loras)
+        if kinds != {"LoConModule": SDXL_ADAPTED, "NormModule": SDXL_NORM_ADAPTED - SDXL_ADAPTED}:
+            fail(f"{tag} adapter modules {dict(kinds)}")
+
+    train(model, "lora", sd, batch, want, SDXL_ALGO_STEPS, results, card, tag,
+          path="train_sdxl_norm", adapted=SDXL_NORM_ADAPTED, profile=True, after=after)
+    del sd
+    torch.cuda.empty_cache()
+    ck = Checks(results, seed=43)
+    # the SD1.5 b8 train_norm step's shapes (no remat: one backward per norm)
+    checked_counts(sd15_config(), TRAIN_BATCH, 64, "lora", True, False, SD15_STEP_NORM,
+                   SD15_ADAPTED, SD15_FACTORED, norm=True)
+    for path, where, b, sh in (
+            ("sdxl", "SDXL b4", SDXL_BATCH, path_shapes(sdxl_config(), SDXL_BATCH, SDXL_HW)),
+            ("sd15", "SD1.5 b8", TRAIN_BATCH, path_shapes(sd15_config(), TRAIN_BATCH, 64))):
+        for (rows, c), n in sh["ln"].items():
+            ck.layer_norm_bwd_wb(rows, c, n, path)
+        for (c, s, act), n in sh["gn"].items():
+            if act is None:
+                ck.group_norm_bwd_wb(b, c, s, n, path)
+        for name, lib in (("layer_norm_bwd_wb", "F.layer_norm"),
+                          ("group_norm_bwd_wb", "F.group_norm")):
+            a = results[name][path]
+            log(f"[kernels] {name} per {where} train_norm step (rotating copies): "
+                f"{a['ms']:.3f} ms, {a['bound_ms'] / a['ms']:.1%} of its bound "
+                f"{a['bound_ms']:.3f} ms; plain {a['plain_ms']:.3f} ms; {lib}'s autograd "
+                f"backward for x, weight and bias {a['library_ms']:.3f} ms ({card})")
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phases 27-29: the kohya front end and the TOML trainer
 # ---------------------------------------------------------------------------
 
 
@@ -3149,7 +3637,7 @@ def main() -> int:
         sds = {"lokr": adapter_state_dict(model, "lokr", dev, seed=1),
                "loha": adapter_state_dict(model, "loha", dev, seed=2),
                "lora": adapter_state_dict(model, "lora", dev, seed=6)}
-        sd_conv = adapter_state_dict(model, "locon", dev, seed=7, preset=FULL_UNET_TARGETS)
+        sd_conv = adapter_state_dict(model, "locon", dev, seed=7, targets=FULL_UNET_TARGETS)
         sds_dora = {"loha": adapter_state_dict(model, "loha", dev, seed=10, dora=True),
                     "lokr": adapter_state_dict(model, "lokr", dev, seed=11, dora=True)}
     for algo, steps in (("lokr", 20), ("loha", 10), ("lora", 20)):
@@ -3189,6 +3677,9 @@ def main() -> int:
                             f"[train_e2e_dora_{algo}]")
     with phase("files"):
         phase_files(model, {"lokr": trained_lokr, "dora_loha": sds_dora["loha"]}, batch, card)
+    phase_sd15_algos(model, batch, results, card)
+    with phase("train_e2e_oft"):
+        phase_e2e_oft(model)
 
     # SDXL: the SD1.5 model freed first
     del model, sds, sds_dora, sd_conv, batch, trained_lokr
@@ -3215,6 +3706,11 @@ def main() -> int:
         phase_sdxl_dora_max_norm(model, sds["dora_loha"], batch, results, card)
     with phase("train_sdxl_premerge"):
         phase_sdxl_premerge(model, sds["lokr"], batch, results, card)
+    for algo, name in (("diag-oft", "oft"), ("boft", "boft")):
+        with phase(f"train_sdxl_{name}"):
+            phase_sdxl_oft(model, batch, results, card, algo)
+    with phase("train_sdxl_norm"):
+        phase_sdxl_norm(model, batch, results, card)
     del batch
     torch.cuda.empty_cache()
     for algo, tag in (("lokr", "[train_sdxl_e2e]"), ("lora", "[train_sdxl_e2e_lora]")):
@@ -3255,7 +3751,8 @@ def main() -> int:
         table.append({"name": name, "route": meta["route"], "source": meta["source"],
                       "replaces": meta["replaces"], "path": meta["path"],
                       "per": meta.get("per", PER_SDXL_STEP), "launches": r["launches"],
-                      "max_abs_err": r["max_abs_err"], **sums(r["sdxl"]), "sd15": sums(r["sd15"]),
+                      "max_abs_err": r["max_abs_err"], **sums(r["sdxl"]),
+                      "sd15": sums(r["sd15"]) if r["sd15"]["ms"] else None,
                       **extra})
     for row in table:
         if row["name"].startswith("flash"):

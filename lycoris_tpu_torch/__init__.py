@@ -1,9 +1,10 @@
 """lycoris_tpu_torch -- the PyTorch/CUDA port of lycoris_tpu.
 
 The port so far: the SD1.5/SDXL UNet (:mod:`.models.unet`, with whole-block
-checkpointing), LoRA/LoCon (the default), LoKr and LoHa adapters
-(:mod:`.modules`, with DoRA) targeted and
-applied by :class:`LycorisNetwork`, which reads and writes adapter files
+checkpointing), the adapters of all ten algorithms (:mod:`.modules`:
+LoRA/LoCon, the default, LoHa and LoKr, with DoRA; Diag-OFT, BOFT, (IA)^3,
+GLoRA, DyLoRA, Full, and Norm for ``train_norm``; the parametrize API)
+targeted and applied by :class:`LycorisNetwork`, which reads and writes adapter files
 (``.safetensors`` by :mod:`.utils.safetensors_io`, or ``torch.save``),
 DDIM sampling with CFG (:mod:`.sampler`), and adapter training by
 :class:`DiffusionTrainer` (:mod:`.trainer`: the factored merged backward of
@@ -23,9 +24,8 @@ __version__ = "0.1.0"
 from . import functional, modules
 from .graph import ModelGraph
 from .logging import logger
-from .modules.locon import LoConModule
-from .modules.loha import LohaModule
-from .modules.lokr import LokrModule
+from .modules import (ButterflyOFTModule, DiagOFTModule, DyLoraModule, FullModule, GLoRAModule,
+                      IA3Module, LoConModule, LohaModule, LokrModule, NormModule)
 from .trainer import DiffusionTrainer
 from .wrapper import LycorisNetwork, create_lycoris, create_lycoris_from_weights
 
@@ -41,4 +41,11 @@ __all__ = [
     "LoConModule",
     "LohaModule",
     "LokrModule",
+    "IA3Module",
+    "FullModule",
+    "NormModule",
+    "DiagOFTModule",
+    "ButterflyOFTModule",
+    "GLoRAModule",
+    "DyLoraModule",
 ]

@@ -11,7 +11,8 @@
   var = E[x^2] - mean^2 in fp32, gamma/beta folded into one FMA), not
   ``F.group_norm``; ``geglu_mul`` (the tanh-approximated gelu that
   ``jax.nn.gelu`` defaults to) has its backward in the GEGLU kernel
-  (``ops/geglu.py``).
+  (``ops/geglu.py``); ``rms_norm`` is plain PyTorch, as it is plain XLA in
+  the JAX package.
 """
 
 from __future__ import annotations
@@ -187,6 +188,22 @@ def layer_norm(x, normalized_shape, weight=None, bias=None, eps: float = 1e-5):
     mean = x.mean(dim=dims, keepdim=True)
     var = x.var(dim=dims, keepdim=True, unbiased=False)
     y = (x - mean) * torch.rsqrt(var + eps)
+    if weight is not None:
+        y = y * weight
+    if bias is not None:
+        y = y + bias
+    return y
+
+
+def rms_norm(x, normalized_shape, weight=None, bias=None, eps: float = 1e-6):
+    """RMSNorm over the trailing dims (torch ``nn.RMSNorm``, the reference's
+    duck-typed ``_norm`` modules): x / sqrt(mean(x^2) + eps), then
+    ``weight`` and ``bias``. With ``weight=dw`` it is the Norm algorithm's
+    delta ``org_norm(x) * dw`` (JAX functional/general.py:382-400)."""
+    if isinstance(normalized_shape, int):
+        normalized_shape = (normalized_shape,)
+    dims = tuple(range(x.ndim - len(normalized_shape), x.ndim))
+    y = x * torch.rsqrt((x * x).mean(dim=dims, keepdim=True) + eps)
     if weight is not None:
         y = y * weight
     if bias is not None:

@@ -33,6 +33,18 @@ def layer_info_for(mod: nn.Module, name: str = "") -> LayerInfo | None:
         li = LayerInfo.layer_norm(tuple(mod.normalized_shape), mod.eps, mod.bias is not None)
     elif isinstance(mod, nn.GroupNorm):
         li = LayerInfo.group_norm(mod.num_groups, mod.num_channels, mod.eps, mod.bias is not None)
+    elif isinstance(mod, nn.RMSNorm):
+        li = LayerInfo.rms_norm(tuple(mod.normalized_shape),
+                                mod.eps if mod.eps is not None else 1e-6,
+                                getattr(mod, "bias", None) is not None)
+    elif (getattr(mod, "weight", None) is not None and callable(getattr(mod, "_norm", None))
+          and getattr(mod.weight, "ndim", 0) >= 1):
+        # the reference's duck typing (norms.py:37-44): a ``weight`` and a
+        # stats-only ``_norm`` make an RMSNorm-like (JAX graph.py:453-470)
+        li = LayerInfo.rms_norm(
+            tuple(mod.weight.shape),
+            float(getattr(mod, "eps", getattr(mod, "variance_epsilon", 1e-6))),
+            getattr(mod, "bias", None) is not None)
     if li is None:
         return None
     return dataclasses.replace(li, name=name)

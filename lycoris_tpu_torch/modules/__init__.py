@@ -1,62 +1,26 @@
 """Adapter module registry (counterpart of ``lycoris_tpu/modules/__init__.py``).
 
 ``MODULE_LIST`` keeps the JAX package's detection order (first
-``algo_check`` hit wins). LoRA/LoCon, LoKr and LoHa are ported; every
-other algorithm is detected by its keys and then raises
-``NotImplementedError`` naming itself, so a file of an unported kind fails
-loudly instead of loading without its adapters.
+``algo_check`` hit wins): LoRA/LoCon, LoHa, (IA)^3, LoKr, Full, Norm,
+Diag-OFT and BOFT (told apart by the rank of ``oft_blocks``), GLoRA, and
+DyLoRA, which has no keys of its own (its files load as LoCon).
 """
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
-from .base import LayerInfo, LycorisBaseModule
+from .base import LayerInfo, LycorisBaseModule, LycorisParametrization
+from .boft import ButterflyOFTModule
+from .diag_oft import DiagOFTModule
+from .dylora import DyLoraModule
+from .full import FullModule
+from .glora import GLoRAModule
+from .ia3 import IA3Module
 from .locon import LoConModule
 from .loha import LohaModule
 from .lokr import LokrModule
-
-
-class UnportedModule:
-    """Detection stub for an algorithm the port does not have yet."""
-
-    name = "unported"
-    weight_list_det: list = []
-    det_ndim: int | None = None  # OFT kinds share a key and differ by its rank
-
-    @classmethod
-    def algo_check(cls, state_dict, lora_name) -> bool:
-        for k in cls.weight_list_det:
-            key = f"{lora_name}.{k}"
-            if key in state_dict:
-                if cls.det_ndim is None or np.ndim(state_dict[key]) == cls.det_ndim:
-                    return True
-        return False
-
-    @classmethod
-    def extract_state_dict(cls, state_dict, lora_name) -> list:
-        return []
-
-    @classmethod
-    def make_module_from_state_dict(cls, lora_name, layer, *weights):
-        raise NotImplementedError(
-            f"algorithm {cls.name!r} ({lora_name}) is not ported to lycoris_tpu_torch yet"
-        )
-
-
-def _unported(name: str, det: list, ndim: int | None = None):
-    return type(f"Unported_{name}", (UnportedModule,),
-                {"name": name, "weight_list_det": det, "det_ndim": ndim})
-
-
-IA3Module = _unported("ia3", ["on_input"])
-FullModule = _unported("full", ["diff"])
-NormModule = _unported("norm", ["w_norm"])
-DiagOFTModule = _unported("diag-oft", ["oft_blocks"], 3)
-ButterflyOFTModule = _unported("boft", ["oft_blocks"], 4)
-GLoRAModule = _unported("glora", ["a1.weight"])
-DyLoraModule = _unported("dylora", [])
+from .norms import NormModule
 
 # detection order matters: first algo_check hit wins
 MODULE_LIST = [
@@ -85,9 +49,11 @@ def make_module(module_class, params, lora_name, layer: LayerInfo, dtype=torch.f
                 device=None):
     """Instantiate from extracted params, floating tensors cast to ``dtype``
     (fp32 by default, as the reference upcasts fp16 files on load), on
-    ``device`` (by default where the loaded tensors are).
-    Raises ``NotImplementedError`` for an algorithm the port does not have."""
+    ``device`` (by default where the loaded tensors are); None for a class
+    that cannot be made from a state dict (DyLoRA), as in the JAX package."""
     module = module_class.make_module_from_state_dict(lora_name, layer, *params)
+    if module is None:
+        return None
     if device is None:
         device = next((p.device for p in params if isinstance(p, torch.Tensor)), None)
     if device is not None:
@@ -102,9 +68,17 @@ def make_module(module_class, params, lora_name, layer: LayerInfo, dtype=torch.f
 __all__ = [
     "LayerInfo",
     "LycorisBaseModule",
+    "LycorisParametrization",
     "LoConModule",
     "LohaModule",
     "LokrModule",
+    "IA3Module",
+    "FullModule",
+    "NormModule",
+    "DiagOFTModule",
+    "ButterflyOFTModule",
+    "GLoRAModule",
+    "DyLoraModule",
     "MODULE_LIST",
     "get_module",
     "make_module",

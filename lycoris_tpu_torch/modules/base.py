@@ -11,8 +11,13 @@ In training (``train=True`` with a ``seed``) the forward applies the
 dropout trio as the JAX modules do: ``rank_dropout`` masks rows of the
 rebuilt dW (or LoCon's rank in bypass mode), ``dropout`` drops elements of
 the bypass output, ``module_dropout`` returns the base output alone. With
-``train`` off the forward is the inference forward. The parametrize API and
-max-norm are not ported yet.
+``train`` off the forward is the inference forward.
+
+The parametrize API (JAX modules/base.py:388-416): :meth:`LycorisBaseModule.parametrize`
+builds an adapter over a bare weight tensor, and :meth:`~LycorisBaseModule.parametrization`
+gives the ``nn.Module`` whose ``forward(W)`` is the adapted weight, for
+``torch.nn.utils.parametrize.register_parametrization`` on a plain
+``nn.Linear``/``nn.Conv*d`` (reference base.py:199-234).
 
 Random draws. The JAX package folds a PRNG key with a hash of the module's
 name and with a per-use salt (``0x72616E6B`` rank, ``0x64726F70``
@@ -36,7 +41,7 @@ import torch
 from torch import nn
 
 from ..functional import general
-from ..functional.general import convnd, in_norm, layer_norm, linear, out_norm
+from ..functional.general import convnd, in_norm, layer_norm, linear, out_norm, rms_norm
 
 
 def _hashable_kw(kw: dict) -> tuple:
@@ -48,7 +53,7 @@ class LayerInfo:
     """Static description of a wrapped layer: kind, torch weight shape and
     the op's keyword arguments (reference modules/base.py:88-158)."""
 
-    module_type: str  # linear | conv1d | conv2d | conv3d | layernorm | groupnorm
+    module_type: str  # linear | conv1d | conv2d | conv3d | layernorm | groupnorm | rmsnorm
     shape: tuple  # torch weight shape
     kw_dict: tuple = ()
     has_bias: bool = False
@@ -87,12 +92,30 @@ class LayerInfo:
         return LayerInfo("layernorm", tuple(normalized_shape), kw, bias, name)
 
     @staticmethod
+    def rms_norm(normalized_shape, eps: float = 1e-6, bias: bool = False,
+                 name: str = "") -> "LayerInfo":
+        """torch ``nn.RMSNorm`` and the duck-typed modules with a ``weight``
+        and a stats-only ``_norm`` (JAX modules/base.py:106-113)."""
+        if isinstance(normalized_shape, int):
+            normalized_shape = (normalized_shape,)
+        kw = _hashable_kw(dict(normalized_shape=tuple(normalized_shape), eps=eps))
+        return LayerInfo("rmsnorm", tuple(normalized_shape), kw, bias, name)
+
+    @staticmethod
     def group_norm(num_groups: int, num_channels: int, eps: float = 1e-5, bias: bool = True,
                    name: str = "", act: str | None = None) -> "LayerInfo":
+        """``act``: an activation folded into the layer (``models/layers.py``
+        GroupNorm(act=...)), applied after the norm unless ``op`` is asked
+        for the act-less output."""
         kw = dict(num_groups=num_groups, eps=eps)
         if act is not None:
             kw["act"] = act
         return LayerInfo("groupnorm", (num_channels,), _hashable_kw(kw), bias, name)
+
+    @property
+    def act(self) -> str | None:
+        """The activation folded into a GroupNorm layer, else None."""
+        return self.kw.get("act") if self.module_type == "groupnorm" else None
 
     def op(self, x, weight, bias=None, with_act: bool = True):
         t = self.module_type
@@ -103,6 +126,10 @@ class LayerInfo:
         if t == "layernorm":
             kw = self.kw
             return layer_norm(x, kw["normalized_shape"], weight, bias, kw["eps"])
+        if t == "rmsnorm":
+            # op(x, dw, db) == org_norm(x) * dw + db, the Norm delta
+            kw = self.kw
+            return rms_norm(x, kw["normalized_shape"], weight, bias, kw["eps"])
         if t == "groupnorm":
             kw = self.kw
             return general.group_norm_act(
@@ -419,3 +446,47 @@ class LycorisBaseModule(nn.Module):
                 new_weight = org_weight + diff * multiplier
             full = base + self.op(x, (new_weight - org_weight).to(x.dtype))
         return self._module_dropout_mix(seed, train, base, full)
+
+    # -- parametrize API --------------------------------------------------------
+    @classmethod
+    def parametrize(cls, org_param, *args, generator=None, **kwargs):
+        """An adapter of this class over the bare weight ``org_param`` (2-d:
+        linear, 3-5-d: conv), never in bypass mode, on its device unless
+        ``device`` is given. Full cannot parametrize (it holds a delta of
+        the layer's bias too)."""
+        from .full import FullModule
+
+        if cls is FullModule:
+            raise RuntimeError("FullModule cannot be used for parametrize.")
+        shape = tuple(org_param.shape)
+        if len(shape) == 2:
+            li = LayerInfo.linear(shape[0], shape[1], bias=False)
+        elif len(shape) in (3, 4, 5):
+            li = LayerInfo.conv(len(shape) - 2, shape[0], shape[1], shape[2:], bias=False)
+        else:
+            raise ValueError(f"cannot parametrize a {len(shape)}-d parameter")
+        kwargs["bypass_mode"] = False
+        kwargs.setdefault("device", org_param.device)
+        return cls("", li, *args, generator=generator, org_weight=org_param.detach(), **kwargs)
+
+    def parametrize_forward(self, org_param, multiplier=None):
+        """The adapted value of the parameter ``org_param``, in its dtype."""
+        multiplier = self.multiplier if multiplier is None else multiplier
+        w, _ = self.get_merged_weight(org_param, None, multiplier=multiplier)
+        return w.to(org_param.dtype)
+
+    def parametrization(self) -> "LycorisParametrization":
+        """The module to register with ``register_parametrization``."""
+        return LycorisParametrization(self)
+
+
+class LycorisParametrization(nn.Module):
+    """``forward(W)`` = ``lyco.parametrize_forward(W)``; the adapter is a
+    submodule, so its parameters belong to the parametrized layer."""
+
+    def __init__(self, lyco: LycorisBaseModule):
+        super().__init__()
+        self.lyco = lyco
+
+    def forward(self, weight):
+        return self.lyco.parametrize_forward(weight)

@@ -52,6 +52,7 @@ generic_launches = 0  # and of the generic one (three kernels)
 bwd_launches = 0  # backward calls, likewise
 bwd_fast_launches = 0
 bwd_generic_launches = 0
+bwd_wb_launches = 0  # of the backward calls, those that also formed dgamma and dbeta
 copies = 0  # inputs the wrappers had to make contiguous (NCHW) first
 
 ACTS = (None, "silu")
@@ -336,8 +337,11 @@ def group_norm_bwd(x, dh, num_groups: int, weight, bias, mean, rstd, act=None,
     n = x.shape[0]
     if mean.shape != (n, num_groups) or rstd.shape != (n, num_groups):
         raise ValueError(f"group_norm_bwd: mean/rstd {tuple(mean.shape)} for ({n}, {num_groups})")
+    global bwd_wb_launches
     fn = bwd_fast if variant(x, num_groups, dh) == "fast" else bwd_generic
-    return fn(x, dh, num_groups, weight, bias, mean, rstd, act, want_wb)
+    out = fn(x, dh, num_groups, weight, bias, mean, rstd, act, want_wb)
+    bwd_wb_launches += int(want_wb)
+    return out
 
 
 def _wb_outputs(c, dev, want_wb):

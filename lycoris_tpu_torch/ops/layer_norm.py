@@ -33,6 +33,7 @@ fwd_generic_launches = 0  # and of the generic one
 bwd_launches = 0  # backward kernel launches, and of each variant, likewise
 bwd_vec_launches = 0
 bwd_generic_launches = 0
+bwd_wb_launches = 0  # of the backward's launches, those that also formed dw and db
 
 _MAX_PARTS = 4 * 132  # dw/db partial rows: four blocks per SM of an H100
 VECS = 5  # 16-byte vectors of x (and of dy) a lane of the vectorised variant holds
@@ -152,7 +153,7 @@ def layer_norm_bwd(x, weight, dy, eps: float, want_wb: bool = True):
     (dx, None, None) when ``want_wb`` is False (frozen weight and bias).
     The vectorised variant where :func:`vec_lanes` allows it and the
     tensors are 16-byte aligned, else the generic one."""
-    global bwd_launches, bwd_vec_launches, bwd_generic_launches
+    global bwd_launches, bwd_vec_launches, bwd_generic_launches, bwd_wb_launches
     if x.device.type != "cuda":
         raise RuntimeError(f"layer_norm_bwd: no kernel for device {x.device}")
     dy = dy.contiguous()
@@ -181,6 +182,7 @@ def layer_norm_bwd(x, weight, dy, eps: float, want_wb: bool = True):
     )
     _build.check(rc, "lyc_ln_bwd")
     bwd_launches += 1
+    bwd_wb_launches += int(want_wb)
     if lanes:
         bwd_vec_launches += 1
     else:

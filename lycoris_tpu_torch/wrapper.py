@@ -4,7 +4,10 @@ of ``lycoris_tpu/wrapper.py``; reference lycoris/wrapper.py:64-648).
 Targeting is the JAX package's: TARGET_REPLACE_MODULE class matching with
 recursion, TARGET_REPLACE_NAME / NAME_ALGO_MAP regex-or-fnmatch matching,
 MODULE_ALGO_MAP per-class overrides, exclusion first, the same
-``lora_name`` for every layer.
+``lora_name`` for every layer. Every ``algo=`` of the JAX package builds
+(``network_module_dict``), and with ``train_norm`` each targeted layer
+whose class name holds "Norm" gets a :class:`~.modules.norms.NormModule`
+(JAX wrapper.py:388-397).
 
 Lifecycle follows the reference LyCORIS: :meth:`LycorisNetwork.apply_to`
 puts an adapted forward in place of each targeted layer's ``forward`` and
@@ -55,11 +58,10 @@ from .config import PRESET
 from .functional import merged as fm
 from .graph import ModelGraph
 from .logging import logger
-from .modules import get_module, make_module
+from .modules import (ButterflyOFTModule, DiagOFTModule, DyLoraModule, FullModule, GLoRAModule,
+                      IA3Module, LoConModule, LohaModule, LokrModule, NormModule, get_module,
+                      make_module)
 from .modules.base import fold_in
-from .modules.locon import LoConModule
-from .modules.loha import LohaModule
-from .modules.lokr import LokrModule
 from .utils import safetensors_io, str_bool
 from .utils.preset import read_preset
 
@@ -82,10 +84,14 @@ network_module_dict = {
     "lora": LoConModule,
     "locon": LoConModule,
     "loha": LohaModule,
+    "dylora": DyLoraModule,
+    "glora": GLoRAModule,
     "lokr": LokrModule,
+    "ia3": IA3Module,
+    "full": FullModule,
+    "diag-oft": DiagOFTModule,
+    "boft": ButterflyOFTModule,
 }
-# algorithms of the JAX package that the port does not have yet
-UNPORTED_ALGOS = ("dylora", "glora", "full", "ia3", "diag-oft", "boft")
 
 deprecated_arg_dict = {
     "disable_conv_cp": "use_tucker",
@@ -98,8 +104,6 @@ deprecated_arg_dict = {
 def _module_class(algo: str):
     cls = network_module_dict.get(algo)
     if cls is None:
-        if algo in UNPORTED_ALGOS:
-            raise NotImplementedError(f"algorithm {algo!r} is not ported to lycoris_tpu_torch yet")
         raise ValueError(f"unknown algorithm {algo!r}")
     return cls
 
@@ -164,11 +168,15 @@ def create_lycoris(module, multiplier=1.0, linear_dim=4, linear_alpha=1, **kwarg
         train_norm=str_bool(kwargs.get("train_norm", False)),
         decompose_both=kwargs.get("decompose_both", False),
         factor=kwargs.get("factor", -1),
+        block_size=int(kwargs.get("block_size", 4) or 4),
+        constraint=float(kwargs.get("constraint", 0) or 0),
+        rescaled=str_bool(kwargs.get("rescaled", False)),
         weight_decompose=str_bool(kwargs.get("dora_wd", False)),
         wd_on_out=str_bool(kwargs.get("wd_on_output", True)),
         full_matrix=str_bool(kwargs.get("full_matrix", False)),
         bypass_mode=str_bool(kwargs.get("bypass_mode", False)),
         unbalanced_factorization=str_bool(kwargs.get("unbalanced_factorization", False)),
+        train_on_input=str_bool(kwargs.get("train_on_input", False)),
         seed=int(kwargs.get("seed", 0)),
         device=kwargs.get("device"),
         dtype=kwargs.get("dtype", torch.float32),
@@ -208,6 +216,8 @@ def create_lycoris_from_weights(multiplier, file, module, weights_sd=None, lora_
             continue
         device = kwargs.get("device") or node.module.weight.device
         mod = make_module(lyco_type, params, lora_name, node.layer_info, device=device)
+        if mod is None:
+            continue
         mod.multiplier = multiplier
         loras.append(mod)
         network.lora_map[lora_name] = mod
@@ -347,7 +357,8 @@ class LycorisNetwork(nn.Module):
             if li is None:
                 return None
             if train_norm and "Norm" in node.class_name:
-                raise NotImplementedError("train_norm (the Norm algorithm) is not ported yet")
+                return NormModule(lora_name, li, self.multiplier, self.rank_dropout,
+                                  self.module_dropout, device=device, dtype=dtype, **cfg)
             if li.is_norm:
                 return None
             if li.module_type == "linear" and lora_dim > 0:
@@ -516,11 +527,12 @@ class LycorisNetwork(nn.Module):
         not a linear layer, below the ``worth_factoring`` threshold, or an
         adapter without a factored cotangent (LoHa; LoRA/LoCon and LoKr
         decline convolutions, tucker and rank dropout)."""
-        out_dim, in_dim = lyco.shape[0], lyco.shape[1]
         fns_of = getattr(lyco, "factored_merged_fns", None)
         if (fns_of is None or not torch.is_grad_enabled() or lyco.module_type != "linear"
-                or not any(p.requires_grad for p in lyco.parameters())
-                or not fm.worth_factoring(out_dim, in_dim, fm.FACTORED_MIN)):
+                or not any(p.requires_grad for p in lyco.parameters())):
+            return None
+        out_dim, in_dim = lyco.shape[0], lyco.shape[1]
+        if not fm.worth_factoring(out_dim, in_dim, fm.FACTORED_MIN):
             return None
         fns = fns_of(mult)
         if fns is None:

@@ -6,7 +6,12 @@ same weights in fp32 to 1e-5: LoRA (linear layers), LoCon (linear, a 3x3
 and a 1x1 conv), LoKr and LoHa, each without DoRA and with DoRA on the
 output and on the input side. Then ``save_weights``' keys, dtypes and
 metadata, ``load_weights`` into an existing network, and where
-``create_lycoris_from_weights(file=...)`` puts the adapters.
+``create_lycoris_from_weights(file=...)`` puts the adapters. The other
+algorithms cross too, weights and biases merged to 1e-5: Diag-OFT and BOFT
+(with the rescale and the constraint), (IA)^3 on the output and on the
+input (``on_input``), GLoRA, Full (its bias delta), DyLoRA (whose files
+load as LoCon in both packages) and LoRA with ``train_norm`` on a model
+that also has a LayerNorm and a GroupNorm.
 
 Both packages wrap the same small torch model (two linear layers, a 3x3 and
 a 1x1 conv): the JAX package through ``ModelGraph.from_torch``, the port
@@ -51,9 +56,16 @@ class Tiny(nn.Module):
         self.pw = nn.Conv2d(32, 32, 1)
 
 
-def _model():
+class TinyNorm(Tiny):
+    def __init__(self):
+        super().__init__()
+        self.ln = nn.LayerNorm(32)
+        self.gn = nn.GroupNorm(4, 32)
+
+
+def _model(cls=Tiny):
     torch.manual_seed(0)
-    return Tiny()
+    return cls()
 
 
 def _net_kw(algo, dora):
@@ -258,3 +270,92 @@ def test_create_from_file_places_adapters(tmp_path):
                for lyco in net.loras for t in lyco.params.values())
     net, _ = tl.create_lycoris_from_weights(1.0, file, model, device="meta")
     assert all(t.device.type == "meta" for lyco in net.loras for t in lyco.params.values())
+
+
+# ---------------------------------------------------------------------------
+# the other algorithms across the packages
+# ---------------------------------------------------------------------------
+
+# case -> (create_lycoris kwargs, model class, adapted layers)
+OTHER = {
+    "diag-oft": (dict(algo="diag-oft", constraint=1e-2, rescaled=True), Tiny, None),
+    "boft": (dict(algo="boft", rescaled=True), Tiny, None),
+    "ia3": (dict(algo="ia3"), Tiny, None),
+    "ia3-input": (dict(algo="ia3", train_on_input=True), Tiny, None),
+    "glora": (dict(algo="glora"), Tiny, None),
+    "full": (dict(algo="full"), Tiny, None),
+    "dylora": (dict(algo="dylora", block_size=2), Tiny, None),
+    "train_norm": (dict(algo="lora", train_norm=True), TinyNorm,
+                   {"fc1", "fc2", "conv", "pw", "ln", "gn"}),
+}
+
+
+def _other_net(pkg, model, case, seed=0):
+    kw = dict(OTHER[case][0], linear_dim=4, linear_alpha=2.0, conv_dim=4, conv_alpha=2.0)
+    if pkg is jl:
+        net = jl.create_lycoris(jl.ModelGraph.from_torch(model), 1.0, rng=jax.random.key(seed),
+                                **kw)
+        rng = np.random.default_rng(seed)
+        tree = net.params_tree()
+        for ln, p in tree.items():
+            for k in sorted(p):
+                if k in net.lora_map[ln].trainable:
+                    p[k] = p[k] + jnp.asarray(
+                        rng.standard_normal(p[k].shape).astype(np.float32) * 0.1)
+        net.set_params_tree(tree)
+        return net
+    net = tl.create_lycoris(model, 1.0, seed=seed, **kw)
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in net.parameters():
+            p.add_(torch.randn(p.shape, generator=gen) * 0.1)
+    return net
+
+
+def _merged_params(pkg, model, file) -> tuple:
+    """({layer name: (merged weight, merged bias)}, {lora name: module class
+    name}) of ``pkg``'s load of ``file``."""
+    if pkg is jl:
+        net, _ = jl.create_lycoris_from_weights(1.0, file, jl.ModelGraph.from_torch(model))
+        merged = net.merge_to(1.0)
+        out = {n.name: tuple(None if k not in merged[n.name] else np.asarray(merged[n.name][k])
+                             for k in ("weight", "bias")) for n in net.node_map.values()}
+    else:
+        m = copy.deepcopy(model)
+        net, _ = tl.create_lycoris_from_weights(1.0, file, m)
+        net.merge_to(1.0)
+        out = {n.name: tuple(None if getattr(n.module, k, None) is None else
+                             getattr(n.module, k).detach().numpy() for k in ("weight", "bias"))
+               for n in net.node_map.values()}
+    return out, {ln: type(lyco).__name__ for ln, lyco in net.lora_map.items()}
+
+
+@pytest.mark.parametrize("case", list(OTHER))
+@pytest.mark.parametrize("saver", ["jax", "port"])
+def test_other_algorithm_files_cross(tmp_path, case, saver):
+    """A file of each other algorithm that one package saves (.safetensors
+    fp32, .pt fp16) loads in both as the same module kinds (DyLoRA's as
+    LoCon) and merges to the same weights and biases; the file's merge moves
+    the layers."""
+    _, cls, layers = OTHER[case]
+    model = _model(cls)
+    net = _other_net(jl if saver == "jax" else tl, model, case)
+    for name, dtype in (("fp32.safetensors", None),
+                        ("fp16.pt", np.float16 if saver == "jax" else torch.float16)):
+        file = str(tmp_path / name)
+        net.save_weights(file, dtype=dtype)
+        (got, got_kinds), (want, want_kinds) = (_merged_params(pkg, model, file)
+                                                for pkg in (tl, jl))
+        assert got_kinds == want_kinds
+        if case == "dylora":
+            assert set(got_kinds.values()) == {"LoConModule"}
+        assert set(got) == set(want) == (layers or _layers("locon"))
+        moved = 0.0
+        for layer in want:
+            org = getattr(model, layer)
+            for got_t, want_t, base in zip(got[layer], want[layer], (org.weight, org.bias)):
+                assert (got_t is None) == (want_t is None)
+                if want_t is not None:
+                    np.testing.assert_allclose(got_t, want_t, err_msg=f"{file} {layer}", **TOL)
+                    moved = max(moved, float(np.abs(want_t - base.detach().numpy()).max()))
+        assert moved > 1e-3

@@ -828,3 +828,45 @@ def test_cuda_grads_flow_through_layer_norm(cuda):
     (y * y).sum().backward()
     assert tln.bwd_launches == n + 1
     assert x.grad is not None and w.grad is not None and bool(torch.isfinite(x.grad).all())
+
+
+@pytest.mark.cuda
+def test_cuda_norm_bwd_with_dw_db_through_the_functions(cuda):
+    """The train_norm route: the LayerNorm and GroupNorm Functions at an
+    SDXL b4 path shape (bf16, LayerNorm (4 x 1024, 1280), the act-free
+    GroupNorm of a Transformer2DModel (4, 640, 64, 64)) with a weight and a
+    bias that need gradients take the dw/db side of the fast variants
+    (``bwd_wb_launches``), and dx, dw and db match autograd through the
+    plain forwards on the same inputs."""
+    g = torch.Generator(device=cuda).manual_seed(21)
+    dt = torch.bfloat16
+    for kind in ("ln", "gn"):
+        if kind == "ln":
+            x = torch.randn(4 * 1024, 1280, device=cuda, generator=g).to(dt)
+            c = 1280
+        else:
+            x = torch.randn(4, 640, 64, 64, device=cuda, generator=g).to(dt)
+            c = 640
+        w0 = (torch.randn(c, device=cuda, generator=g) * 0.1 + 1).to(dt)
+        b0 = (torch.randn(c, device=cuda, generator=g) * 0.1).to(dt)
+        dy = torch.randn(x.shape, device=cuda, generator=g).to(dt)
+        grads = []
+        for plain in (False, True):
+            xx = x.clone().requires_grad_()
+            w, b = w0.clone().requires_grad_(), b0.clone().requires_grad_()
+            if kind == "ln":
+                n = (tln.bwd_wb_launches, tln.bwd_vec_launches)
+                y = (tln.layer_norm_plain(xx, w, b, 1e-5) if plain
+                     else tln.layer_norm(xx, w, b, 1e-5))
+            else:
+                n = (tgn.bwd_wb_launches, tgn.bwd_fast_launches)
+                y = (tgn.group_norm_plain(xx, 32, w, b, 1e-5, None) if plain
+                     else tgn.group_norm_act(xx, 32, w, b, 1e-5))
+            y.backward(dy)
+            if not plain:
+                ops = tln if kind == "ln" else tgn
+                fast = tln.bwd_vec_launches if kind == "ln" else tgn.bwd_fast_launches
+                assert (ops.bwd_wb_launches - n[0], fast - n[1]) == (1, 1), kind
+            grads.append((xx.grad, w.grad, b.grad))
+        for got, want in zip(*grads):
+            _check(got, want, dt)

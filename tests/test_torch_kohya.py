@@ -7,7 +7,10 @@ tensor shapes; LoRA+ groups by names and lr; network_args string coercion;
 ``sshs_model_hash`` against ``precalculate_safetensors_hashes``; kohya files
 saved by one package and loaded by the other, ``merge_to`` agreeing on
 every tree (fp32, 1e-5). The tests of ``tests/test_kohya.py``, held to the
-JAX package.
+JAX package. Each other ``algo=`` (DyLoRA, GLoRA, Full, (IA)^3 with its
+preset, Diag-OFT, BOFT) and LoRA with ``train_norm`` builds the JAX
+network's adapters, trains a step on the UNet, and crosses files both ways
+with ``merge_to`` agreeing on every tree.
 """
 
 from collections import Counter
@@ -319,3 +322,58 @@ def test_live_adapters_equal_merge_to(jax_models):
         sub = jnet.sub_networks[f"lora_te{i + 1}"]
         want = sub(tvars, jnp.asarray(ids, jnp.int32), model=te_model)
         np.testing.assert_allclose(live[i].numpy(), np.asarray(want), **TOL)
+
+
+OTHER_ALGOS = [("dylora", dict(block_size=2)), ("glora", {}), ("full", {}), ("ia3", {}),
+               ("diag-oft", dict(constraint=1e-3, rescaled=True)), ("boft", {}),
+               ("lora", dict(train_norm=True))]
+OTHER_IDS = ["dylora", "glora", "full", "ia3", "diag-oft", "boft", "train_norm"]
+
+
+@pytest.mark.parametrize("algo,kw", OTHER_ALGOS, ids=OTHER_IDS)
+def test_create_network_other_algorithms(jax_models, tmp_path, algo, kw):
+    """``create_network(algo=...)`` over two CLIPs and the UNet: the JAX
+    network's adapters, module kinds and shapes; one trainer step of the
+    UNet's sub-network (finite loss, every UNet adapter tensor moved); its
+    file loads in the JAX package and a JAX file in the port (DyLoRA's as
+    LoCon), ``merge_to`` agreeing on every tree."""
+    from lycoris_tpu_torch.trainer import DiffusionTrainer
+
+    kw = {"preset": "attn-mlp", **kw}
+    _, ugraph, tes = jax_models
+    jtes = [g for _, g in tes]
+    jnet, tnet, unet, ttes = _both(jax_models, 2, algo=algo, **kw)
+    _assert_same_networks(jnet, tnet)
+    kinds = {ly.lora_name: type(ly).__name__ for ly in tnet.loras}
+    assert kinds == {ly.lora_name: type(ly).__name__ for ly in jnet.loras}
+    if kw.get("train_norm"):
+        assert "NormModule" in set(kinds.values())
+
+    tnet.apply_to(apply_text_encoder=True, apply_unet=True)
+    sub = tnet.sub_networks["lora_unet"]
+    before = {(ly.lora_name, k): p.detach().clone() for ly in sub.loras
+              for k, p in ly.named_parameters()}
+    d = tp.jax_unet()[3]
+    tr = DiffusionTrainer(unet, sub, lr=1e-3, weight_dtype=torch.float32)
+    loss = tr.train_step({"latents": torch.tensor(d["lat"]), "context": torch.tensor(d["ctx"])})
+    assert np.isfinite(float(loss))
+    moved = [key for key, v in before.items()
+             if not torch.equal(dict(tnet.lora_map[key[0]].named_parameters())[key[1]], v)]
+    assert before and len(moved) == len(before)
+    tnet.restore()
+
+    for saver in ("port", "jax"):
+        unet, ttes = _port_models(jax_models, 2)
+        f = str(tmp_path / f"{saver}.safetensors")
+        if saver == "jax":
+            _fill(jnet.loras, 5)
+            jnet.save_weights(f)
+        else:
+            tnet.save_weights(f)
+        jnet2, _ = jk.create_network_from_weights(1.0, f, None, jtes, ugraph)
+        tnet2, _ = tk.create_network_from_weights(1.0, f, None, ttes, unet)
+        _assert_same_networks(jnet2, tnet2)
+        if algo == "dylora":
+            assert {type(ly).__name__ for ly in tnet2.loras} == {"LoConModule"}
+        tnet2.merge_to()
+        _check_merges(jnet2.merge_to(), tnet2, unet, ttes)

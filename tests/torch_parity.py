@@ -80,9 +80,10 @@ def noisy_latents(d):
     return jnp.sqrt(a) * jnp.asarray(d["lat"]) + jnp.sqrt(1 - a) * jnp.asarray(d["noise"])
 
 
-def jax_loss_and_grads(model, variables, net, d):
+def jax_loss_and_grads(model, variables, net, d, jit=False):
     """value_and_grad of the JAX trainer's loss (the interceptor route,
-    merged forward) over the trainable adapter tree."""
+    merged forward) over the trainable adapter tree; with ``jit`` compiled
+    first (faster where the eager dispatch of many small ops dominates)."""
     trainable = net.trainable_params()
     buffers = {ln: {k: v for k, v in net.lora_map[ln].params.items() if k not in sub}
                for ln, sub in trainable.items()}
@@ -95,7 +96,8 @@ def jax_loss_and_grads(model, variables, net, d):
                    rng=jax.random.key(5), model=model, merged_forward=True)
         return jnp.mean((pred.astype(jnp.float32) - jnp.asarray(d["noise"])) ** 2)
 
-    return jax.value_and_grad(loss_fn)(trainable)
+    fn = jax.value_and_grad(loss_fn)
+    return (jax.jit(fn) if jit else fn)(trainable)
 
 
 def port_loss_and_grads(m, tnet, d, **trainer_kw):
