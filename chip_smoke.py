@@ -167,7 +167,33 @@ ends the run with a nonzero exit code, and no phase falls back to the CPU:
    saved file reloaded by ``create_network_from_weights``;
 29. train_toml_sd15_loha -- the same on ``loha_tpu.toml`` (SD1.5 b8, LoHa
    dim 16): every LoHa launch on the generic variant (the fast one is rank
-   8).
+   8);
+30. tools_sdxl -- the tools. Extract on full-width SD1.5 in fp32 (the full
+   SDXL extract's SVDs alone outlast this phase; ``profile_tools.py`` times
+   it): a tuned copy with LoRA dim 8 on the attn-mlp targets and conv
+   LoCon dim 4 on the ResNet 3x3 convs merged in by ``merge_to``;
+   ``extract_diff`` on the card (fixed, dims 8 and 4, no CP pass; its SVD
+   groups, seconds and peak memory logged, and torch's default driver,
+   cuSOLVER gesvdj, timed beside the extract's gesvd on the slowest
+   group), the file
+   reloaded by ``create_lycoris_from_weights``, one layer per adapted
+   layer, each dW within rel L2 1e-2 of the true delta; the CP pass
+   (``small_conv``) on two 3x3 convs of each shape group, card against the
+   CPU within 1e-3; both state dicts saved and the extract_locon and merge
+   CLIs run on them as subprocesses beside the CP pass, the extracted file
+   equal to the in-process one bit for bit, the merged one within fp32
+   rounding. Then on full-width SDXL in bf16: seeded LoHa and
+   LoKr files merged into its state dict by ``utils.merge.merge`` (each
+   layer within 1e-3 of ``merge_to`` on a copy; the LoHa merge's
+   ``hada_fwd`` launches one a layer ``ops.hada.supported`` admits, 722,
+   and the kernel held to ``hada_weight_plain`` at the merge shapes, fp32
+   bounds, and timed), one b4 UNet call on the merged weights within 3e-2
+   of the live network; the transformer blocks' 700 Linears swapped for
+   ``Int8Linear`` with LoKr over them (each quantized layer's adapter in
+   bypass mode, a b4 call within 3e-2 of the dequantized bf16 model with
+   the same adapters live, ``merge_to`` leaving the int8 weights bit for
+   bit); a bundle pack/unpack and an HCP round trip of the LoHa file bit
+   for bit.
 
 Phase 2 also holds the LayerNorm forward at the CLIP encoders' shapes (b4
 x 77 rows; C = 768 and 1280; bf16 timed), whose rows join the kernel line's
@@ -189,7 +215,9 @@ leg that runs it) for the kernels of the adapter path, ``lora_fused_op`` for
 the fused LoRA matmul, ``train_loha_split`` for the split LoHa backward,
 ``train_sdxl_norm`` for the LayerNorm and GroupNorm backwards that form dw
 and db (``layer_norm_bwd_wb``, ``group_norm_bwd_wb``); the run fails if a
-kernel was never launched there. Times are device ms per SDXL
+kernel was never launched there. The ``hada_fwd`` entry also has
+``merge``: the LoHa file merge's launches, its seconds, and the kernel's,
+plain version's and bound's device ms per merge, in total and per shape. Times are device ms per SDXL
 train step (kernel, plain, library, bound; each shape's time weighted by
 its launches, or for the fused LoRA matmul and the split LoHa backward,
 which no SDXL step dispatches, its layers per step: ``per`` says which), with the
@@ -3603,6 +3631,521 @@ def split_step_sums(row: dict) -> None:
         f"generic one or the plain version: {slower or 'none'} of {len(row['shapes'])}")
 
 
+# ---------------------------------------------------------------------------
+# phase 30: the tools (extract, merge, quant, files, CLIs)
+# ---------------------------------------------------------------------------
+
+# the tuned model of the extract leg: LoRA dim 8 on the attn-mlp targets and
+# conv LoCon dim 4 on the ResNet 3x3 convs, merged in fp32
+TOOLS_EXTRACT_TARGETS = {"target_module": ["Transformer2DModel"],
+                         "target_name": [r".*resnets_\d+\.conv[12]$"]}
+EXTRACT_LINEAR_DIM, EXTRACT_CONV_DIM = 8, 4
+SDXL_QUANT_LINEARS = 700  # the Linear layers of SDXL's 70 transformer blocks
+
+
+def tools_prefix(sd: dict) -> dict:
+    """A network's state dict (prefix ``lycoris``) under the tools' UNet
+    prefix ``lora_unet``, as a kohya or extracted file names its layers."""
+    return {"lora_unet_" + k[len("lycoris_"):]: v for k, v in sd.items()}
+
+
+def lora_rebuild(sd: dict, name: str):
+    """An extracted module's dW (O, I*k) in fp32 from its fp16 factors,
+    ``lora_mid`` included."""
+    import torch
+
+    up, down = sd[f"{name}.lora_up.weight"].float(), sd[f"{name}.lora_down.weight"].float()
+    if f"{name}.lora_mid.weight" in sd:
+        w = torch.einsum("ijkl,jr,pi->prkl", sd[f"{name}.lora_mid.weight"].float(),
+                         down.reshape(down.shape[0], -1), up.reshape(up.shape[0], -1))
+        return w.reshape(w.shape[0], -1)
+    return up.reshape(up.shape[0], -1) @ down.reshape(down.shape[0], -1)
+
+
+def stop_cli(proc) -> None:
+    if proc.poll() is None:
+        proc.kill()
+        proc.communicate()
+
+
+def start_cli(children, name: str, *args) -> tuple:
+    """``python -m lycoris_tpu_torch.tools.<name> ... --device cuda`` from
+    the checkout, started and registered with the ExitStack ``children``,
+    which kills it if it still runs: (the process, its start time)."""
+    proc = subprocess.Popen([sys.executable, "-m", f"lycoris_tpu_torch.tools.{name}", *args,
+                             "--device", "cuda"], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, cwd=str(ROOT))
+    children.callback(stop_cli, proc)
+    return proc, time.perf_counter()
+
+
+def finish_cli(tag: str, name: str, started: tuple) -> float:
+    """Wait for a CLI of :func:`start_cli`; its wall seconds. Fails on a
+    nonzero exit (the process is killed after 600 s)."""
+    proc, t0 = started
+    try:
+        stdout, stderr = proc.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        fail(f"{tag} the {name} CLI ran past 600 s")
+    dt = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"{tag} the {name} CLI exited {proc.returncode}: {stderr[-2000:]}")
+    log(f"{tag} CLI {name}: {stdout.strip().splitlines()[-1]} ({dt:.2f} s)")
+    return dt
+
+
+def tools_extract(config: str, card: str, cli: bool = True) -> dict:
+    """The extract leg on the full-width ``config`` UNet in fp32: a tuned
+    copy (TOOLS_EXTRACT_TARGETS merged in fp32 by ``merge_to``); pass 1,
+    ``extract_diff`` on the card (fixed, linear dim 8, conv dim 4, no CP
+    pass) reloaded by ``create_lycoris_from_weights``, every layer's dW
+    within rel L2 1e-2 of the true delta (rank <= the extract's: only fp16
+    rounding is left) and one extracted layer per adapted one; pass 2, with
+    the CP pass (``small_conv``), two 3x3 convs of each shape group
+    extracted on the card and by the port on the CPU, the rebuilt dW within
+    rel L2 1e-3.
+    With ``cli``, both state dicts saved, the extract_locon CLI on them
+    (equal to pass 1 bit for bit) and the merge CLI of the pass-1 file into
+    the base (the tensors without an adapter bit for bit, the merged ones
+    within fp32 rounding of the in-process ``merge``), both run beside
+    pass 2. Returns the timings."""
+    import copy
+    import os
+    import tempfile
+    from collections import defaultdict
+
+    import torch
+    from lycoris_tpu_torch import create_lycoris_from_weights
+    from lycoris_tpu_torch.graph import ModelGraph
+    from lycoris_tpu_torch.utils import extract as ex
+    from lycoris_tpu_torch.utils import safetensors_io
+    from lycoris_tpu_torch.utils.merge import merge
+
+    dev = torch.device("cuda")
+    tag = f"[tools_extract_{config}]"
+    out = {"config": config}
+    t0 = time.perf_counter()
+    base = build_unet(dev, torch.float32, seed=21, config=config)
+    tuned = copy.deepcopy(base)
+    net = adapter_net(tuned, "locon", dev, seed=22, targets=TOOLS_EXTRACT_TARGETS,
+                      conv_dim=EXTRACT_CONV_DIM, conv_alpha=4.0)
+    names = {ln: net.node_map[ln].name for ln in net.lora_map}
+    n_conv = sum(1 for lyco in net.loras if len(lyco.shape) == 4 and lyco.shape[2] == 3)
+    net.merge_to(1.0)
+    del net
+    torch.cuda.synchronize()
+    log(f"{tag} base and tuned UNets in fp32 ({sum(p.numel() for p in base.parameters())} "
+        f"params each), {len(names)} layers adapted ({n_conv} 3x3 convs at dim "
+        f"{EXTRACT_CONV_DIM}, the rest at dim {EXTRACT_LINEAR_DIM}) and merged, "
+        f"{time.perf_counter() - t0:.2f} s")
+    want_layers = {"lora_unet_" + ln[len("lycoris_"):] for ln in names}
+    kw = dict(mode="fixed", linear_mode_param=EXTRACT_LINEAR_DIM,
+              conv_mode_param=EXTRACT_CONV_DIM)
+
+    # pass 1: the whole model on the card, no CP pass
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    svd_log = []
+    sd = ex.extract_diff([], [], base, tuned, extract_device=dev, small_conv=False,
+                         svd_log=svd_log, **kw)
+    torch.cuda.synchronize()
+    out["extract_s"] = time.perf_counter() - t0
+    out["svd_s"] = sum(g["seconds"] for g in svd_log)
+    out["svd_groups"] = [dict(g) for g in svd_log]
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["peak_over_models_gib"] = (torch.cuda.max_memory_allocated() - mem0) / 2**30
+    for g in svd_log:
+        log(f"{tag} SVD group {tuple(g['shape'])} x {g['count']}: {g['seconds']:.3f} s")
+    log(f"{tag} pass 1: extract_diff {out['extract_s']:.2f} s, of it batched SVD "
+        f"{out['svd_s']:.2f} s in {len(svd_log)} groups (cuSOLVER gesvd, "
+        f"utils.extract._svd); peak device memory "
+        f"{out['peak_gib']:.2f} GiB ({out['peak_over_models_gib']:.2f} GiB over the two "
+        f"models) ({card})")
+    # torch's default driver (cuSOLVER gesvdj) against the extract's gesvd on 8
+    # deltas of the slowest group
+    slow = max(svd_log, key=lambda g: g["seconds"])
+    same = [n for n in names.values()
+            if list(base.get_submodule(n).weight.reshape(slow["shape"][0], -1).shape)
+            == slow["shape"]][:8]
+    stack = torch.stack([(tuned.get_submodule(n).weight - base.get_submodule(n).weight)
+                         .detach().reshape(slow["shape"]) for n in same])
+    drivers = {}
+    for drv in ("gesvd", None):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        torch.linalg.svd(stack, full_matrices=False, driver=drv)
+        torch.cuda.synchronize()
+        drivers[drv or "default (gesvdj)"] = (time.perf_counter() - t1) / len(same)
+    out["svd_s_per_matrix"] = {"shape": slow["shape"], **drivers}
+    del stack
+    log(f"{tag} s a {tuple(slow['shape'])} delta by driver: "
+        f"{json.dumps(out['svd_s_per_matrix'])} ({card})")
+    got_layers = {k.split(".", 1)[0] for k in sd}
+    if got_layers != want_layers:
+        fail(f"{tag} extracted {len(got_layers)} layers, adapted {len(want_layers)}: "
+             f"{sorted(got_layers ^ want_layers)[:4]}")
+    with tempfile.TemporaryDirectory() as tmp, contextlib.ExitStack() as children:
+        ext_path = os.path.join(tmp, "extracted.safetensors")
+        safetensors_io.save_file(sd, ext_path)
+        lnet, _ = create_lycoris_from_weights(1.0, ext_path, base, lora_prefix="lora_unet")
+        if len(lnet.loras) != len(names):
+            fail(f"{tag} the extracted file reloads {len(lnet.loras)} layers of {len(names)}")
+        worst = 0.0
+        with torch.no_grad():
+            for lyco in lnet.loras:
+                name = lnet.node_map[lyco.lora_name].name
+                true = tuned.get_submodule(name).weight - base.get_submodule(name).weight
+                worst = max(worst, rel_l2(lyco.get_diff_weight()[0].reshape(true.shape), true))
+        out["pass1_worst_rel_l2"] = worst
+        log(f"{tag} pass 1: the file reloaded, {len(lnet.loras)} layers; worst dW rel L2 to "
+            f"the true delta {worst:.3e} (bound 1e-2)")
+        if not worst <= 1e-2:
+            fail(f"{tag} pass 1 dW rel L2 {worst:.3e} over 1e-2")
+        del lnet
+
+        paths = {k: os.path.join(tmp, f"{k}.safetensors") for k in ("base", "tuned", "cli_ext",
+                                                                    "cli_merged")}
+        if cli:  # both state dicts saved, the two CLIs run on them beside pass 2
+            t0 = time.perf_counter()
+            for k, m in (("base", base), ("tuned", tuned)):
+                safetensors_io.save_file(m.state_dict(), paths[k])
+            gib = os.path.getsize(paths["base"]) / 2**30
+            out["save_s"] = time.perf_counter() - t0
+            log(f"{tag} base and tuned state dicts saved, {gib:.2f} GiB each, "
+                f"{out['save_s']:.2f} s")
+            ext_cli = start_cli(children, "extract_locon", paths["base"], paths["tuned"],
+                                paths["cli_ext"], "--mode", "fixed", "--linear_dim",
+                                str(EXTRACT_LINEAR_DIM), "--conv_dim", str(EXTRACT_CONV_DIM),
+                                "--disable_cp")
+            merge_cli = start_cli(children, "merge", paths["base"], ext_path, paths["cli_merged"])
+
+        # pass 2: the CP pass (3x3 convs), card against the port on the CPU,
+        # two of each shape group
+        groups = defaultdict(list)
+        for name in names.values():
+            w = base.get_submodule(name).weight
+            if w.ndim == 4 and w.shape[2] > 1:
+                groups[(w.shape[0], w[0].numel())].append(name)
+        pick = [n for g in groups.values() for n in g[:2]]
+        sub_b = {f"{n}.weight": base.get_submodule(n).weight.detach() for n in pick}
+        sub_t = {f"{n}.weight": tuned.get_submodule(n).weight.detach() for n in pick}
+        t0 = time.perf_counter()
+        card_sd = ex.extract_diff([], [], ModelGraph.from_state_dict(sub_b),
+                                  ModelGraph.from_state_dict(sub_t), extract_device=dev,
+                                  small_conv=True, **kw)
+        cpu_sd = ex.extract_diff([], [], ModelGraph.from_state_dict(
+            {k: v.cpu() for k, v in sub_b.items()}), ModelGraph.from_state_dict(
+            {k: v.cpu() for k, v in sub_t.items()}), extract_device="cpu", small_conv=True, **kw)
+        if set(card_sd) != set(cpu_sd):
+            fail(f"{tag} pass 2 keys differ: {sorted(set(card_sd) ^ set(cpu_sd))[:4]}")
+        mids = [k for k in card_sd if k.endswith(".lora_mid.weight")]
+        worst = max(rel_l2(lora_rebuild(card_sd, m), lora_rebuild(cpu_sd, m))
+                    for m in {k.split(".", 1)[0] for k in card_sd})
+        out["pass2_worst_rel_l2"] = worst
+        log(f"{tag} pass 2 (small_conv): {len(pick)} 3x3 convs of {len(groups)} shape groups, "
+            f"{len(mids)} through the CP pass (lora_mid); card vs CPU rebuilt dW worst rel L2 "
+            f"{worst:.3e} (bound 1e-3), {time.perf_counter() - t0:.2f} s")
+        if len(mids) != len(pick) or not worst <= 1e-3:
+            fail(f"{tag} pass 2: {len(mids)} CP layers of {len(pick)}, rel L2 {worst:.3e}")
+        if not cli:
+            return out
+
+        # the CLIs' files against the in-process results
+        out["cli_extract_s"] = finish_cli(tag, "extract_locon", ext_cli)
+        cli_sd = safetensors_io.load_file(paths["cli_ext"])
+        if set(cli_sd) != set(sd) or not all(torch.equal(cli_sd[k], sd[k]) for k in sd):
+            fail(f"{tag} the extract_locon CLI's file differs from the in-process extract")
+        out["cli_merge_s"] = finish_cli(tag, "merge", merge_cli)
+        merged, count = merge([], base, sd, device=dev)
+        cli_merged = safetensors_io.load_file(paths["cli_merged"])
+        base_sd = base.state_dict()
+        if set(cli_merged) != set(base_sd) or count != len(names):
+            fail(f"{tag} merge CLI: {len(cli_merged)} tensors of {len(base_sd)}, {count} merged")
+        worst, unequal = 0.0, 0
+        for k, v in base_sd.items():
+            name = k.rsplit(".", 1)[0]
+            is_merged = name in merged["lora_unet"] and k.endswith(".weight")
+            want = merged["lora_unet"][name]["weight"].cpu() if is_merged else v.cpu()
+            if not torch.equal(cli_merged[k], want):
+                if not is_merged:
+                    fail(f"{tag} the merge CLI changed {k}, a tensor with no adapter")
+                unequal += 1
+                worst = max(worst, rel_l2(cli_merged[k], want))
+        log(f"{tag} the extract_locon CLI's file equals pass 1 bit for bit; the merge CLI's "
+            f"file: the other {len(base_sd) - count} tensors bit for bit, "
+            f"{count - unequal} of {count} merged weights bit for bit, the others within rel "
+            f"L2 {worst:.3e} of the in-process merge (bound 1e-6: fp32 rounding)")
+        if not worst <= 1e-6:
+            fail(f"{tag} the merge CLI's weights {worst:.3e} from the in-process merge")
+    return out
+
+
+def tools_sdxl_merge(model, results, card, tmp: str) -> tuple:
+    """The merge leg on the full-width SDXL UNet in bf16: seeded LoHa (dim 8)
+    and LoKr files merged by ``utils.merge.merge`` into its state dict on the
+    card, each layer within rel L2 1e-3 of ``merge_to`` on a copy, the count
+    the file's layers; the LoHa merge's ``hada_fwd`` launches one a layer
+    that ``ops.hada.supported`` admits, and the kernel held to
+    ``hada_weight_plain`` at each merge shape (fp32 bounds) and timed; then
+    one b4 UNet call on the merged weights against the live network's.
+    Returns (the copy, the LoHa file's path)."""
+    import copy
+    import os
+
+    import torch
+    from lycoris_tpu_torch import create_lycoris_from_weights
+    from lycoris_tpu_torch.graph import ModelGraph
+    from lycoris_tpu_torch.ops import hada
+    from lycoris_tpu_torch.utils import safetensors_io
+    from lycoris_tpu_torch.utils.merge import merge
+
+    dev = torch.device("cuda")
+    tag = "[tools_merge]"
+    with torch.no_grad():
+        files = {"loha": tools_prefix(adapter_state_dict(model, "loha", dev, seed=24)),
+                 "lokr": tools_prefix(adapter_state_dict(model, "lokr", dev, seed=25))}
+    loha_path = os.path.join(tmp, "sdxl_loha.safetensors")
+    safetensors_io.save_file(files["loha"], loha_path)
+    files["loha"] = {k: v.to(dev) for k, v in safetensors_io.load_file(loha_path).items()}
+    layers = {k: sorted({key.split(".", 1)[0] for key in sd}) for k, sd in files.items()}
+    factors = {}
+    for ln in layers["loha"]:
+        sd = files["loha"]
+        w1u, w1d = sd[f"{ln}.hada_w1_a"], sd[f"{ln}.hada_w1_b"]
+        w2u, w2d = sd[f"{ln}.hada_w2_a"], sd[f"{ln}.hada_w2_b"]
+        r = w1d.shape[0]
+        factors[ln] = (w1d.reshape(r, -1).float(), w1u.reshape(-1, r).float(),
+                       w2d.reshape(r, -1).float(), w2u.reshape(-1, r).float(),
+                       float(sd[f"{ln}.alpha"]) / r)
+    supported = sum(hada.supported(f[0], f[1]) for f in factors.values())
+    graph = ModelGraph.from_state_dict(model.state_dict())
+    twin = copy.deepcopy(model)
+    merged_loha = None
+    for algo in ("loha", "lokr"):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        merged, count = merge([], graph, files[algo], device=dev)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = read_counts()
+        fast, generic = hada.fast_launches, hada.generic_launches
+        want_hada = supported if algo == "loha" else 0
+        log(f"{tag} {algo}: {count} layers merged into the bf16 state dict in {dt:.3f} s "
+            f"({card}); hada_fwd launches {counts['hada_fwd']} ({fast} fast, {generic} generic; "
+            f"want {want_hada}, the layers ops.hada.supported admits)")
+        if count != len(layers[algo]) or counts["hada_fwd"] != want_hada:
+            fail(f"{tag} {algo}: {count} merged of {len(layers[algo])}, hada_fwd "
+                 f"{counts['hada_fwd']} launches of {want_hada}")
+        twin.load_state_dict(model.state_dict())
+        tnet, _ = create_lycoris_from_weights(1.0, None, twin, weights_sd=files[algo],
+                                              lora_prefix="lora_unet")
+        tnet.merge_to(1.0)
+        worst = max(rel_l2(sub["weight"], twin.get_submodule(name).weight.detach())
+                    for name, sub in merged["lora_unet"].items())
+        log(f"{tag} {algo}: against merge_to on a copy, worst rel L2 {worst:.3e} (bound 1e-3)")
+        if not worst <= 1e-3:
+            fail(f"{tag} {algo} merge vs merge_to rel L2 {worst:.3e} over 1e-3")
+        del tnet
+        if algo == "loha":
+            merged_loha, loha_counts, loha_s = merged, counts, dt
+
+    # the kernel against its plain version at the merge's shapes
+    by_shape = Counter()
+    first = {}
+    for ln, f in factors.items():
+        shape = (f[1].shape[0], f[0].shape[1])
+        by_shape[shape] += 1
+        first.setdefault(shape, f)
+    rows = []
+    for shape, n in sorted(by_shape.items()):
+        w1d, w1u, w2d, w2u, scale = first[shape]
+        got = hada.hada_fwd(w1d, w1u, w2d, w2u, scale)
+        want = hada.hada_weight_plain(w1d, w1u, w2d, w2u, scale)
+        stats = compare(torch.float32, got, want)
+        record(results, "hada_fwd", "merge", stats, f"{shape} x {n} layers")
+        o, i = shape
+        r = w1d.shape[0]
+        bnd = bound(4.0 * o * i * r + 2.0 * o * i, 4.0 * (2 * r * (o + i) + o * i), "float32")
+        it = iters_for(4.0 * o * i)
+        rows.append({"shape": [o, i], "rank": r, "layers": n, "max_abs_err": stats[2],
+                     "ms": graph_ms(lambda: hada.hada_fwd(w1d, w1u, w2d, w2u, scale), it),
+                     "plain_ms": graph_ms(lambda: hada.hada_weight_plain(w1d, w1u, w2d, w2u,
+                                                                         scale), it),
+                     "bound_ms": bnd[0], "bound_by": bnd[1]})
+    sums = {k: sum(row[k] * row["layers"] for row in rows) for k in ("ms", "plain_ms", "bound_ms")}
+    results["hada_fwd"]["merge"] = {
+        "path": "tools_sdxl", "per": "one merge of the SDXL LoHa file (dim 8, attn-mlp, fp32 "
+        "factors)", "launches": loha_counts["hada_fwd"], "merge_s": loha_s, **sums,
+        "bound_by": max(("bytes", "operations"), key=lambda b: sum(
+            row["bound_ms"] * row["layers"] for row in rows if row["bound_by"] == b)),
+        "shapes": rows}
+    log(f"{tag} hada_fwd at the merge's {len(rows)} shapes, per LoHa file merge: kernel "
+        f"{sums['ms']:.3f} ms, plain {sums['plain_ms']:.3f} ms, bound {sums['bound_ms']:.3f} ms "
+        f"(device time, {card})")
+
+    # one b4 UNet call on the merged weights against the live network
+    missing = twin.load_state_dict(
+        {f"{name}.{k}": v for name, sub in merged_loha["lora_unet"].items()
+         for k, v in sub.items()},
+        strict=False)
+    if missing.unexpected_keys:
+        fail(f"{tag} merged keys the UNet does not have: {missing.unexpected_keys[:4]}")
+    batch = sdxl_batch()
+    t = torch.full((SDXL_BATCH,), 501, dtype=torch.int32, device=dev)
+    args = (batch["latents"], t, batch["context"])
+    live, _ = create_lycoris_from_weights(1.0, None, model, weights_sd=files["loha"],
+                                          lora_prefix="lora_unet")
+    live.apply_to(merged_forward=True)
+    with torch.no_grad():
+        want = model(*args, added_cond=batch["added_cond"])
+        live.restore()
+        got = twin(*args, added_cond=batch["added_cond"])
+    err = rel_l2(got, want)
+    log(f"{tag} one b{SDXL_BATCH} UNet call on the merged weights vs the live LoHa network: "
+        f"rel L2 {err:.3e} (bound 3e-2)")
+    if not (err <= 3e-2 and bool(torch.isfinite(got).all())):
+        fail(f"{tag} merged UNet call rel L2 {err:.3e} over 3e-2")
+    return twin, loha_path
+
+
+def tools_sdxl_quant(model, twin, tag="[tools_quant]") -> None:
+    """The quant leg: ``twin``'s transformer-block Linears swapped for
+    ``Int8Linear`` (``quantize_linear_params``), LoKr dim 8 over its
+    attn-mlp targets: every quantized layer's adapter in bypass mode, one
+    b4 UNet call within rel L2 3e-2 of ``model`` with the dequantized
+    weights in bf16 and the same adapters live, and ``merge_to`` leaving the
+    int8 weights bit for bit."""
+    import torch
+    from lycoris_tpu_torch import create_lycoris_from_weights
+    from lycoris_tpu_torch.models import layers as L
+    from lycoris_tpu_torch.models.unet import BasicTransformerBlock
+    from lycoris_tpu_torch.utils.quant import Int8Linear
+
+    dev = torch.device("cuda")
+    twin.load_state_dict(model.state_dict())
+    t0 = time.perf_counter()
+    swapped = []
+    for bname, blk in twin.named_modules():
+        if not isinstance(blk, BasicTransformerBlock):
+            continue
+        for name, child in list(blk.named_modules()):
+            if isinstance(child, L.Linear):
+                parent, _, attr = name.rpartition(".")
+                setattr(blk.get_submodule(parent) if parent else blk, attr,
+                        Int8Linear.from_linear(child, dtype=torch.bfloat16))
+                swapped.append(f"{bname}.{name}")
+    torch.cuda.synchronize()
+    log(f"{tag} {len(swapped)} transformer-block Linears swapped for Int8Linear in "
+        f"{time.perf_counter() - t0:.2f} s")
+    if len(swapped) != SDXL_QUANT_LINEARS:
+        fail(f"{tag} {len(swapped)} Linears swapped, want {SDXL_QUANT_LINEARS}")
+    qnet = adapter_net(twin, "lokr", dev, seed=26)
+    quant = [lyco for ln, lyco in qnet.lora_map.items() if qnet.node_map[ln].is_quant]
+    bypass = sum(lyco.bypass_mode for lyco in quant)
+    log(f"{tag} LoKr dim 8: {len(qnet.loras)} adapters, {len(quant)} on int8 layers, "
+        f"{bypass} of them in bypass mode")
+    if len(quant) != len(swapped) or bypass != len(quant):
+        fail(f"{tag} {len(quant)} quantized layers adapted, {bypass} in bypass mode")
+    with torch.no_grad():
+        for name in swapped:
+            model.get_submodule(name).weight.copy_(
+                twin.get_submodule(name).dequantized_weight(torch.bfloat16))
+    ref, _ = create_lycoris_from_weights(1.0, None, model, weights_sd=qnet.state_dict())
+    batch = sdxl_batch()
+    args = (batch["latents"], torch.full((SDXL_BATCH,), 501, dtype=torch.int32, device=dev),
+            batch["context"])
+    qnet.apply_to(merged_forward=True)
+    ref.apply_to(merged_forward=True)
+    with torch.no_grad():
+        got = twin(*args, added_cond=batch["added_cond"])
+        want = model(*args, added_cond=batch["added_cond"])
+    qnet.restore()
+    ref.restore()
+    err = rel_l2(got, want)
+    log(f"{tag} one b{SDXL_BATCH} UNet call, int8 bases with LoKr bypass vs the dequantized "
+        f"bf16 bases with the same LoKr live: rel L2 {err:.3e} (bound 3e-2)")
+    if not (err <= 3e-2 and bool(torch.isfinite(got).all())):
+        fail(f"{tag} quantized UNet call rel L2 {err:.3e} over 3e-2")
+    before = {n: (twin.get_submodule(n).weight_q.clone(), twin.get_submodule(n).scale.clone())
+              for n in swapped}
+    qnet.merge_to(1.0)
+    kept = all(torch.equal(twin.get_submodule(n).weight_q, q) and
+               torch.equal(twin.get_submodule(n).scale, s) for n, (q, s) in before.items())
+    log(f"{tag} merge_to left every int8 weight and scale bit for bit: {kept}")
+    if not kept:
+        fail(f"{tag} merge_to changed a quantized layer")
+
+
+def tools_files(loha_path: str, tmp: str, tag="[tools_files]") -> None:
+    """A bundle pack/unpack and an HCP from_webui/to_webui round trip of the
+    SDXL LoHa file through files: the same tensors back, bit for bit."""
+    import os
+
+    import torch
+    from lycoris_tpu_torch.utils import safetensors_io
+    from lycoris_tpu_torch.utils.bundle import pack_bundle, unpack_bundle
+    from lycoris_tpu_torch.utils.hcp_convert import LoraConverter
+
+    def same(a: dict, b: dict) -> bool:
+        return set(a) == set(b) and all(a[k].dtype == b[k].dtype and torch.equal(a[k], b[k])
+                                        for k in a)
+
+    loha = safetensors_io.load_file(loha_path)
+    gen = torch.Generator().manual_seed(27)
+    emb = {"clip_l": torch.randn(2, 768, generator=gen),
+           "clip_g": torch.randn(2, 1280, generator=gen)}
+    path = os.path.join(tmp, "bundle.safetensors")
+    safetensors_io.save_file(pack_bundle(dict(loha), {"sdxl_emb": emb}), path)
+    back, embs = unpack_bundle(safetensors_io.load_file(path), emb_format=".safetensors")
+    ok_bundle = same(back, loha) and set(embs) == {"sdxl_emb"} and same(embs["sdxl_emb"], emb)
+    conv = LoraConverter()
+    unet, te = conv.convert_from_webui(dict(loha), "plugin")
+    paths = [os.path.join(tmp, f"{k}-sdxl_loha.safetensors") for k in ("unet", "text_encoder")]
+    safetensors_io.save_file(unet["plugin"], paths[0])
+    safetensors_io.save_file(te["plugin"], paths[1])
+    back = conv.convert_to_webui(*(safetensors_io.load_file(p) for p in paths), "plugin")
+    ok_hcp = same(back, loha)
+    log(f"{tag} the SDXL LoHa file ({len(loha)} tensors): bundle pack/unpack with an SDXL "
+        f"embedding bit for bit {ok_bundle}; HCP from_webui/to_webui bit for bit {ok_hcp}")
+    if not (ok_bundle and ok_hcp):
+        fail(f"{tag} a file round trip changed the tensors (bundle {ok_bundle}, HCP {ok_hcp})")
+
+
+def phase_tools_sdxl(results, card) -> dict:
+    """Phase 30: the extract leg (SD1.5 full width; the full SDXL extract's
+    SVDs alone take longer than this phase may, see ``profile_tools.py``)
+    with both CLIs, then merge, quant and files on the full-width SDXL UNet."""
+    import gc
+    import tempfile
+
+    import torch
+
+    t0 = time.perf_counter()
+    out = tools_extract("sd15", card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["extract_leg_s"] = time.perf_counter() - t0
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    model = build_unet(dev, torch.bfloat16, seed=23, config="sdxl")
+    with tempfile.TemporaryDirectory() as tmp:
+        twin, loha_path = tools_sdxl_merge(model, results, card, tmp)
+        out["merge_leg_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tools_sdxl_quant(model, twin)
+        out["quant_leg_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tools_files(loha_path, tmp)
+        out["files_leg_s"] = time.perf_counter() - t0
+    log(f"[tools_sdxl] {json.dumps(out)}")
+    return out
+
+
 def main() -> int:
     if not (ROOT / "lycoris_tpu_torch" / "csrc").is_dir():
         print("chip_smoke: lycoris_tpu_torch/ not found beside this script", file=sys.stderr)
@@ -3729,6 +4272,10 @@ def main() -> int:
         # LoHa dim 16: every hada launch takes the generic variant (the fast one is rank 8)
         phase_train_toml("loha_tpu.toml", "[train_toml_sd15_loha]", results, card,
                          SD15_ADAPTED, hada_variant="generic")
+    gc.collect()
+    torch.cuda.empty_cache()
+    with phase("tools_sdxl"):
+        phase_tools_sdxl(results, card)
 
     for name, meta in KERNELS.items():
         if results[name]["launches"] <= 0:
@@ -3747,7 +4294,8 @@ def main() -> int:
     table = []
     for name, meta in KERNELS.items():
         r = results[name]
-        extra = {k: r[k] for k in ("variants", "shapes", "with_dw_db", "route_rows") if k in r}
+        extra = {k: r[k] for k in ("variants", "shapes", "with_dw_db", "route_rows", "merge")
+                 if k in r}
         table.append({"name": name, "route": meta["route"], "source": meta["source"],
                       "replaces": meta["replaces"], "path": meta["path"],
                       "per": meta.get("per", PER_SDXL_STEP), "launches": r["launches"],

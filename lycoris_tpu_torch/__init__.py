@@ -15,23 +15,27 @@ the opt-in split LoHa backward and the fused LoRA matmul
 (:func:`.ops.lora_fused.fused_lora_matmul`); on the CPU each runs its plain
 PyTorch version. The kohya front end (:mod:`.kohya`) targets the UNet and
 the CLIP text encoders (:mod:`.models.clip`), and ``python -m
-lycoris_tpu_torch.train`` trains from the repo's TOML configs. The package
+lycoris_tpu_torch.train`` trains from the repo's TOML configs. The tools
+(:mod:`.utils`: SVD extract, merge, bundle, HCP convert, int8 quantized
+bases) run as ``python -m lycoris_tpu_torch.tools.<name>``. The package
 never imports JAX.
 """
 
 __version__ = "0.1.0"
 
-from . import functional, modules
+from . import functional, kohya, modules, utils
 from .graph import ModelGraph
 from .logging import logger
 from .modules import (ButterflyOFTModule, DiagOFTModule, DyLoraModule, FullModule, GLoRAModule,
-                      IA3Module, LoConModule, LohaModule, LokrModule, NormModule)
+                      IA3Module, LoConModule, LohaModule, LokrModule, NormModule, make_module)
 from .trainer import DiffusionTrainer
 from .wrapper import LycorisNetwork, create_lycoris, create_lycoris_from_weights
 
 __all__ = [
     "functional",
     "modules",
+    "utils",
+    "kohya",
     "logger",
     "ModelGraph",
     "LycorisNetwork",
@@ -48,4 +52,6 @@ __all__ = [
     "ButterflyOFTModule",
     "GLoRAModule",
     "DyLoraModule",
+    "make_module",
+    "__version__",
 ]

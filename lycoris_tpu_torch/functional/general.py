@@ -87,6 +87,21 @@ def rebuild_tucker(t, wa, wb):
     return torch.einsum("ij...,ip,jr->pr...", t, wa, wb)
 
 
+def tucker_weight(wa, wb, t):
+    """The tucker rebuild of ``t`` by ``wb`` then ``wa`` (JAX
+    functional/general.py:126; reference general.py:90-92)."""
+    temp = torch.einsum("ij...,jr->ir...", t, wb)
+    return torch.einsum("ij...,ir->rj...", temp, wa)
+
+
+def tucker_weight_from_conv(up, down, mid):
+    """A conv kernel from a mid core between 1x1 ``up`` and ``down`` convs
+    (JAX functional/general.py:132; reference general.py:84-87)."""
+    up = up.reshape(up.shape[0], up.shape[1])
+    down = down.reshape(down.shape[0], down.shape[1])
+    return torch.einsum("mn...,im,nj->ij...", mid, up, down)
+
+
 # ---------------------------------------------------------------------------
 # DoRA
 # ---------------------------------------------------------------------------
@@ -235,6 +250,10 @@ def geglu_mul(h_full):
     from ..ops import geglu as _geglu
 
     return _geglu.geglu_mul(h_full)
+
+
+# the op by weight ndim (reference general.py:6)
+FUNC_LIST = [None, None, linear, convnd, convnd, convnd]
 
 
 def op_by_ndim(ndim: int):

@@ -1,15 +1,23 @@
 """Model graph of the port: a walk over ``named_modules()`` that keeps
 references to the live modules (counterpart of ``ModelGraph.from_torch``,
-``lycoris_tpu/graph.py:421-498``, without the numpy copies).
+``lycoris_tpu/graph.py:421-498``, without the numpy copies), or the layers
+of a flat state dict (:meth:`ModelGraph.from_state_dict`, JAX
+graph.py:388-420), each a :class:`TensorLayer` that holds a weight and a
+bias and no module, for the extract and merge tools.
 
 Each leaf node carries the :class:`LayerInfo` of its layer and runs it with
 a substituted weight (:meth:`Node.apply`), in the layer's own output layout.
+A quantized layer (``lycoris_quant``, :mod:`.utils.quant`) shows the graph
+its weight dequantized (:meth:`Node.weights`); that weight is not the
+layer's own storage, so nothing can be merged into it.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
+import torch
 from torch import nn
 
 from .modules.base import LayerInfo
@@ -56,12 +64,23 @@ class Node:
     class_name: str
     module: nn.Module
     layer_info: LayerInfo | None = None  # None for containers
+    # a quantized base layer: adapters go into bypass mode and never merge
+    is_quant: bool = dataclasses.field(init=False, default=False)
+
+    def __post_init__(self):
+        from .utils.quant import is_quant_class
+
+        self.is_quant = (bool(getattr(self.module, "lycoris_quant", False))
+                         or is_quant_class(self.class_name))
 
     @property
     def is_leaf(self) -> bool:
         return self.layer_info is not None
 
     def weights(self):
+        """(weight, bias) in torch layout; a quantized layer's weight dequantized in fp32."""
+        if self.is_quant and hasattr(self.module, "dequantized_weight"):
+            return self.module.dequantized_weight(), getattr(self.module, "bias", None)
         return self.module.weight, getattr(self.module, "bias", None)
 
     def apply(self, x, weight, bias):
@@ -82,6 +101,18 @@ class Node:
         return y if f is None else f(y)
 
 
+class TensorLayer:
+    """A layer of a flat state dict: its weight and bias, and no module."""
+
+    def __init__(self, weight: torch.Tensor, bias: torch.Tensor | None = None):
+        self.weight = weight
+        self.bias = bias
+
+
+def _as_tensor(v) -> torch.Tensor:
+    return v if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v))
+
+
 class ModelGraph:
     """Ordered nodes in ``named_modules()`` order."""
 
@@ -96,6 +127,37 @@ class ModelGraph:
             if root == "" or n.name == root or n.name.startswith(prefix):
                 rel = n.name[len(prefix):] if root and n.name != root else ("" if n.name == root else n.name)
                 yield rel, n
+
+    @staticmethod
+    def from_state_dict(sd: dict) -> "ModelGraph":
+        """The layers of a flat torch-style state dict (``{name}.weight`` and
+        ``{name}.bias``), in its key order after a root node. The kind comes
+        from the weight's ndim: 2 is Linear, 3-5 ConvNd, 1 LayerNorm; a
+        convolution's stride and padding are unknown, which the extract and
+        merge tools never need (JAX graph.py:388-420). The tensors are the
+        state dict's own (numpy arrays become CPU tensors)."""
+        nodes = [Node(name="", class_name="root", module=None)]
+        for key in sd:
+            if not key.endswith(".weight"):
+                continue
+            name = key[: -len(".weight")]
+            w = _as_tensor(sd[key])
+            b = sd.get(f"{name}.bias")
+            b = None if b is None else _as_tensor(b)
+            if w.ndim == 2:
+                li, cls = LayerInfo.linear(w.shape[0], w.shape[1], b is not None, name), "Linear"
+            elif w.ndim in (3, 4, 5):
+                nd = w.ndim - 2
+                li = LayerInfo.conv(nd, w.shape[0], w.shape[1], tuple(w.shape[2:]),
+                                    bias=b is not None, name=name)
+                cls = f"Conv{nd}d"
+            elif w.ndim == 1:
+                li = LayerInfo.layer_norm(w.shape[0], bias=b is not None, name=name)
+                cls = "LayerNorm"
+            else:
+                continue
+            nodes.append(Node(name=name, class_name=cls, module=TensorLayer(w, b), layer_info=li))
+        return ModelGraph(nodes)
 
     @staticmethod
     def from_torch(module: nn.Module) -> "ModelGraph":

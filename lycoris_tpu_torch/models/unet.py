@@ -363,7 +363,8 @@ def reset_parameters(model: nn.Module, generator=None) -> nn.Module:
 def state_dict_from_jax(params) -> dict:
     """Flax ``variables["params"]`` (nested dict of arrays) -> this model's
     ``state_dict``: the submodule names are the flax names, so each key is
-    the dotted path."""
+    the dotted path. Floating arrays become fp32; integer ones (an
+    ``Int8Linear``'s ``weight_q``) keep their dtype."""
     out = {}
 
     def walk(prefix, tree):
@@ -372,7 +373,8 @@ def state_dict_from_jax(params) -> dict:
             if isinstance(v, dict) or hasattr(v, "items"):
                 walk(key, v)
             else:
-                out[key] = torch.from_numpy(np.array(v, dtype=np.float32))
+                a = np.array(v)
+                out[key] = torch.from_numpy(a if a.dtype.kind in "iub" else a.astype(np.float32))
 
     walk("", params)
     return out

@@ -222,6 +222,15 @@ def max_norm_ratio(orig_norm, max_norm: float):
     return norm != desired, desired / norm
 
 
+def _need_org_forward(org_forward):
+    """The base forward a bypass delta of the layer's output needs (OFT,
+    (IA)^3, GLoRA): those modules cannot form it from x alone."""
+    if org_forward is None:
+        raise ValueError("bypass_forward_diff of this module needs org_forward, the layer's "
+                         "own forward")
+    return org_forward
+
+
 def as_float(alpha) -> float:
     if alpha is None:
         return 0.0
@@ -393,7 +402,10 @@ class LycorisBaseModule(nn.Module):
         scalar.mul_(torch.where(scaled, ratio, 1.0).to(scalar.dtype))
         return self.params, scaled, orig * ratio
 
-    def bypass_forward_diff(self, x, scale=1.0, train=False, seed=None):
+    def bypass_forward_diff(self, x, scale=1.0, train=False, seed=None, org_forward=None):
+        """The adapter's delta of the layer's output for ``x`` times
+        ``scale``, never forming dW where the algorithm allows; the modules
+        whose delta is a function of the base output take ``org_forward``."""
         raise NotImplementedError
 
     def _draws(self, train, seed, p) -> bool:

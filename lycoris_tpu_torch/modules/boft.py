@@ -45,11 +45,12 @@ class ButterflyOFTModule(DiagOFTModule):
             out = out * self._p("rescale")
         return out.to(org_weight.dtype)
 
-    def _bypass(self, x, scale, org_forward):
-        """The base output butterfly-rotated, the stages blended by ``scale``."""
+    def _bypass(self, x, scale, org_forward, diff=False):
+        """The base output butterfly-rotated, the stages blended by ``scale``
+        (with ``diff``, the rotated output less the base one)."""
         blocks = self._p("oft_blocks")
         org_out = org_forward(x)
-        out = org_out.to(blocks.dtype)
+        out = org = org_out.to(blocks.dtype)
         if self.layer.is_conv:
             out = out.transpose(1, -1)
         out = boft.rotate_last(out, blocks, self._constraint, float(scale))
@@ -57,4 +58,6 @@ class ButterflyOFTModule(DiagOFTModule):
             out = out * self._p("rescale").transpose(0, -1)
         if self.layer.is_conv:
             out = out.transpose(1, -1)
+        if diff:
+            out = out - org
         return out.to(org_out.dtype)

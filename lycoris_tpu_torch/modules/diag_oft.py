@@ -19,8 +19,8 @@ import torch
 
 from ..functional import diag_oft
 from ..functional.general import factorization
-from .base import (LayerInfo, LycorisBaseModule, RANK_SALT, as_float, draw_generator, dropout,
-                   max_norm_ratio, to_tensor)
+from .base import (LayerInfo, LycorisBaseModule, RANK_SALT, _need_org_forward, as_float,
+                   draw_generator, dropout, max_norm_ratio, to_tensor)
 
 
 class DiagOFTModule(LycorisBaseModule):
@@ -116,14 +116,21 @@ class DiagOFTModule(LycorisBaseModule):
         blocks.mul_(torch.where(scaled, ratio, 1.0).to(blocks.dtype))
         return self.params, scaled, orig * ratio
 
-    def _bypass(self, x, scale, org_forward):
-        """The base output plus its rotation's delta times ``scale``."""
+    def _bypass(self, x, scale, org_forward, diff=False):
+        """The base output plus its rotation's delta times ``scale`` (with
+        ``diff``, the delta alone)."""
         org_out = org_forward(x)
         delta = diag_oft.bypass_forward_diff(
             org_out, self._p("oft_blocks"), self._p("rescale") if self.rescaled else None,
             constraint=self._constraint, need_transpose=self.layer.is_conv)
         # the rotation runs in fp32; the delta joins the base in its dtype
-        return org_out + (delta * scale).to(org_out.dtype)
+        delta = (delta * scale).to(org_out.dtype)
+        return delta if diff else org_out + delta
+
+    def bypass_forward_diff(self, x, scale=1.0, train=False, seed=None, org_forward=None):
+        """The rotation's delta of the base output ``org_forward(x)``, times
+        ``scale`` (JAX diag_oft.py:175); no draws."""
+        return self._bypass(x, scale, _need_org_forward(org_forward), diff=True)
 
     def forward(self, x, org_weight=None, org_bias=None, multiplier=None, org_forward=None,
                 train=False, seed=None):

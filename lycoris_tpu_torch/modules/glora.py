@@ -25,8 +25,8 @@ import math
 import torch
 
 from ..functional.general import convnd, kaiming_uniform, linear
-from .base import (LayerInfo, LycorisBaseModule, as_float, draw_generator, dropout,
-                   rank_dropout_mask, to_tensor)
+from .base import (LayerInfo, LycorisBaseModule, _need_org_forward, as_float, draw_generator,
+                   dropout, rank_dropout_mask, to_tensor)
 
 _SALTS = {"rank_a": 0x61, "rank_b": 0x62, "drop_a": 0x64611, "drop_b": 0x64622}
 
@@ -138,9 +138,10 @@ class GLoRAModule(LycorisBaseModule):
             return mid * drop.reshape(1, -1, *[1] * (mid.ndim - 2))
         return mid * drop
 
-    def _bypass(self, x, scale, org_forward, train=False, seed=None):
+    def _bypass(self, x, scale, org_forward, train=False, seed=None, diff=False):
         """``org_forward(x + A(x) s) + B(x) s`` with one scale s = alpha / r *
-        scalar * ``scale``, in the activation dtype."""
+        scalar * ``scale``, in the activation dtype (with ``diff``,
+        ``org_forward(A(x) s) + B(x) s``)."""
         s = self.scale * self._p("scalar") * scale
         ax_mid = self._plain_op(x, self._p("a2.weight").to(x.dtype))
         bx_mid = self._down_op(x, self._p("b2.weight").to(x.dtype))
@@ -152,7 +153,12 @@ class GLoRAModule(LycorisBaseModule):
         if self._draws(train, seed, self.dropout):
             a_out = dropout(draw_generator(seed, _SALTS["drop_a"], x.device), a_out, self.dropout)
             b_out = dropout(draw_generator(seed, _SALTS["drop_b"], x.device), b_out, self.dropout)
-        return org_forward(x + a_out) + b_out
+        return org_forward(a_out if diff else x + a_out) + b_out
+
+    def bypass_forward_diff(self, x, scale=1.0, train=False, seed=None, org_forward=None):
+        """``org_forward(A(x) s) + B(x) s`` (JAX glora.py:250; the layer's
+        bias is in it, as there), with the dropout draws of a training forward."""
+        return self._bypass(x, scale, _need_org_forward(org_forward), train, seed, diff=True)
 
     def forward(self, x, org_weight=None, org_bias=None, multiplier=None, org_forward=None,
                 train=False, seed=None):

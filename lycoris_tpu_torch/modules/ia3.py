@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from .base import LayerInfo, LycorisBaseModule, to_tensor
+from .base import LayerInfo, LycorisBaseModule, _need_org_forward, to_tensor
 
 
 class IA3Module(LycorisBaseModule):
@@ -57,13 +57,18 @@ class IA3Module(LycorisBaseModule):
     def custom_state_dict(self):
         return {"weight": self._p("weight").detach(), "on_input": self._p("on_input")}
 
-    def _bypass(self, x, scale, org_forward):
-        """The input (or the base output) scaled by 1 + w * ``scale``, in the
-        activation dtype."""
-        weight = (self._p("weight") * scale + 1).to(x.dtype)
+    def _bypass(self, x, scale, org_forward, diff=False):
+        """The input (or the base output) scaled by 1 + w * ``scale`` (with
+        ``diff``, by w * ``scale``), in the activation dtype."""
+        weight = (self._p("weight") * scale + (0 if diff else 1)).to(x.dtype)
         if self.train_input:
             return org_forward(x * weight)
         return org_forward(x) * weight
+
+    def bypass_forward_diff(self, x, scale=1.0, train=False, seed=None, org_forward=None):
+        """``org_forward(x * w s)`` on the input, else ``org_forward(x) * w s``
+        (JAX ia3.py:107; the input form keeps the layer's bias, as there)."""
+        return self._bypass(x, scale, _need_org_forward(org_forward), diff=True)
 
     def forward(self, x, org_weight=None, org_bias=None, multiplier=None, org_forward=None,
                 train=False, seed=None):

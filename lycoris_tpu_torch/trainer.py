@@ -59,7 +59,6 @@ import torch
 
 from .sampler import ddpm_alphas_cumprod
 
-NUM_TRAIN_TIMESTEPS = 1000
 # optax.adamw's default, which the JAX trainer uses; torch's AdamW defaults to 1e-2
 WEIGHT_DECAY = 1e-4
 
@@ -83,7 +82,8 @@ class DiffusionTrainer:
     def __init__(self, model, net, lr: float = 1e-4, weight_dtype=torch.bfloat16,
                  merged_forward: bool = True, generator: torch.Generator | None = None,
                  merge_mode: str = "interceptor", scale_weight_norms: float | None = None,
-                 optimizer=None, lr_schedule=None, max_grad_norm: float | None = None):
+                 optimizer=None, lr_schedule=None, max_grad_norm: float | None = None,
+                 num_train_timesteps: int = 1000):
         if merge_mode not in ("interceptor", "premerge"):
             raise ValueError(f"merge_mode must be 'interceptor' or 'premerge', not {merge_mode!r}")
         self.model = model
@@ -98,7 +98,8 @@ class DiffusionTrainer:
         if merge_mode == "interceptor":
             net.apply_to(merged_forward=merged_forward)
         self.alphas_cumprod = torch.from_numpy(
-            ddpm_alphas_cumprod(NUM_TRAIN_TIMESTEPS)).to(self.device)
+            ddpm_alphas_cumprod(num_train_timesteps)).to(self.device)
+        self.num_train_timesteps = num_train_timesteps
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
         self.generator = generator
@@ -140,7 +141,7 @@ class DiffusionTrainer:
         b = latents.shape[0]
         noise = torch.randn(latents.shape, generator=self.generator, device=self.device,
                             dtype=torch.float32)
-        t = torch.randint(0, NUM_TRAIN_TIMESTEPS, (b,), generator=self.generator,
+        t = torch.randint(0, self.num_train_timesteps, (b,), generator=self.generator,
                           device=self.device)
         seed = int(torch.randint(0, 2**62, (), generator=self.drop_generator))
         return self._step(batch, noise, t, seed)

@@ -1,4 +1,9 @@
-"""Small helpers shared by the port (counterpart of ``lycoris_tpu/utils/__init__.py``)."""
+"""Small helpers shared by the port (counterpart of ``lycoris_tpu/utils/__init__.py``).
+
+The tools live in the submodules: :mod:`.extract` (SVD extract), :mod:`.merge`,
+:mod:`.bundle`, :mod:`.hcp_convert` and :mod:`.quant`; the CLIs over them in
+:mod:`lycoris_tpu_torch.tools`.
+"""
 
 from __future__ import annotations
 
@@ -28,3 +33,6 @@ def precalculate_safetensors_hashes(tensors, metadata):
     model_hash = hashlib.sha256(data).hexdigest()[0:8]
     legacy_hash = hashlib.sha256(data[0x100000: 0x100000 + 0x10000]).hexdigest()[0:8]
     return model_hash, legacy_hash
+
+
+from .preset import read_preset  # noqa: E402,F401

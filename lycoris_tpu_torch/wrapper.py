@@ -35,6 +35,10 @@ keeps the layers' own weights for :meth:`~LycorisNetwork.onfly_restore`.
 :meth:`~LycorisNetwork.premerged` is the premerge route of the trainer:
 inside it every mergeable layer holds its merged weight, formed with
 autograd from the adapters, and the model runs as a plain model.
+A quantized base layer (``utils/quant.py``: ``Int8Linear``, or a class of
+``QUANT_CLASSES``) gets its adapter in bypass mode, also when it is loaded
+from a file, and takes neither the merged route nor premerge nor
+``merge_to``; ``algo="full"`` refuses it (JAX wrapper.py:414-424, 786).
 State dicts use the reference key grammar, and
 :meth:`~LycorisNetwork.save_weights`, :meth:`~LycorisNetwork.load_weights`
 and ``create_lycoris_from_weights(file=...)`` read and write them as
@@ -64,6 +68,7 @@ from .modules import (ButterflyOFTModule, DiagOFTModule, DyLoraModule, FullModul
 from .modules.base import fold_in
 from .utils import safetensors_io, str_bool
 from .utils.preset import read_preset
+from .utils.quant import log_bypass
 
 VALID_PRESET_KEYS = [
     "enable_conv",
@@ -214,10 +219,12 @@ def create_lycoris_from_weights(multiplier, file, module, weights_sd=None, lora_
         lyco_type, params = get_module(weights_sd, lora_name)
         if lyco_type is None:
             continue
-        device = kwargs.get("device") or node.module.weight.device
+        device = kwargs.get("device") or node.weights()[0].device
         mod = make_module(lyco_type, params, lora_name, node.layer_info, device=device)
         if mod is None:
             continue
+        if node.is_quant:
+            mod.bypass_mode = True  # dW never touches a quantized weight
         mod.multiplier = multiplier
         loras.append(mod)
         network.lora_map[lora_name] = mod
@@ -376,6 +383,12 @@ class LycorisNetwork(nn.Module):
                     return None
             else:
                 return None
+            if node.is_quant:
+                # QLyCORIS: dW never touches a quantized weight (JAX wrapper.py:414-424)
+                if algo_name == "full":
+                    raise ValueError("Quant layers are not supported in Full algo.")
+                log_bypass()
+                cfg["bypass_mode"] = True
             return _module_class(algo_name)(
                 lora_name, li, self.multiplier, dim, alpha_, self.dropout, self.rank_dropout,
                 self.module_dropout, use_tucker=use_tucker_,
@@ -569,7 +582,8 @@ class LycorisNetwork(nn.Module):
             mult = self.multiplier
             train = self._drop_seed is not None
             drops = train and bool(lyco.dropout or lyco.rank_dropout or lyco.module_dropout)
-            if self.merged_forward and not lyco.bypass_mode and not lyco.not_supported and not drops:
+            if (self.merged_forward and not lyco.bypass_mode and not lyco.not_supported
+                    and not node.is_quant and not drops):
                 out = self._factored_apply(lyco, node, x, w, b, mult)
                 if out is not None:
                     return out
@@ -622,9 +636,9 @@ class LycorisNetwork(nn.Module):
         swapped = []
         try:
             for lora_name, lyco in self.lora_map.items():
-                if lyco.not_supported or lyco.bypass_mode:
-                    continue
                 node = self.node_map[lora_name]
+                if lyco.not_supported or lyco.bypass_mode or node.is_quant:
+                    continue
                 w, b = node.weights()
                 w_m, b_m = lyco.get_merged_weight(w, b, multiplier=multiplier)
                 merged = {"weight": w_m.to(w.dtype)}
@@ -643,14 +657,15 @@ class LycorisNetwork(nn.Module):
     @torch.no_grad()
     def merge_to(self, weight=1.0):
         """Fold every adapter into its layer's weight, in place (reference
-        ``merge_to``). The network must not be applied at the same time."""
+        ``merge_to``); a quantized layer keeps its weight (JAX wrapper.py:786).
+        The network must not be applied at the same time."""
         if self._patched:
             raise RuntimeError("merge_to on an applied network: call restore() first")
         for lora_name, lyco in self.lora_map.items():
-            if lyco.not_supported:
+            node = self.node_map[lora_name]
+            if lyco.not_supported or node.is_quant:
                 continue
-            mod = self.node_map[lora_name].module
-            w, b = self.node_map[lora_name].weights()
+            w, b = node.weights()
             w_m, b_m = lyco.get_merged_weight(w, b, multiplier=weight)
             w.copy_(w_m.to(w.dtype))
             if b is not None and b_m is not None:
@@ -664,7 +679,8 @@ class LycorisNetwork(nn.Module):
             raise RuntimeError("onfly_merge on an applied network: call restore() first")
         self._onfly_saved = [
             (w, w.detach().clone(), b, None if b is None else b.detach().clone())
-            for w, b in (self.node_map[ln].weights() for ln in self.lora_map)]
+            for w, b in (n.weights() for n in (self.node_map[ln] for ln in self.lora_map)
+                         if not n.is_quant)]
         return self.merge_to(weight)
 
     @torch.no_grad()

@@ -870,3 +870,35 @@ def test_cuda_norm_bwd_with_dw_db_through_the_functions(cuda):
             grads.append((xx.grad, w.grad, b.grad))
         for got, want in zip(*grads):
             _check(got, want, dt)
+
+
+@pytest.mark.cuda
+def test_cuda_merge_loha_file_uses_hada_fwd(cuda):
+    """``utils.merge.merge`` of a rank-8 LoHa file on the card forms each
+    layer's dW by the ``hada_fwd`` kernel (one launch a layer) and merges
+    what the CPU merge, on the plain version, merges (fp32 base, fp32 bounds)."""
+    import math
+
+    from lycoris_tpu_torch.graph import ModelGraph
+    from lycoris_tpu_torch.utils.merge import merge
+
+    g = torch.Generator().manual_seed(0)
+    shapes = {"attn.to_q": (1280, 1280), "attn.to_k": (640, 2048), "ff.net_0_proj": (10240, 1280),
+              "proj_in": (320, 320, 1, 1)}
+    base = {f"{n}.weight": torch.randn(s, generator=g) * 0.02 for n, s in shapes.items()}
+    lyco = {}
+    for n, (o, i, *k) in shapes.items():
+        ln = "lora_unet_" + n.replace(".", "_")
+        for w in ("w1", "w2"):
+            lyco[f"{ln}.hada_{w}_a"] = torch.randn(o, 8, generator=g) * 0.1
+            lyco[f"{ln}.hada_{w}_b"] = torch.randn(8, i * math.prod(k), generator=g) * 0.1
+        lyco[f"{ln}.alpha"] = torch.tensor(4.0)
+    n0 = thada.launches
+    got, count = merge([], ModelGraph.from_state_dict({k: v.to(cuda) for k, v in base.items()}),
+                       lyco, scale=0.8, device=cuda)
+    assert count == len(shapes) and thada.launches == n0 + len(shapes)
+    want, _ = merge([], ModelGraph.from_state_dict(base), lyco, scale=0.8, device="cpu")
+    for n in shapes:
+        w = base[f"{n}.weight"]
+        _check((got["lora_unet"][n]["weight"].cpu() - w), want["lora_unet"][n]["weight"] - w,
+               torch.float32)
