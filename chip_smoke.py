@@ -193,7 +193,29 @@ ends the run with a nonzero exit code, and no phase falls back to the CPU:
    bypass mode, a b4 call within 3e-2 of the dequantized bf16 model with
    the same adapters live, ``merge_to`` leaving the int8 weights bit for
    bit); a bundle pack/unpack and an HCP round trip of the LoHa file bit
-   for bit.
+   for bit;
+31. dit_flux -- the Flux-style DiT (``models/dit.py``). First the kernels
+   at its shapes against their plain versions, timed per Flux call: flash
+   at (24, T4608, D128) bf16 on the double block's layout (timed), on
+   contiguous inputs and on the single block's (v a view of ``linear1``'s
+   output), each read in place; the bias-free LayerNorm forward at (4096 |
+   512 | 4608, 3072) on the generic variant; LoHa's dW (fp32) at the 7
+   adapted shapes. Then, at full width and depth 1 + 1 on 512 + 1024 tokens,
+   LoKr (dim 8, factor 8) and LoHa (dim 8) on the ``DoubleStreamBlock`` /
+   ``SingleStreamBlock`` targets live on the card: live against
+   ``merge_to`` (rel L2 1e-3) and against the port on the CPU in fp32 (3e-2).
+   Then ``flux_config()`` at full width and depth (3072, 24 heads, 19 + 38
+   blocks; 11.9 B bf16 parameters drawn on the card) serves 4 adapted calls
+   a leg (batch 1, 512 text + 4096 image tokens, a fresh timestep each)
+   with LoKr, then LoHa: launches per call equal to the census (flash 57,
+   LayerNorm 115 all generic, hada 304 on the LoHa leg, all fast), no flash
+   pad copy, finite outputs, s/call and peak memory; the LoKr file saved
+   and reloaded gives the live tensors bit for bit and the same output;
+32. data_loader -- 8 shards of 64 bf16 latents (4, 128, 128) written by
+   ``utils/safetensors_io``, two epochs at batch 4 through ``data.py``'s
+   native loader (built by g++), each equal to its plain version bit for
+   bit as multisets; each batch to the card through pinned memory; the
+   loader's and the copies' MB/s.
 
 Phase 2 also holds the LayerNorm forward at the CLIP encoders' shapes (b4
 x 77 rows; C = 768 and 1280; bf16 timed), whose rows join the kernel line's
@@ -217,7 +239,10 @@ the fused LoRA matmul, ``train_loha_split`` for the split LoHa backward,
 and db (``layer_norm_bwd_wb``, ``group_norm_bwd_wb``); the run fails if a
 kernel was never launched there. The ``hada_fwd`` entry also has
 ``merge``: the LoHa file merge's launches, its seconds, and the kernel's,
-plain version's and bound's device ms per merge, in total and per shape. Times are device ms per SDXL
+plain version's and bound's device ms per merge, in total and per shape. The
+``flash_fwd``, ``layer_norm_fwd`` and ``hada_fwd`` entries also have ``flux``:
+launches per Flux call (phase 31's LoHa leg) and the kernel's, plain
+version's, library's and bound's device ms per call. Times are device ms per SDXL
 train step (kernel, plain, library, bound; each shape's time weighted by
 its launches, or for the fused LoRA matmul and the split LoHa backward,
 which no SDXL step dispatches, its layers per step: ``per`` says which), with the
@@ -258,6 +283,9 @@ ROOT = Path(__file__).resolve().parent
 MSE_BOUND = {"float32": 5e-6, "bfloat16": 5e-4}
 REL_L2_BOUND = {"float32": 1e-4, "bfloat16": 1e-2}
 MAX_ABS_REL_BOUND = {"float32": 1e-4, "bfloat16": 2**-6}
+# paths whose LayerNorm widths take the generic forward variant in bf16 (no
+# multiple of 40: CLIP-L's 768, Flux's 3072); every UNet width is vectorised
+GENERIC_LN_PATHS = ("clip", "flux")
 
 UNET_BATCH = 4  # SD1.5 serving: 2 prompts with classifier-free guidance
 TRAIN_BATCH = 8  # SD1.5 training
@@ -703,6 +731,53 @@ SD15_STEP_NORM = {**SD15_STEP, "group_norm_bwd": 59, "layer_norm_bwd_wb": 48,
                   "group_norm_bwd_wb": 16}
 SDXL_NORM_ADAPTED, SD15_NORM_ADAPTED = 943, 256
 
+# Flux (flux_config: hidden 3072, 24 heads of 128, depths 19 + 38), per
+# transformer call at batch 1 on 512 text + 4096 image tokens (T = 4608):
+# - flash: one joint attention a block, 19 + 38 = 57 at (24, T4608, D128);
+# - LayerNorm (no bias; C = 3072 is no multiple of 40, so the generic
+#   variant): img_norm1/2 and txt_norm1/2 in each double block, pre_norm in
+#   each single block and final_norm: 4 x 19 + 38 + 1 = 115;
+# - adapted layers under DIT_TARGETS: 10 a double block (img_mod.lin,
+#   txt_mod.lin, img_attn.qkv, txt_attn.qkv, img_attn_proj, txt_attn_proj,
+#   img_mlp_0, img_mlp_2, txt_mlp_0, txt_mlp_2) and 3 a single block
+#   (modulation.lin, linear1, linear2): 19 x 10 + 38 x 3 = 304, each one
+#   hada_fwd a call on the LoHa leg (all I >= 3072: the kernel's gate).
+# The qk RMSNorms and the tanh GELU are plain PyTorch, no kernel of ours.
+DIT_CALL = {"flash_fwd": 57, "layer_norm_fwd": 115}
+DIT_ADAPTED = 304
+DIT_TARGETS = {"target_module": ["DoubleStreamBlock", "SingleStreamBlock"]}
+FLUX_TXT, FLUX_IMG = 512, 4096  # text tokens; a 128x128 latent in 2x2 patches
+FLUX_REQUESTS = 4  # adapted transformer calls served a leg, each at a fresh timestep
+FLUX_PER = ("one Flux transformer call at batch 1, T 512 + 4096 (launches: per call, read "
+            "on the LoHa leg of dit_flux)")
+
+
+def dit_census(cfg, batch: int, txt: int, img: int) -> dict:
+    """Each kernel's shapes in one ``FluxTransformer2D`` call on ``batch`` x
+    (``txt`` text + ``img`` image) tokens, as Counters of shape -> launches:
+    "flash" (B*H, T, D) of the joint attentions that take the flash kernel,
+    "ln" (rows, C), "hada" (O, I) of the layers :data:`DIT_TARGETS` adapts;
+    "adapted" counts those, "per_block" is (layers a double block, layers a
+    single block)."""
+    from lycoris_tpu_torch.ops.attention import use_flash
+
+    d, mlp, t = cfg.hidden_size, cfg.mlp_dim, txt + img
+    dd, ds = cfg.depth_double, cfg.depth_single
+    flash, ln, hada = Counter(), Counter(), Counter()
+    if use_flash(t, t, cfg.head_dim):
+        flash[(batch * cfg.num_heads, t, cfg.head_dim)] += dd + ds
+    ln[(batch * img, d)] += 2 * dd + 1
+    ln[(batch * txt, d)] += 2 * dd
+    ln[(batch * t, d)] += ds
+    double = [(6 * d, d)] * 2 + [(3 * d, d)] * 2 + [(d, d)] * 2 + [(mlp, d), (d, mlp)] * 2
+    single = [(3 * d, d), (3 * d + mlp, d), (d, d + mlp)]
+    for shape in double:
+        hada[shape] += dd
+    for shape in single:
+        hada[shape] += ds
+    return {"flash": flash, "ln": ln, "hada": hada, "adapted": sum(hada.values()),
+            "per_block": (len(double), len(single))}
+
 
 def has_factored(algo: str) -> bool:
     """Whether ``algo``'s module class has a factored cotangent
@@ -779,7 +854,8 @@ def new_results() -> dict:
         return {"ms": 0.0, "host_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                 "bound_parts": {}, "library_ms": None}
 
-    return {name: {"launches": 0, "max_abs_err": 0.0, "sd15": acc(), "sdxl": acc()}
+    return {name: {"launches": 0, "max_abs_err": 0.0, "sd15": acc(), "sdxl": acc(),
+                   "flux": acc()}
             for name in KERNELS}
 
 
@@ -900,27 +976,38 @@ class Checks:
 
     def _flash_inputs(self, layout, b, h, t, d, dtype, n):
         """``n`` (B, H, T, D) operands: "strided", head-split views of (B, T,
-        H*D) tensors as the UNet's attention projections give them (the
-        path's layout), or "contiguous"."""
+        H*D) tensors as the UNet's attention projections and the DiT's
+        double block give them (the path's layout); "contiguous"; or
+        "single", the DiT single block's: q and k strided, v a head-split view
+        of a (B, T, 7*H*D) tensor, as it is of ``linear1``'s output."""
+        if layout == "single":
+            fused = self.rnd((b, t, 7 * h * d), dtype)
+            v = fused[..., 2 * h * d:3 * h * d].unflatten(-1, (h, d)).transpose(1, 2)
+            return self._flash_inputs("strided", b, h, t, d, dtype, n - 1) + [v]
         if layout == "strided":
             return [self.rnd((b, t, h * d), dtype).unflatten(-1, (h, d)).transpose(1, 2)
                     for _ in range(n)]
         return [self.rnd((b, h, t, d), dtype) for _ in range(n)]
 
     def flash_fwd(self, path, bh, t, d, dtype, per_call, timed):
-        """Checked on the path's strided layout and on contiguous inputs; the
-        strided one's times go into the kernel's row, the contiguous kernel
-        time is logged beside."""
+        """Checked on the path's strided layout and on contiguous inputs (on
+        the "flux" path also on the DiT single block's layout), each read in
+        place in bf16 (no pad copy); the strided one's times go into the
+        kernel's row, the other layouts' kernel times are logged beside."""
         import torch
         import torch.nn.functional as F
         from lycoris_tpu_torch.ops import flash
 
-        b = UNET_BATCH if path == "sd15" else SDXL_BATCH
+        b = {"sd15": UNET_BATCH, "flux": 1}.get(path, SDXL_BATCH)
         sm = 1.0 / d**0.5
-        for layout in ("strided", "contiguous"):
+        for layout in ("strided", "contiguous") + (("single",) if path == "flux" else ()):
             q, k, v = self._flash_inputs(layout, b, bh // b, t, d, dtype, 3)
+            pads = flash.pad_copies
             with torch.no_grad():
                 o, lse = flash.flash_attention(q, k, v, sm)
+            if dtype == torch.bfloat16 and flash.pad_copies != pads:
+                fail(f"flash_fwd {path} {layout} ({bh},{t},{d}): the inputs took the pad copy")
+            with torch.no_grad():
                 o_ref, lse_ref = flash.flash_attention_plain(q, k, v, sm)
             torch.cuda.synchronize()
             ok, *stats = compare(dtype, o, o_ref)
@@ -953,7 +1040,7 @@ class Checks:
                 with torch.no_grad():
                     ms = graph_ms(lambda: flash.flash_attention(q, k, v, sm),
                                   10 if t >= 4096 else 30)
-                log(f"[kernels] flash_fwd {path} contiguous ({bh},{t},{d}): kernel {ms:.4f} ms")
+                log(f"[kernels] flash_fwd {path} {layout} ({bh},{t},{d}): kernel {ms:.4f} ms")
             record(self.results, "flash_fwd", path, (ok and lse_err <= 1e-3, *stats),
                    f"({bh},{t},{d}) {layout}", times, per_call if layout == "strided" else 0)
 
@@ -962,8 +1049,10 @@ class Checks:
         variant :func:`layer_norm.fwd_plan` names, the vectorised one at
         every UNet shape in bf16 (the path's dtype; on the "clip" path,
         CLIP-L's C = 768 takes the generic one, and its rows go into no
-        UNet sum). Timed on rotating copies of
-        x over :data:`ROTATE_BYTES` with the outputs held, so each call reads
+        UNet sum; on the "flux" path every C = 3072 LayerNorm takes the
+        generic one, without a bias, and its rows are summed per Flux call).
+        Timed on rotating copies of x over :data:`ROTATE_BYTES` with the
+        outputs held, so each call reads
         x from HBM, as on the path: the vectorised and generic variants, the
         plain version and ``F.layer_norm`` on the same copies; each shape's
         row keeps them with the bound, the plan, the launches and the time
@@ -974,15 +1063,18 @@ class Checks:
 
         x = self.rnd((rows, c), dtype, 2.0) + 0.5
         w = self.rnd((c,), dtype, 0.5) + 1.0
-        b = self.rnd((c,), dtype, 0.5)
+        # the DiT's LayerNorms have no bias (the wrapper passes zeros)
+        b = None if path == "flux" else self.rnd((c,), dtype, 0.5)
         n0 = (layer_norm.fwd_vec_launches, layer_norm.fwd_generic_launches)
         y = layer_norm.layer_norm(x, w, b, 1e-5)
         got = (layer_norm.fwd_vec_launches - n0[0], layer_norm.fwd_generic_launches - n0[1])
         vec = int(layer_norm.vec_lanes(c, x.element_size()) > 0)
-        if got != (vec, 1 - vec) or (dtype == torch.bfloat16 and not vec and path != "clip"):
+        if got != (vec, 1 - vec) or (dtype == torch.bfloat16 and not vec
+                                     and path not in GENERIC_LN_PATHS):
             fail(f"layer_norm_fwd {path} ({rows},{c}) {dtype}: {got[0]} vectorised and "
                  f"{got[1]} generic launches, want the vectorised variant {bool(vec)}")
-        y_gen = layer_norm.layer_norm_fwd(x, w, b, 1e-5, vectorised=False)
+        y_gen = layer_norm.layer_norm_fwd(x, w, torch.zeros_like(w) if b is None else b, 1e-5,
+                                          vectorised=False)
         y_ref = layer_norm.layer_norm_plain(x, w, b, 1e-5)
         torch.cuda.synchronize()
         times = None
@@ -990,7 +1082,7 @@ class Checks:
             # rotating copies of x with the outputs held (the kernel, the
             # plain version and the library alike), so x comes from HBM
             n, es = x.numel(), x.element_size()
-            nbytes = 2 * n * es + 2 * c * es
+            nbytes = 2 * n * es + (1 if b is None else 2) * c * es
             copies = [(x.clone(),) for _ in range(max(2, math.ceil(ROTATE_BYTES / nbytes)))]
             it = max(iters_for(nbytes), len(copies))
             times = _times(
@@ -1002,7 +1094,8 @@ class Checks:
                                              copies, hold=True), it),
                 host=lambda: layer_norm.layer_norm(x, w, b, 1e-5))
             generic_ms = graph_ms(rotating(lambda xc: layer_norm.layer_norm_fwd(
-                xc, w, b, 1e-5, vectorised=False), copies, hold=True), it)
+                xc, w, torch.zeros_like(w) if b is None else b, 1e-5, vectorised=False),
+                copies, hold=True), it)
             # a yardstick of the bytes alone: a device copy of each x into
             # its own output buffer (one read, one write, no arithmetic)
             outs = [torch.empty_like(x) for _ in copies]
@@ -1026,7 +1119,7 @@ class Checks:
                  "copy_ms": copy_ms, "per": per_call, "plan": list(plan)})
             del copies
         record(self.results, "layer_norm_fwd", path, compare(dtype, y, y_ref), f"({rows},{c})",
-               times, per_call if path in ("sd15", "sdxl") else 0)
+               times, per_call if path in ("sd15", "sdxl", "flux") else 0)
         record(self.results, "layer_norm_fwd", path, compare(dtype, y_gen, y_ref),
                f"({rows},{c}) generic variant")
 
@@ -4146,6 +4239,379 @@ def phase_tools_sdxl(results, card) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 31-32: the Flux DiT served with live adapters, the shard loader
+# ---------------------------------------------------------------------------
+
+
+def build_dit(cfg, device, seed):
+    import torch
+    from lycoris_tpu_torch.models.dit import FluxTransformer2D
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return FluxTransformer2D(cfg, device=device, param_dtype=cfg.dtype, generator=gen).eval()
+
+
+def dit_inputs(cfg, txt: int, img: int, gen, dev):
+    """Seeded bf16 image tokens (1, img, in_channels), text tokens (1, txt,
+    context_dim) and a timestep (1,) on the card."""
+    import torch
+
+    return (torch.randn(1, img, cfg.in_channels, generator=gen, device=dev).to(torch.bfloat16),
+            torch.randn(1, txt, cfg.context_dim, generator=gen, device=dev).to(torch.bfloat16),
+            torch.randint(0, 1000, (1,), generator=gen, device=dev))
+
+
+def check_dit_counts(tag: str, counts: dict, census: dict, algo: str, calls: int) -> None:
+    """Fail unless ``calls`` DiT calls launched the census's flash and
+    LayerNorm forwards (every LayerNorm on the generic variant), one LoHa
+    forward a layer on the fast variant on the LoHa leg, no other kernel of
+    ours and no factored layer, and no flash input took the pad copy."""
+    from lycoris_tpu_torch.ops import hada
+    from lycoris_tpu_torch.ops import layer_norm as ln
+
+    want = {name: 0 for name in counts}
+    want["flash_fwd"] = calls * sum(census["flash"].values())
+    want["layer_norm_fwd"] = calls * sum(census["ln"].values())
+    want["hada_fwd"] = calls * census["adapted"] if algo == "loha" else 0
+    log(f"{tag} launches {counts} over {calls} calls (want {want})")
+    if counts != want:
+        fail(f"{tag} launch counts {counts} != {want}")
+    if (ln.fwd_vec_launches, ln.fwd_generic_launches) != (0, want["layer_norm_fwd"]):
+        fail(f"{tag} LayerNorm forward: {ln.fwd_vec_launches} vectorised and "
+             f"{ln.fwd_generic_launches} generic launches, want all generic (C 3072)")
+    if (hada.fast_launches, hada.generic_launches) != (want["hada_fwd"], 0):
+        fail(f"{tag} LoHa forward: {hada.fast_launches} fast and {hada.generic_launches} "
+             f"generic launches of {want['hada_fwd']}")
+    check_no_pad_copies(tag)
+
+
+def dit_reduced(card) -> dict:
+    """At full width and depth 1 + 1 on 512 + 1024 tokens (flash still taken),
+    LoKr and LoHa live (merged forward) on the card in bf16: the launches
+    against the census, the output against ``merge_to`` (rel L2 1e-3) and
+    against the port on the CPU in fp32 with the same weights and adapters
+    (rel L2 3e-2, phase 8's bound)."""
+    import dataclasses
+
+    import torch
+    from lycoris_tpu_torch import create_lycoris_from_weights
+    from lycoris_tpu_torch.models.dit import FluxTransformer2D, flux_config
+
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(flux_config(torch.bfloat16), depth_double=1, depth_single=1)
+    txt, img = FLUX_TXT, 1024
+    census = dit_census(cfg, 1, txt, img)
+    model = build_dit(cfg, dev, seed=41)
+    cpu = FluxTransformer2D(dataclasses.replace(cfg, dtype=torch.float32), device="meta")
+    cpu.load_state_dict({k: v.cpu().float() for k, v in model.state_dict().items()},
+                        assign=True)
+    cpu.eval()
+    inputs = dit_inputs(cfg, txt, img, torch.Generator(device=dev).manual_seed(42), dev)
+    inputs_cpu = (inputs[0].float().cpu(), inputs[1].float().cpu(), inputs[2].cpu())
+    out = {}
+    for algo, seed in (("lokr", 43), ("loha", 44)):
+        tag = f"[dit_flux_reduced_{algo}]"
+        net = adapter_net(model, algo, dev, seed, targets=DIT_TARGETS)
+        if len(net.loras) != census["adapted"]:
+            fail(f"{tag} {len(net.loras)} adapters, want {census['adapted']}")
+        net.apply_to(merged_forward=True)
+        reset_counts()
+        with torch.no_grad():
+            got = model(*inputs).float()
+        torch.cuda.synchronize()
+        check_dit_counts(tag, read_counts(), census, algo, 1)
+        net.restore()
+        adapted = [n.module for n in net.node_map.values()]
+        saved = [(m.weight.detach().clone(), None if m.bias is None else m.bias.detach().clone())
+                 for m in adapted]
+        net.merge_to(1.0)
+        with torch.no_grad():
+            merged = model(*inputs).float()
+            for m, (w, b) in zip(adapted, saved):
+                m.weight.copy_(w)
+                if b is not None:
+                    m.bias.copy_(b)
+        err_merge = rel_l2(got, merged)
+        net_cpu, _ = create_lycoris_from_weights(
+            1.0, None, cpu, weights_sd={k: v.float().cpu() for k, v in net.state_dict().items()})
+        net_cpu.apply_to(merged_forward=True)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            want = cpu(*inputs_cpu)
+        cpu_s = time.perf_counter() - t0
+        net_cpu.restore()
+        err = rel_l2(got.cpu(), want)
+        # bound: bf16 activations and weights (8-bit mantissa) through two
+        # blocks of ~10 layers against fp32, as phase 8's UNet call
+        log(f"{tag} {len(net.loras)} adapters, T {txt} + {img}: live vs merge_to rel L2 "
+            f"{err_merge:.3e} (bound 1e-3); card bf16 vs CPU fp32 rel L2 {err:.3e} (bound "
+            f"3e-2; CPU call {cpu_s:.1f} s)")
+        if not err_merge <= 1e-3:
+            fail(f"{tag} live adapters differ from merge_to: rel L2 {err_merge:.3e}")
+        if not (err <= 3e-2 and bool(torch.isfinite(got).all())):
+            fail(f"{tag} card vs CPU rel L2 {err:.3e} over 3e-2")
+        out[algo] = {"live_vs_merge_to": err_merge, "card_vs_cpu": err, "cpu_s": cpu_s}
+        del net, net_cpu
+    return out
+
+
+DIT_BUCKETS = (("flash_fwd", ("flash",)), ("layer_norm_fwd", ("ln_fwd",)), ("hada_fwd", ("hada",)),
+               ("GEMM (cuBLAS)", ("gemm", "xmma", "cutlass", "nvjet", "sm90")))
+
+
+def dit_call_profile(tag: str, call, host_s: float) -> dict:
+    """One call of ``call`` under torch.profiler (device events only):
+    device ms and kernels a call, the busy share of ``host_s``, device ms by
+    bucket (our kernels, cuBLAS GEMMs, the rest: elementwise, copies,
+    reductions) and the 8 costliest kernels."""
+    import torch
+
+    with torch.no_grad():
+        events = [e for e in device_events(call, 1, 0) if e.duration_ns()]
+    by_name = Counter()
+    for e in events:
+        by_name[e.name()] += e.duration_ns() / 1e6
+    buckets = Counter()
+    for name, ms in by_name.items():
+        low = name.lower()
+        bucket = next((b for b, keys in DIT_BUCKETS if any(k in low for k in keys)),
+                      "elementwise, copies, reductions")
+        buckets[bucket] += ms
+    total = sum(by_name.values())
+    prof = {"device_ms": total, "kernels": len(events), "busy": total / 1e3 / host_s,
+            "buckets_ms": dict(buckets.most_common()),
+            "top": [[name[:90], ms] for name, ms in by_name.most_common(8)]}
+    log(f"{tag} one call profiled: {total:.3f} device ms, {len(events)} kernels, busy "
+        f"{prof['busy']:.3f} of the fastest call's {host_s:.4f} s; by bucket "
+        f"{json.dumps({k: round(v, 3) for k, v in buckets.most_common()})}")
+    for name, ms in prof["top"]:
+        log(f"{tag}   {ms:9.3f} ms  {name}")
+    return prof
+
+
+def dit_serve(model, cfg, results, card, tmp) -> dict:
+    """Serve ``FLUX_REQUESTS`` adapted transformer calls (batch 1, 512 + 4096
+    tokens, a fresh timestep each; the JAX package has no DiT sampler) a
+    leg, LoKr then LoHa live (merged forward), after one warm-up call: the
+    launches against the census, finite outputs, s/call and peak memory,
+    and one more call profiled (:func:`dit_call_profile`).
+    The LoKr adapter file saved by ``save_weights`` (fp32) and reloaded by
+    ``create_lycoris_from_weights`` gives the live network's tensors bit
+    for bit and its output for the first request."""
+    import os
+
+    import torch
+    from lycoris_tpu_torch import create_lycoris_from_weights
+
+    dev = torch.device("cuda")
+    census = dit_census(cfg, 1, FLUX_TXT, FLUX_IMG)
+    gen = torch.Generator(device=dev).manual_seed(45)
+    reqs = [dit_inputs(cfg, FLUX_TXT, FLUX_IMG, gen, dev) for _ in range(FLUX_REQUESTS + 1)]
+    out = {}
+    for algo, seed in (("lokr", 46), ("loha", 47)):
+        tag = f"[dit_flux_{algo}]"
+        t0 = time.perf_counter()
+        net = adapter_net(model, algo, dev, seed, targets=DIT_TARGETS)
+        build_s = time.perf_counter() - t0
+        kinds = Counter(type(m).__name__ for m in net.loras)
+        want_kind = {"lokr": "LokrModule", "loha": "LohaModule"}[algo]
+        if kinds != {want_kind: DIT_ADAPTED}:
+            fail(f"{tag} adapters {dict(kinds)}, want {DIT_ADAPTED} {want_kind}")
+        net.apply_to(merged_forward=True)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            model(*reqs[0])
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        outs, secs = [], []
+        for req in reqs[1:]:
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                outs.append(model(*req))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        counts = read_counts()
+        check_dit_counts(tag, counts, census, algo, FLUX_REQUESTS)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        for o in outs:
+            if o.shape != (1, FLUX_IMG, cfg.in_channels) or not bool(torch.isfinite(o).all()):
+                fail(f"{tag} output not finite / wrong shape {tuple(o.shape)}")
+        log(f"{tag} {DIT_ADAPTED} adapters built in {build_s:.2f} s; warm-up call "
+            f"{warm_s:.3f} s; {FLUX_REQUESTS} calls at batch 1, T {FLUX_TXT} + {FLUX_IMG}: "
+            f"s/call {[round(x, 4) for x in secs]}, peak {peak:.2f} GiB allocated ({card}; "
+            f"host-clocked smoke reading, not a benchmark)")
+        out[algo] = {"s_per_call": secs, "warm_up_s": warm_s, "peak_gib": peak,
+                     "profile": dit_call_profile(tag, lambda: model(*reqs[1]), min(secs))}
+        if algo == "loha":
+            for name in ("flash_fwd", "layer_norm_fwd", "hada_fwd"):
+                results[name]["flux_launches"] = counts[name] // FLUX_REQUESTS
+        net.restore()
+        if algo == "lokr":
+            path = os.path.join(tmp, "dit_lokr.safetensors")
+            net.save_weights(path)
+            loaded, _ = create_lycoris_from_weights(1.0, path, model)
+            live_sd, got_sd = net.state_dict(), loaded.state_dict()
+            if set(live_sd) != set(got_sd) or not all(torch.equal(live_sd[k], got_sd[k])
+                                                      for k in live_sd):
+                fail(f"{tag} the reloaded file's tensors differ from the live network's")
+            loaded.apply_to(merged_forward=True)
+            with torch.no_grad():
+                again = model(*reqs[1])
+            loaded.restore()
+            err, same = rel_l2(again, outs[0]), bool(torch.equal(again, outs[0]))
+            log(f"{tag} file {os.path.getsize(path)} bytes reloaded: tensors bit for bit, "
+                f"output rel L2 {err:.3e} to the live network's (bound 1e-3), bit for bit "
+                f"{same}")
+            if not err <= 1e-3:
+                fail(f"{tag} the reloaded file's output differs: rel L2 {err:.3e}")
+            out[algo]["file_output_bit_for_bit"] = same
+            del loaded
+        del net, outs
+    return out
+
+
+def phase_dit_flux(results, card) -> dict:
+    """Phase 31: the kernels at the Flux shapes (flash at (24, T4608, D128)
+    in the double and single blocks' layouts, the bias-free LayerNorm at C
+    = 3072, LoHa's dW at the adapted shapes) against their plain versions
+    and timed (per Flux call: the kernel line's ``flux``); the reduced-depth
+    comparisons (:func:`dit_reduced`); then full-width, full-depth Flux in
+    bf16 served with LoKr and LoHa (:func:`dit_serve`)."""
+    import gc
+    import tempfile
+
+    import torch
+    from lycoris_tpu_torch.models.dit import flux_config
+
+    dev = torch.device("cuda")
+    cfg = flux_config(torch.bfloat16)
+    census = dit_census(cfg, 1, FLUX_TXT, FLUX_IMG)
+    got = {"flash_fwd": sum(census["flash"].values()),
+           "layer_norm_fwd": sum(census["ln"].values())}
+    if got != DIT_CALL or census["adapted"] != DIT_ADAPTED:
+        fail(f"the DiT census gives {got} and {census['adapted']} adapted layers, the hand "
+             f"count {DIT_CALL} and {DIT_ADAPTED}")
+    ck = Checks(results, seed=5)
+    for (bh, t, d), n in census["flash"].items():
+        ck.flash_fwd("flux", bh, t, d, torch.bfloat16, n, True)
+    for (rows, c), n in census["ln"].items():
+        ck.layer_norm_fwd("flux", rows, c, torch.bfloat16, n, True)
+    for (o_, i_), n in census["hada"].items():
+        ck.hada_fwd("flux", o_, i_, torch.float32, n, True)
+    for name in ("flash_fwd", "layer_norm_fwd", "hada_fwd"):
+        a = results[name]["flux"]
+        lib = "—" if a["library_ms"] is None else f"{a['library_ms']:.3f}"
+        log(f"[dit_flux] {name} per Flux call: kernel {a['ms']:.3f} ms, plain "
+            f"{a['plain_ms']:.3f} ms, library {lib} ms, bound {a['bound_ms']:.3f} ms "
+            f"({a['bound_ms'] / a['ms']:.1%} of it; {card})")
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"reduced": dit_reduced(card)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model = build_dit(cfg, dev, seed=40)
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[dit_flux] Flux full width (3072, 24 heads, 19 + 38 blocks), bf16, {n_params} params "
+        f"({n_params * 2 / 2**30:.2f} GiB) drawn on the card in {time.perf_counter() - t0:.2f} s")
+    with tempfile.TemporaryDirectory() as tmp:
+        out.update(dit_serve(model, cfg, results, card, tmp))
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[dit_flux] {json.dumps(out)}")
+    return out
+
+
+DATA_SHARDS, DATA_PER_SHARD, DATA_BATCH = 8, 64, 4
+DATA_SHAPE = (4, 128, 128)  # an SDXL latent of a 1024x1024 image
+
+
+def phase_data_loader(card) -> dict:
+    """Phase 32: ``DATA_SHARDS`` shards of ``DATA_PER_SHARD`` bf16 latents
+    written by ``utils/safetensors_io``, read for two epochs at batch
+    ``DATA_BATCH`` by ``data.ShardDataset.epoch`` (the native loader, built
+    by g++ here): each epoch's batches equal the plain version's bit for bit
+    as multisets (the loader hands batches over in the order its workers
+    finish them), every record once; each batch copied to the card through
+    pinned memory and back bit for bit. Logs the loader's, the plain
+    version's, the pinning's and the host-to-card copy's MB/s."""
+    import tempfile
+
+    import torch
+    from lycoris_tpu_torch import data
+    from lycoris_tpu_torch.utils import safetensors_io
+
+    tag = "[data_loader]"
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(31)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        for s in range(DATA_SHARDS):
+            safetensors_io.save_file(
+                {f"latents_{s}_{i:02d}": torch.randn(DATA_SHAPE, generator=gen).to(torch.bfloat16)
+                 for i in range(DATA_PER_SHARD)}, f"{tmp}/shard-{s}.safetensors")
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        lib_path = data.build()
+        data.lib()
+        build_s = time.perf_counter() - t0
+        ds = data.ShardDataset.from_dir(tmp, key_prefix="latents")
+        n = DATA_SHARDS * DATA_PER_SHARD
+        if (len(ds), ds.shape, ds.dtype) != (n, DATA_SHAPE, torch.bfloat16):
+            fail(f"{tag} dataset {len(ds)} x {ds.shape} {ds.dtype}")
+        log(f"{tag} {DATA_SHARDS} shards of {DATA_PER_SHARD} bf16 latents {DATA_SHAPE} written "
+            f"in {write_s:.2f} s; {lib_path.name} built and loaded in {build_s:.2f} s")
+
+        def key(b):
+            return b.view(torch.int16).numpy().tobytes()
+
+        for seed in (0, 1):
+            t0 = time.perf_counter()
+            batches = list(ds.epoch(DATA_BATCH, seed=seed))
+            load_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            plain = list(ds.epoch_plain(DATA_BATCH, seed=seed))
+            plain_s = time.perf_counter() - t0
+            if len(batches) != n // DATA_BATCH or any(
+                    b.shape != (DATA_BATCH, *DATA_SHAPE) or b.dtype != torch.bfloat16
+                    for b in batches):
+                fail(f"{tag} epoch {seed}: {len(batches)} batches, want {n // DATA_BATCH} of "
+                     f"({DATA_BATCH}, {DATA_SHAPE}) bf16")
+            if sorted(map(key, batches)) != sorted(map(key, plain)):
+                fail(f"{tag} epoch {seed}: the native batches differ from the plain version's")
+            items = {bytes(x) for b in batches for x in b.view(torch.int16).numpy()
+                     .reshape(DATA_BATCH, -1)}
+            if len(items) != n:
+                fail(f"{tag} epoch {seed}: {len(items)} distinct records of {n}")
+            t0 = time.perf_counter()
+            pinned = [b.pin_memory() for b in batches]
+            pin_s = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            on_card = [p.to(dev, non_blocking=True) for p in pinned]
+            end.record()
+            torch.cuda.synchronize()
+            copy_s = start.elapsed_time(end) / 1e3
+            if not all(torch.equal(c.cpu(), b) for c, b in zip(on_card, batches)):
+                fail(f"{tag} epoch {seed}: a batch changed on its way to the card")
+            mb = sum(b.numel() * b.element_size() for b in batches) / 1e6
+            rates = {"loader": mb / load_s, "plain": mb / plain_s, "pin": mb / pin_s,
+                     "host_to_card": mb / copy_s}
+            log(f"{tag} epoch {seed}: {len(batches)} batches, {mb:.1f} MB equal to the plain "
+                f"version's as multisets; MB/s " + ", ".join(f"{k} {v:.1f}"
+                                                            for k, v in rates.items())
+                + f" ({card}; warm page cache)")
+            out[f"epoch_{seed}"] = rates
+            del batches, plain, pinned, on_card
+    return out
+
+
 def main() -> int:
     if not (ROOT / "lycoris_tpu_torch" / "csrc").is_dir():
         print("chip_smoke: lycoris_tpu_torch/ not found beside this script", file=sys.stderr)
@@ -4276,6 +4742,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     with phase("tools_sdxl"):
         phase_tools_sdxl(results, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with phase("dit_flux"):
+        phase_dit_flux(results, card)
+    with phase("data_loader"):
+        phase_data_loader(card)
 
     for name, meta in KERNELS.items():
         if results[name]["launches"] <= 0:
@@ -4296,6 +4768,9 @@ def main() -> int:
         r = results[name]
         extra = {k: r[k] for k in ("variants", "shapes", "with_dw_db", "route_rows", "merge")
                  if k in r}
+        if r["flux"]["ms"]:
+            extra["flux"] = {"launches": r.get("flux_launches", 0), "per": FLUX_PER,
+                             **sums(r["flux"])}
         table.append({"name": name, "route": meta["route"], "source": meta["source"],
                       "replaces": meta["replaces"], "path": meta["path"],
                       "per": meta.get("per", PER_SDXL_STEP), "launches": r["launches"],

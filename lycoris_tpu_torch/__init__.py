@@ -17,8 +17,12 @@ PyTorch version. The kohya front end (:mod:`.kohya`) targets the UNet and
 the CLIP text encoders (:mod:`.models.clip`), and ``python -m
 lycoris_tpu_torch.train`` trains from the repo's TOML configs. The tools
 (:mod:`.utils`: SVD extract, merge, bundle, HCP convert, int8 quantized
-bases) run as ``python -m lycoris_tpu_torch.tools.<name>``. The package
-never imports JAX.
+bases) run as ``python -m lycoris_tpu_torch.tools.<name>``. The
+Flux-style DiT (:mod:`.models.dit`, ``FluxTransformer2D``) serves with live
+adapters, its joint attention on the flash kernel, and :mod:`.data`'s
+``ShardDataset`` reads latent shards through the native loader
+(``native/loader.cpp``, built by ``g++`` at first use). The package never
+imports JAX.
 """
 
 __version__ = "0.1.0"

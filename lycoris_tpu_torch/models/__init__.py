@@ -1,5 +1,6 @@
-"""Host models of the port: torch-layout layers, the SD UNet and the CLIP text encoder."""
+"""Host models of the port: torch-layout layers, the SD UNet, the CLIP text
+encoder and the Flux-style DiT."""
 
-from . import clip, layers, unet
+from . import clip, dit, layers, unet
 
-__all__ = ["clip", "layers", "unet"]
+__all__ = ["clip", "dit", "layers", "unet"]

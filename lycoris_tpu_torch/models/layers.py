@@ -1,7 +1,7 @@
 """Torch-layout layers of the port (counterpart of ``lycoris_tpu/models/layers.py``).
 
 Class names mirror torch (``Linear``, ``Conv2d``, ``LayerNorm``,
-``GroupNorm``) because presets target class names. Weights stay in torch
+``RMSNorm``, ``GroupNorm``) because presets target class names. Weights stay in torch
 layout and are cast to the activation dtype at each call, as in the JAX
 layers. Each layer gives the graph its :class:`LayerInfo`
 (``lycoris_layer_info``) and can run with a substituted weight
@@ -136,6 +136,38 @@ class LayerNorm(nn.Module):
 
     def lycoris_layer_info(self) -> LayerInfo:
         return LayerInfo.layer_norm(self.dim, self.eps, self.bias is not None)
+
+
+class RMSNorm(nn.Module):
+    """Trailing-dim RMSNorm, x / sqrt(mean(x^2) + eps) then the weight (the
+    JAX ``L.RMSNorm``: no mean subtraction, no bias by default); plain
+    PyTorch, as it is plain XLA in the JAX package. The graph and the Norm
+    algorithm see it as an RMSNorm through its LayerInfo."""
+
+    def __init__(self, dim: int, eps: float = 1e-6, bias: bool = False, device=None, dtype=None):
+        super().__init__()
+        self.dim, self.eps = dim, eps
+        kw = dict(device=device, dtype=dtype or torch.float32)
+        self.weight = nn.Parameter(torch.ones(dim, **kw))
+        self.bias = nn.Parameter(torch.zeros(dim, **kw)) if bias else None
+
+    def reset_parameters(self, generator=None):
+        with torch.no_grad():
+            self.weight.fill_(1.0)
+            if self.bias is not None:
+                self.bias.zero_()
+
+    def forward_with(self, x, weight, bias):
+        return general.rms_norm(
+            x, (self.dim,), weight.to(x.dtype), None if bias is None else bias.to(x.dtype),
+            self.eps,
+        )
+
+    def forward(self, x):
+        return self.forward_with(x, self.weight, self.bias)
+
+    def lycoris_layer_info(self) -> LayerInfo:
+        return LayerInfo.rms_norm(self.dim, self.eps, self.bias is not None)
 
 
 class GroupNorm(nn.Module):

@@ -128,6 +128,21 @@ def test_cuda_layer_norm_fwd_clip_shapes(cuda, dtype, c):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("rows", [4608, 512])
+def test_cuda_layer_norm_fwd_flux_shapes(cuda, rows):
+    """The Flux DiT's LayerNorms (C = 3072, no bias) at the joint sequence's
+    and the text stream's rows in bf16, against the plain version: C = 3072
+    is no multiple of 40, so ``fwd_plan`` names the generic variant."""
+    g = torch.Generator(device=cuda).manual_seed(8)
+    x, w, _ = _ln_inputs(rows, 3072, torch.bfloat16, g, cuda)
+    assert tln.fwd_plan(rows, 3072, x.element_size()).lanes == 0
+    n = _ln_fwd_counts()
+    y = tln.layer_norm(x, w, None, 1e-5)
+    assert tuple(now - was for now, was in zip(_ln_fwd_counts(), n)) == (1, 0, 1)
+    _check(y, tln.layer_norm_plain(x, w, None, 1e-5), torch.bfloat16)
+
+
+@pytest.mark.cuda
 def test_cuda_layer_norm_fwd_repeats_bit_for_bit(cuda):
     """The vectorised variant sums in a fixed order: 50 calls, and a call
     on a second stream, give the same bits (bf16, three path shapes)."""
@@ -214,6 +229,31 @@ def test_cuda_flash_kernel(cuda, dtype):
         assert float((lse - lse_ref).abs().max()) < 1e-3
     q, k, v = (_heads(2, 10, 1024, 64, g, dtype, cuda) for _ in range(3))
     _graph_matches_eager(lambda: tflash.flash_fwd(q, k, v, 0.125))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["contiguous", "single_block"])
+def test_cuda_flash_fwd_flux_shapes(cuda, layout):
+    """Flux's joint attention, (1, 24, 4608, 128) bf16, against the plain
+    version: on contiguous inputs, and in the single block's layout (q and k
+    head-split views of the qk RMSNorm's (B, T, C) output, v a view of
+    ``linear1``'s (B, T, 3C + 4C) output), read in place (no pad copy)."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    b, h, t, d = 1, 24, 4608, 128
+    if layout == "contiguous":
+        q, k, v = (torch.randn(b, h, t, d, device=cuda, generator=g).to(torch.bfloat16)
+                   for _ in range(3))
+    else:
+        q, k = (_heads(b, h, t, d, g, torch.bfloat16, cuda) for _ in range(2))
+        fused = torch.randn(b, t, 7 * h * d, device=cuda, generator=g).to(torch.bfloat16)
+        v = fused[..., 2 * h * d:3 * h * d].unflatten(-1, (h, d)).transpose(1, 2)
+    assert not any(tflash.needs_pad(x) for x in (q, k, v))
+    n = tflash.pad_copies, tflash.launches
+    o, lse = tflash.flash_attention(q, k, v, d**-0.5)
+    assert (tflash.pad_copies, tflash.launches) == (n[0], n[1] + 1)
+    o_ref, lse_ref = tflash.flash_attention_plain(q, k, v, d**-0.5)
+    _check(o, o_ref, torch.bfloat16)
+    assert float((lse - lse_ref).abs().max()) < 1e-3
 
 
 # (O, I) of the LoHa layers of the SD1.5 and SDXL paths (rank 8)
