@@ -217,6 +217,26 @@ ends the run with a nonzero exit code, and no phase falls back to the CPU:
    bit as multisets; each batch to the card through pinned memory; the
    loader's and the copies' MB/s.
 
+Two phases show the distributed path (``lycoris_tpu_torch.parallel``):
+
+- dist_sd15_gloo, after phase 18 -- two ranks on cuda:0 in one gloo world
+  (NCCL refuses two ranks on one device), spawned with a ``file://``
+  rendezvous and a timeout, each building full-width SD1.5 (bf16, seed 0)
+  and the LoKr adapter of phase 9: a (1, 2) mesh with the base sharded
+  (each rank at most 0.55x of the base bytes, each sharded leaf gathered
+  1-4 times a step), then a (2, 1) mesh at b4 a rank (launches per step
+  equal to the b4 census); on both, one all-reduce a step, the losses
+  within rel 1e-3 of phase 9's first b8 losses and the adapters equal on
+  both ranks after each step; gloo's
+  collectives host-clocked, the phase's wall time; a failed rank fails
+  the run;
+- dist_sdxl_nccl, after phase 25 -- a one-rank NCCL world and
+  ``DiffusionTrainer(mesh=make_mesh())`` on the SDXL model, LoKr at b4, 3
+  steps with the checks of phase 9, the all-reduce's device ms a step
+  (CUDA events) and the peak memory; its losses and final adapter tensors
+  within rel 1e-6 of the plain trainer's on the same batch and seed (bit
+  for bit logged); the group destroyed at the end.
+
 Phase 2 also holds the LayerNorm forward at the CLIP encoders' shapes (b4
 x 77 rows; C = 768 and 1280; bf16 timed), whose rows join the kernel line's
 ``shapes`` under path "clip" with their sums per CLIP-L + CLIP-G call
@@ -4612,6 +4632,267 @@ def phase_data_loader(card) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the distributed path: a one-rank NCCL world on SDXL, two gloo ranks on SD1.5
+# ---------------------------------------------------------------------------
+
+DIST_STEPS = 2  # steps of each mesh in dist_sd15_gloo
+DIST_SD15_TIMEOUT = 300  # seconds the two-rank world may take, start-up included
+
+
+@contextlib.contextmanager
+def timed_collectives(device_events: bool):
+    """Time every all-reduce and all-gather of ``parallel.sharding`` while
+    inside: ``{"all_reduce": [ms, ...], "all_gather": [...]}``, by CUDA
+    events on the current stream (NCCL) or by the host clock between
+    synchronisations (gloo, which stages the card's tensors through the
+    host)."""
+    import torch
+    from lycoris_tpu_torch.parallel import sharding as shd
+
+    out = {"all_reduce": [], "all_gather": []}
+    pending = []
+    originals = {"all_reduce": shd.all_reduce_sum, "all_gather": shd.all_gather_cat}
+
+    def wrap(kind, fn):
+        def timed(*args):
+            if device_events:
+                a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                a.record()
+                res = fn(*args)
+                b.record()
+                pending.append((kind, a, b))
+                return res
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn(*args)
+            torch.cuda.synchronize()
+            out[kind].append((time.perf_counter() - t0) * 1e3)
+            return res
+        return timed
+
+    shd.all_reduce_sum = wrap("all_reduce", originals["all_reduce"])
+    shd.all_gather_cat = wrap("all_gather", originals["all_gather"])
+    try:
+        yield out
+    finally:
+        shd.all_reduce_sum, shd.all_gather_cat = originals["all_reduce"], originals["all_gather"]
+        torch.cuda.synchronize()
+        for kind, a, b in pending:
+            out[kind].append(a.elapsed_time(b))
+
+
+def phase_dist_sdxl_nccl(model, sd, batch, results, card):
+    """``DiffusionTrainer(mesh=make_mesh())`` in a one-rank NCCL world
+    (``init_distributed`` on a ``file://`` rendezvous) on the SDXL model,
+    LoKr at b4, 3 steps with the checks of phase 9 (launches per step equal
+    to the census), the all-reduce's device ms a step (CUDA events) and the
+    peak memory; then the plain trainer on the same batch and generator
+    seed: losses and final adapter tensors within rel 1e-6 (and whether bit
+    for bit). The group is destroyed at the end."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from lycoris_tpu_torch.models.unet import sdxl_config
+    from lycoris_tpu_torch.parallel import init_distributed
+    from lycoris_tpu_torch.parallel import sharding as shd
+
+    tag = "[dist_sdxl_nccl]"
+    want = checked_counts(sdxl_config(), SDXL_BATCH, SDXL_HW, "lokr", True, True, SDXL_STEP,
+                          SDXL_ADAPTED, SDXL_FACTORED)
+    with tempfile.TemporaryDirectory() as tmp:
+        init_distributed(f"file://{tmp}/rendezvous", 1, 0, device="cuda")
+        try:
+            if dist.get_backend() != "nccl":
+                fail(f"{tag} the world's backend is {dist.get_backend()}, not nccl")
+            mesh = shd.make_mesh()
+            shd.reset_counts()
+            with timed_collectives(device_events=True) as ms:
+                got = train(model, "lokr", sd, batch, want, 3, results, card, tag,
+                            trainer_kw={"mesh": mesh})
+            if dict(shd.collectives) != {"all_reduce": 3}:
+                fail(f"{tag} collectives {dict(shd.collectives)}, want one all-reduce a step")
+        finally:
+            dist.destroy_process_group()
+    plain = train(model, "lokr", sd, batch, want, 3, results, card, "[dist_sdxl_plain]")
+    a, b = results["training"]["dist_sdxl_nccl"], results["training"]["dist_sdxl_plain"]
+    loss_rel = max(abs(x - y) / abs(y) for x, y in zip(a["losses"], b["losses"]))
+    tensor_rel = max(float((got[k].float() - plain[k].float()).abs().max()
+                           / plain[k].float().abs().max().clamp(min=1e-30)) for k in plain)
+    bitwise = a["losses"] == b["losses"] and all(torch.equal(got[k], plain[k]) for k in plain)
+    if not (loss_rel <= 1e-6 and tensor_rel <= 1e-6):
+        fail(f"{tag} the one-rank world is {loss_rel:.3e} (losses) and {tensor_rel:.3e} "
+             f"(adapter tensors) from the plain trainer, want <= 1e-6")
+    numel = sum(v.numel() for v in got.values())
+    log(f"{tag} one NCCL rank, mesh (1, 1): losses and {len(got)} adapter tensors equal to the "
+        f"plain trainer's (rel {loss_rel:.2e} / {tensor_rel:.2e}; bit for bit: {bitwise}); the "
+        f"flattened all-reduce ({numel} adapter values + the loss, fp32) "
+        f"{[round(x, 4) for x in ms['all_reduce']]} device ms a step (CUDA events); peak memory "
+        f"{a['peak_gib']:.2f} GiB against the plain trainer's {b['peak_gib']:.2f} ({card})")
+    a.update({"all_reduce_ms": ms["all_reduce"], "bitwise": bitwise, "loss_rel": loss_rel,
+              "tensor_rel": tensor_rel})
+
+
+DIST_SD15_MESHES = (("mp", 1, 2), ("dp", 2, 1))  # (name, data, model) of dist_sd15_gloo
+DIST_LOSS_REL = 1e-3  # a distributed step's losses against the plain b8 ones
+
+
+def dist_sd15_rank(rank, world, setup_path, meshes=DIST_SD15_MESHES, nccl=False):
+    """A rank of ``dist_sd15_gloo`` (every rank on cuda:0) or, with
+    ``nccl``, of a world with one card a rank (``profile_dist.py``):
+    full-width SD1.5 (bf16, seed 0) with the LoKr adapter of the setup
+    file, trained DIST_STEPS steps on each ``(name, data, model)`` mesh of
+    ``meshes`` in turn, the base sharded where ``model`` > 1, the launches
+    of every step held to the census at this rank's batch; per mesh:
+    losses, base bytes, gathers and collectives a step, their ms a step
+    (CUDA events under NCCL, the host clock under gloo), the peak memory,
+    and whether the adapters equal rank 0's after each step."""
+    import torch
+    import torch.distributed as dist
+    from lycoris_tpu_torch.models.unet import sd15_config
+    from lycoris_tpu_torch.parallel import sharding as shd
+    from lycoris_tpu_torch.trainer import DiffusionTrainer
+
+    dev = torch.device("cuda", rank if nccl else 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    setup = torch.load(setup_path, weights_only=False)
+    batch = {k: v.to(dev) for k, v in setup["batch"].items()}
+    sd = {k: v.to(dev) for k, v in setup["sd"].items()}
+    out = {}
+    for name, data, model_axis in meshes:
+        tag = f"[dist_sd15 {name} rank {rank}]"
+        mesh = shd.make_mesh(data=data, model=model_axis)
+        model = build_unet(dev, torch.bfloat16, seed=0)
+        full = shd.base_bytes(model)
+        net = make_net(model, sd)
+        tr = DiffusionTrainer(model, net, lr=1e-4, weight_dtype=torch.bfloat16, mesh=mesh,
+                              shard_base=model_axis > 1,
+                              generator=torch.Generator(device=dev).manual_seed(21))
+        local = shd.shard_batch(batch, mesh)
+        b = local["latents"].shape[0]
+        want = checked_counts(sd15_config(), b, 64, "lokr", True, False, SD15_STEP,
+                              SD15_ADAPTED, SD15_FACTORED)
+        r = {"data": data, "model": model_axis, "batch": b, "full_bytes": full,
+             "bytes": shd.base_bytes(model), "losses": [], "s": [], "gathers": [],
+             "collectives": [], "ms": [], "equal": [],
+             "sharded": sum(d is not None for d in (tr.base_specs or {}).values())}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(DIST_STEPS):
+            reset_counts()
+            shd.reset_counts()
+            t0 = time.perf_counter()
+            with timed_collectives(device_events=nccl) as ms:
+                loss = tr.train_step(local)
+                torch.cuda.synchronize()
+            r["s"].append(time.perf_counter() - t0)
+            counts = read_counts()
+            if counts != want:
+                fail(f"{tag} launch counts per step {counts} != {want}")
+            check_no_pad_copies(tag)
+            check_fast(tag, counts)
+            r["losses"].append(float(loss))
+            r["gathers"].append(dict(shd.gathers))
+            r["collectives"].append(dict(shd.collectives))
+            r["ms"].append({k: sum(v) for k, v in ms.items()})
+            flat = torch.cat([p.detach().float().reshape(-1) for p in net.parameters()])
+            ref = flat.clone()
+            dist.broadcast(ref, src=0)
+            r["equal"].append(bool(torch.equal(ref, flat)))
+        r["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        out[name] = r
+        net.restore()
+        del tr, net, model
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def check_dist_sd15(outs, plain, prefix, clock):
+    """Fail unless every rank's every mesh of :func:`dist_sd15_rank` holds:
+    at most 0.55x of the base bytes and each sharded leaf gathered 1-4
+    times a step where the base is sharded, no gather where it is not; one
+    all-reduce a step; the losses within DIST_LOSS_REL of the plain b8
+    ``plain``; the adapters equal to rank 0's after each step. Logs each
+    mesh's readings (``clock``: how its collectives were timed)."""
+    for rank, o in enumerate(outs):
+        for name, r in o.items():
+            shape = (r["data"], r["model"])
+            tag = f"[{prefix} {name} {shape} rank {rank}]"
+            share = r["bytes"] / r["full_bytes"]
+            sharded = ""
+            if r["model"] > 1:
+                if share > 0.55:
+                    fail(f"{tag} holds {share:.3f} of the base bytes, want <= 0.55")
+                for g in r["gathers"]:
+                    if len(g) != r["sharded"] or not all(1 <= n <= 4 for n in g.values()):
+                        fail(f"{tag} gathered {len(g)} of {r['sharded']} sharded leaves, "
+                             f"{min(g.values(), default=0)}-{max(g.values(), default=0)} "
+                             "times a step (want every one, 1-4 times)")
+                sharded = (f", base sharded: {r['sharded']} leaves, base bytes "
+                           f"{r['bytes'] / 2**30:.3f} of {r['full_bytes'] / 2**30:.3f} GiB "
+                           f"({share:.3f}); gathers a step {[sum(g.values()) for g in r['gathers']]}"
+                           f" (at most {max(max(g.values()) for g in r['gathers'])} a leaf); "
+                           f"all-gather {clock} ms a step "
+                           f"{[round(m['all_gather'], 3) for m in r['ms']]}")
+            for c, g in zip(r["collectives"], r["gathers"]):
+                if c.get("all_reduce") != 1 or c.get("all_gather", 0) != sum(g.values()):
+                    fail(f"{tag} collectives {c} with {sum(g.values())} gathers, want one "
+                         "all-reduce a step and an all-gather a gather")
+            rel = max(abs(x - y) / abs(y) for x, y in zip(r["losses"], plain))
+            if rel > DIST_LOSS_REL:
+                fail(f"{tag} losses {r['losses']} are {rel:.2e} from the plain b8 {plain}, "
+                     f"want <= {DIST_LOSS_REL:g}")
+            if not all(r["equal"]):
+                fail(f"{tag} adapters differ from rank 0's after a step: {r['equal']}")
+            log(f"{tag} b{r['batch']} a rank{sharded}; launches per step equal to the "
+                f"b{r['batch']} census; all-reduce {clock} ms a step "
+                f"{[round(m['all_reduce'], 3) for m in r['ms']]}; losses {r['losses']} (rel "
+                f"{rel:.2e} from the plain b8 {plain}); adapters equal to rank 0's after each "
+                f"step; s/step {[round(x, 3) for x in r['s']]}; peak {r['peak_gib']:.2f} GiB")
+
+
+def dist_sd15_setup(tmp, sd, batch) -> str:
+    """The LoKr adapter ``sd`` and the global ``batch`` saved for the ranks."""
+    import os
+
+    import torch
+
+    path = os.path.join(tmp, "setup.pt")
+    torch.save({"sd": {k: v.cpu() for k, v in sd.items()},
+                "batch": {k: v.cpu() for k, v in batch.items()}}, path)
+    return path
+
+
+def phase_dist_sd15_gloo(sd, batch, results, card):
+    """Two ranks on cuda:0 in one gloo world (NCCL refuses two ranks on one
+    device), spawned with a ``file://`` rendezvous and a timeout, each
+    building full-width SD1.5 and the LoKr adapter ``sd``: (1, 2) with the
+    base sharded, then (2, 1) at b4 a rank, held by :func:`check_dist_sd15`
+    to the plain trainer's b8 losses (``train_lokr``'s first steps: same
+    batch, adapter and generator seed). A failed rank fails the run."""
+    import tempfile
+
+    import torch
+    from lycoris_tpu_torch.parallel import run_world
+
+    plain = results["training"]["train_lokr"]["losses"][:DIST_STEPS]
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = run_world(dist_sd15_rank, 2, dist_sd15_setup(tmp, sd, batch), backend="gloo",
+                         timeout=DIST_SD15_TIMEOUT)
+    wall = time.perf_counter() - t0
+    check_dist_sd15(outs, plain, "dist_sd15_gloo", "host")
+    log(f"[dist_sd15_gloo] two gloo ranks on one card, {DIST_STEPS} steps a mesh: {wall:.2f} s "
+        f"with the processes' start-up ({card}; gloo stages the card's tensors through the "
+        "host, so its collective times are not NCCL's)")
+    results["training"]["dist_sd15_gloo"] = {"wall_s": wall, "ranks": outs, "plain": plain}
+
+
 def main() -> int:
     if not (ROOT / "lycoris_tpu_torch" / "csrc").is_dir():
         print("chip_smoke: lycoris_tpu_torch/ not found beside this script", file=sys.stderr)
@@ -4689,6 +4970,8 @@ def main() -> int:
     phase_sd15_algos(model, batch, results, card)
     with phase("train_e2e_oft"):
         phase_e2e_oft(model)
+    with phase("dist_sd15_gloo"):
+        phase_dist_sd15_gloo(sds["lokr"], batch, results, card)
 
     # SDXL: the SD1.5 model freed first
     del model, sds, sds_dora, sd_conv, batch, trained_lokr
@@ -4720,6 +5003,8 @@ def main() -> int:
             phase_sdxl_oft(model, batch, results, card, algo)
     with phase("train_sdxl_norm"):
         phase_sdxl_norm(model, batch, results, card)
+    with phase("dist_sdxl_nccl"):
+        phase_dist_sdxl_nccl(model, sds["lokr"], batch, results, card)
     del batch
     torch.cuda.empty_cache()
     for algo, tag in (("lokr", "[train_sdxl_e2e]"), ("lora", "[train_sdxl_e2e_lora]")):

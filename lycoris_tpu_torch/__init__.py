@@ -21,8 +21,10 @@ bases) run as ``python -m lycoris_tpu_torch.tools.<name>``. The
 Flux-style DiT (:mod:`.models.dit`, ``FluxTransformer2D``) serves with live
 adapters, its joint attention on the flash kernel, and :mod:`.data`'s
 ``ShardDataset`` reads latent shards through the native loader
-(``native/loader.cpp``, built by ``g++`` at first use). The package never
-imports JAX.
+(``native/loader.cpp``, built by ``g++`` at first use). The multi-device
+path (:mod:`.parallel`: ``init_distributed``, a ``(data, model)`` mesh,
+the base sharded over ``model``) runs ``DiffusionTrainer(mesh=...)`` on
+``torch.distributed``. The package never imports JAX.
 """
 
 __version__ = "0.1.0"

@@ -21,6 +21,7 @@ import torch
 from torch import nn
 
 from .modules.base import LayerInfo
+from .parallel import sharding
 
 
 def layer_info_for(mod: nn.Module, name: str = "") -> LayerInfo | None:
@@ -78,10 +79,27 @@ class Node:
         return self.layer_info is not None
 
     def weights(self):
-        """(weight, bias) in torch layout; a quantized layer's weight dequantized in fp32."""
+        """(weight, bias) in torch layout; a quantized layer's weight
+        dequantized in fp32; a leaf sharded over a model axis
+        (:func:`~.parallel.sharding.shard_base_params`) whole: the one its
+        running forward gathered, else gathered now."""
         if self.is_quant and hasattr(self.module, "dequantized_weight"):
             return self.module.dequantized_weight(), getattr(self.module, "bias", None)
+        if hasattr(self.module, "_lycoris_shards"):
+            return sharding.full_param(self.module, "weight"), sharding.full_param(self.module,
+                                                                                   "bias")
         return self.module.weight, getattr(self.module, "bias", None)
+
+    def stored(self):
+        """(weight, bias) as the layer stores them: this rank's slices of
+        sharded leaves."""
+        return (sharding.stored_param(self.module, "weight"),
+                sharding.stored_param(self.module, "bias"))
+
+    def write(self, name: str, value):
+        """Write the whole ``value`` into the layer's leaf ``name`` (this
+        rank's slice of it where the leaf is sharded)."""
+        sharding.write_param(self.module, name, value)
 
     def apply(self, x, weight, bias):
         """The layer's output for ``x`` with ``weight``/``bias`` in place of its own."""

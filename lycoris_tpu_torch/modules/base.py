@@ -180,9 +180,14 @@ def module_keep(gen, p: float):
     return (torch.rand((), generator=gen, device=gen.device) >= p).float()
 
 
-def dropout(gen, x, p: float):
-    """Inverted dropout: ``x / (1 - p)`` where kept (probability 1 - p), else 0."""
-    keep = torch.rand(x.shape, generator=gen, device=x.device) < 1.0 - p
+def dropout(gen, x, p: float, shard=(0, 1)):
+    """Inverted dropout: ``x / (1 - p)`` where kept (probability 1 - p), else 0.
+    ``shard = (i, n)``: ``x`` is rank i's rows of a batch split over n data
+    ranks, and its mask is those rows of the mask drawn for the whole batch,
+    so the ranks together drop as one process would."""
+    (i, n), b = shard, x.shape[0]
+    draw = torch.rand((n * b, *x.shape[1:]), generator=gen, device=x.device)
+    keep = draw[i * b:(i + 1) * b] < 1.0 - p
     return torch.where(keep, x / (1.0 - p), 0.0).to(x.dtype)
 
 
@@ -402,10 +407,13 @@ class LycorisBaseModule(nn.Module):
         scalar.mul_(torch.where(scaled, ratio, 1.0).to(scalar.dtype))
         return self.params, scaled, orig * ratio
 
-    def bypass_forward_diff(self, x, scale=1.0, train=False, seed=None, org_forward=None):
+    def bypass_forward_diff(self, x, scale=1.0, train=False, seed=None, org_forward=None,
+                            shard=(0, 1)):
         """The adapter's delta of the layer's output for ``x`` times
         ``scale``, never forming dW where the algorithm allows; the modules
-        whose delta is a function of the base output take ``org_forward``."""
+        whose delta is a function of the base output take ``org_forward``.
+        ``shard = (i, n)``: ``x`` is data rank i's rows of a batch split over
+        n ranks (plain dropout's mask is those rows of the whole batch's)."""
         raise NotImplementedError
 
     def _draws(self, train, seed, p) -> bool:
@@ -424,11 +432,12 @@ class LycorisBaseModule(nn.Module):
         drop = self._rank_mask(weight.shape[0], weight.dtype, weight.device, seed)
         return weight * drop.reshape(-1, *[1] * (weight.ndim - 1))
 
-    def _dropped(self, out, train, seed):
-        """``out`` through plain dropout in training."""
+    def _dropped(self, out, train, seed, shard=(0, 1)):
+        """``out`` through plain dropout in training (``shard`` as in
+        :meth:`bypass_forward_diff`)."""
         if not self._draws(train, seed, self.dropout):
             return out
-        return dropout(draw_generator(seed, DROP_SALT, out.device), out, self.dropout)
+        return dropout(draw_generator(seed, DROP_SALT, out.device), out, self.dropout, shard)
 
     def _module_dropout_mix(self, seed, train, base, full):
         """Module dropout: ``base`` alone with probability p, else ``full``
@@ -439,16 +448,17 @@ class LycorisBaseModule(nn.Module):
         return base + (full - base) * keep.to(base.dtype)
 
     def forward(self, x, org_weight=None, org_bias=None, multiplier=None, org_forward=None,
-                train=False, seed=None):
+                train=False, seed=None, shard=(0, 1)):
         """Delta over base: ``org_forward(x) + op(x, dW)`` (or the bypass
         path); in training (``train`` and an int ``seed``) with the dropout
-        trio applied."""
+        trio applied (``shard`` as in :meth:`bypass_forward_diff`)."""
         multiplier = self.multiplier if multiplier is None else multiplier
         if org_forward is None:
             org_forward = lambda z: self.op(z, org_weight, org_bias)  # noqa: E731
         base = org_forward(x)
         if self.bypass_mode:
-            full = base + self.bypass_forward_diff(x, scale=multiplier, train=train, seed=seed)
+            full = base + self.bypass_forward_diff(x, scale=multiplier, train=train, seed=seed,
+                                                   shard=shard)
         else:
             diff = self.get_weight(train, seed).to(org_weight.dtype) * self._p("scalar")
             if self.wd:

@@ -138,7 +138,8 @@ class GLoRAModule(LycorisBaseModule):
             return mid * drop.reshape(1, -1, *[1] * (mid.ndim - 2))
         return mid * drop
 
-    def _bypass(self, x, scale, org_forward, train=False, seed=None, diff=False):
+    def _bypass(self, x, scale, org_forward, train=False, seed=None, diff=False,
+                shard=(0, 1)):
         """``org_forward(x + A(x) s) + B(x) s`` with one scale s = alpha / r *
         scalar * ``scale``, in the activation dtype (with ``diff``,
         ``org_forward(A(x) s) + B(x) s``)."""
@@ -151,22 +152,26 @@ class GLoRAModule(LycorisBaseModule):
         a_out = (self._plain_op(ax_mid, self._p("a1.weight").to(x.dtype)) * s).to(x.dtype)
         b_out = (self._plain_op(bx_mid, self._p("b1.weight").to(x.dtype)) * s).to(x.dtype)
         if self._draws(train, seed, self.dropout):
-            a_out = dropout(draw_generator(seed, _SALTS["drop_a"], x.device), a_out, self.dropout)
-            b_out = dropout(draw_generator(seed, _SALTS["drop_b"], x.device), b_out, self.dropout)
+            a_out = dropout(draw_generator(seed, _SALTS["drop_a"], x.device), a_out, self.dropout,
+                            shard)
+            b_out = dropout(draw_generator(seed, _SALTS["drop_b"], x.device), b_out, self.dropout,
+                            shard)
         return org_forward(a_out if diff else x + a_out) + b_out
 
-    def bypass_forward_diff(self, x, scale=1.0, train=False, seed=None, org_forward=None):
+    def bypass_forward_diff(self, x, scale=1.0, train=False, seed=None, org_forward=None,
+                            shard=(0, 1)):
         """``org_forward(A(x) s) + B(x) s`` (JAX glora.py:250; the layer's
         bias is in it, as there), with the dropout draws of a training forward."""
-        return self._bypass(x, scale, _need_org_forward(org_forward), train, seed, diff=True)
+        return self._bypass(x, scale, _need_org_forward(org_forward), train, seed, diff=True,
+                            shard=shard)
 
     def forward(self, x, org_weight=None, org_bias=None, multiplier=None, org_forward=None,
-                train=False, seed=None):
+                train=False, seed=None, shard=(0, 1)):
         multiplier = self.multiplier if multiplier is None else multiplier
         if org_forward is None:
             org_forward = lambda z: self.op(z, org_weight, org_bias)  # noqa: E731
         if self.bypass_mode:
-            out = self._bypass(x, multiplier, org_forward, train, seed)
+            out = self._bypass(x, multiplier, org_forward, train, seed, shard=shard)
             return self._module_dropout_mix(seed, train, org_forward(x), out)
         base = org_forward(x)
         delta = self.op(x, self.get_diff_weight(multiplier, org_weight)[0].to(x.dtype))

@@ -71,7 +71,7 @@ class IA3Module(LycorisBaseModule):
         return self._bypass(x, scale, _need_org_forward(org_forward), diff=True)
 
     def forward(self, x, org_weight=None, org_bias=None, multiplier=None, org_forward=None,
-                train=False, seed=None):
+                train=False, seed=None, shard=(0, 1)):
         multiplier = self.multiplier if multiplier is None else multiplier
         if org_forward is None:
             org_forward = lambda z: self.op(z, org_weight, org_bias)  # noqa: E731

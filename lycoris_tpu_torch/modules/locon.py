@@ -154,7 +154,7 @@ class LoConModule(LycorisBaseModule):
         return recon_fn, dtheta_fn
 
     # -- forward paths ----------------------------------------------------------
-    def bypass_forward_diff(self, x, scale=1.0, train=False, seed=None):
+    def bypass_forward_diff(self, x, scale=1.0, train=False, seed=None, shard=(0, 1)):
         """up(down(x)) * scalar * (alpha / r) * scale in x's dtype, never
         forming dW (``functional.locon.bypass_forward_diff``); the down op,
         or the mid core under tucker, carries the layer's stride and padding
@@ -170,4 +170,4 @@ class LoConModule(LycorisBaseModule):
             x, None, self._p("lora_down.weight").to(x.dtype),
             self._p("lora_up.weight").to(x.dtype), mid,
             gamma=self._p("scalar") * self.scale * scale, extra_args=extra, rank_mask=rank_mask)
-        return self._dropped(out.to(x.dtype), train, seed)
+        return self._dropped(out.to(x.dtype), train, seed, shard)

@@ -127,6 +127,6 @@ class LohaModule(LycorisBaseModule):
         dW comes from the LoHa forward kernel."""
         return self._max_norm_on_scalar(max_norm)
 
-    def bypass_forward_diff(self, x, scale=1.0, train=False, seed=None):
+    def bypass_forward_diff(self, x, scale=1.0, train=False, seed=None, shard=(0, 1)):
         diff_weight = self.get_weight(train, seed) * self._p("scalar") * scale
-        return self._dropped(self.op(x, diff_weight.to(x.dtype)), train, seed)
+        return self._dropped(self.op(x, diff_weight.to(x.dtype)), train, seed, shard)

@@ -298,9 +298,9 @@ class LokrModule(LycorisBaseModule):
         return (self._p("lokr_w1"), self._p("lokr_w1_a"), self._p("lokr_w1_b"),
                 self._p("lokr_w2"), self._p("lokr_w2_a"), w2b, self._p("lokr_t2"))
 
-    def bypass_forward_diff(self, x, scale=1.0, train=False, seed=None):
+    def bypass_forward_diff(self, x, scale=1.0, train=False, seed=None, shard=(0, 1)):
         out = bypass_diff_with_scale(
             x, *self._functional_weights(), scale=self.scale * self._p("scalar") * scale,
             extra_args=self.layer.kw if self.layer.is_conv else {},
         )
-        return self._dropped(out, train, seed)
+        return self._dropped(out, train, seed, shard)

@@ -69,7 +69,7 @@ class NormModule(LycorisBaseModule):
         return {k: v.detach() for k, v in dest.items()}
 
     def forward(self, x, org_weight=None, org_bias=None, multiplier=None, org_forward=None,
-                train=False, seed=None):
+                train=False, seed=None, shard=(0, 1)):
         multiplier = self.multiplier if multiplier is None else multiplier
         if org_forward is None:
             org_forward = lambda z: self.layer.op(z, org_weight, org_bias)  # noqa: E731

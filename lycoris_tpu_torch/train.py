@@ -25,7 +25,16 @@ JAX front end draws them again from the start); the adapter file is saved
 in fp16 every ``save_every_n_steps`` and at the end.
 
 It runs on the card unless ``--device cpu`` is given, and exits non-zero
-when asked for the card and there is none.
+when asked for the card and there is none. Under ``torchrun``:
+
+    torchrun --nproc_per_node N -m lycoris_tpu_torch.train --config ...
+
+every rank joins one NCCL world (gloo with ``--device cpu``) and all ranks
+go on the data axis (the JAX front end's mesh over every device):
+``train_batch_size`` is the global batch, which must divide by N; each
+rank draws the global synthetic batch from the seed and trains on its
+rows; the metrics, the weight files and the train state are written by
+rank 0 alone.
 """
 
 from __future__ import annotations
@@ -105,6 +114,8 @@ def main(argv=None) -> dict:
     from .kohya import create_network
     from .models import unet as U
     from .observability import MetricLogger, StepTimer
+    from .parallel import init_distributed
+    from .parallel import sharding as shd
     from .trainer import DiffusionTrainer
 
     basics = cfg.get("Basics", {})
@@ -112,7 +123,10 @@ def main(argv=None) -> dict:
     lyco_cfg = cfg.get("LyCORIS", {})
     opt_cfg = cfg.get("Optimizer", {})
     save_cfg = cfg.get("Save", {})
-    dev = torch.device(args.device)
+    had_group = torch.distributed.is_initialized()
+    dev = init_distributed(device=args.device)  # a no-op without torchrun
+    mesh = shd.make_mesh()  # every rank on the data axis; None in one process
+    main_rank = shd.is_main_process()
 
     seed = int(basics.get("seed", 0))
     batch = int(opt_cfg.get("train_batch_size", 4))
@@ -171,7 +185,7 @@ def main(argv=None) -> dict:
         optimizer=lambda groups: torch.optim.AdamW(groups, lr=unet_lr, betas=betas, eps=1e-8,
                                                    weight_decay=wd),
         lr_schedule=build_lr_schedule(cfg, unet_lr), max_grad_norm=max_grad_norm or None,
-        scale_weight_norms=scale_weight_norms or None,
+        scale_weight_norms=scale_weight_norms or None, mesh=mesh,
     )
 
     out_dir = save_cfg.get("output_dir", "lycoris_out")
@@ -186,7 +200,7 @@ def main(argv=None) -> dict:
     name = save_cfg.get("output_name", "lycoris")
 
     timer = StepTimer()
-    metrics = MetricLogger(os.path.join(out_dir, "metrics.jsonl"))
+    metrics = MetricLogger(os.path.join(out_dir, "metrics.jsonl")) if main_rank else None
     data_rng = np.random.default_rng(seed)
     shapes = {"latents": (batch, 4, latent_hw, latent_hw), "context": (batch, 77, ucfg.context_dim)}
     for _ in range(trainer.step):  # a resumed run skips the batches already trained on
@@ -195,13 +209,16 @@ def main(argv=None) -> dict:
     losses, seconds = [], []
     for step in range(trainer.step, max_steps):
         t0 = time.perf_counter()
-        batch_data = {k: torch.tensor(data_rng.normal(size=s), dtype=torch.float32).to(dev, dtype)
-                      for k, s in shapes.items()}
+        # the global batch from the seed; this rank's rows of it
+        batch_data = shd.shard_batch(
+            {k: torch.tensor(data_rng.normal(size=s), dtype=torch.float32)
+             for k, s in shapes.items()}, mesh)
+        batch_data = {k: v.to(dev, dtype) for k, v in batch_data.items()}
         loss = trainer.train_step(batch_data)
         timer.step(loss)
         losses.append(float(loss))
         seconds.append(time.perf_counter() - t0)
-        if step % 10 == 0:
+        if step % 10 == 0 and main_rank:
             extra = {}
             if trainer.max_norm_stats is not None:
                 count, mean_norm, max_norm_v = (float(v) for v in trainer.max_norm_stats)
@@ -210,15 +227,18 @@ def main(argv=None) -> dict:
                              max_norm_max=max_norm_v if count else 0.0)
             metrics.log(step, loss=losses[-1], steps_per_sec=timer.steps_per_sec or 0, **extra)
         if every and step and step % every == 0:
-            net.save_weights(os.path.join(out_dir, f"{name}-{step:06d}.safetensors"),
-                             dtype=torch.float16, metadata={})
+            if main_rank:
+                net.save_weights(os.path.join(out_dir, f"{name}-{step:06d}.safetensors"),
+                                 dtype=torch.float16, metadata={})
             if save_state:
                 trainer.save_checkpoint(state_path)
-    metrics.close()
-
     out = os.path.join(out_dir, f"{name}.safetensors")
-    net.save_weights(out, dtype=torch.float16, metadata={})
-    print(f"saved {out}")
+    if main_rank:
+        metrics.close()
+        net.save_weights(out, dtype=torch.float16, metadata={})
+        print(f"saved {out}")
+    if torch.distributed.is_initialized() and not had_group:
+        torch.distributed.destroy_process_group()
     return {"losses": losses, "seconds": seconds, "start_step": start_step, "saved": out}
 
 

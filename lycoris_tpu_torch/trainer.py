@@ -40,13 +40,33 @@
   file, so that a resumed run repeats the uninterrupted one (the JAX
   trainer takes its rng from the caller; this one draws its own).
 
+- ``mesh`` (:func:`.parallel.sharding.make_mesh`, one process a rank):
+  ``train_step`` takes this rank's rows of the global batch (dim 0 split
+  over the ``data`` axis), and ``generator``, seeded the same on every rank,
+  draws the noise and timesteps for the global batch, of which the rank
+  takes its rows, so that the ranks together take the step one process
+  takes on the whole batch (plain dropout likewise, by
+  ``LycorisNetwork.training_step``'s ``batch_shard``). The adapters are
+  broadcast from the first rank at construction; after each backward their
+  gradients and the loss go through one flattened all-reduce over the
+  ``data`` group and are divided by its size (DDP is not used: its buckets
+  and hooks would add nothing to one all-reduce of a few MB, and the
+  adapters are not one module it could wrap); the returned loss is the
+  global batch's; the clip, the optimizer and max-norm then run on
+  identical gradients and parameters. ``shard_base=True`` also shards the
+  frozen base over the ``model`` axis
+  (:func:`.parallel.sharding.shard_base_params`). A ``(1, 1)`` mesh with a
+  process group runs the all-reduce on one rank; no mesh (None, what
+  ``make_mesh`` gives one process without a group) runs no collective.
+  :meth:`~DiffusionTrainer.save_checkpoint` writes on global rank 0 only.
+
 The trainer runs on the device of the model it is given and moves nothing
 to the CPU. It updates the network's own parameters in place, so
 :meth:`DiffusionTrainer.sync_to_network` has nothing to copy.
 
-Not ported: the flat optimizer and mesh sharding; ``auto_layout`` is XLA
-machinery and has no counterpart; ``param_groups``, which the JAX trainer
-accepts and never reads.
+Not ported: the flat optimizer; ``auto_layout`` is XLA machinery and has
+no counterpart; ``param_groups``, which the JAX trainer accepts and never
+reads.
 """
 
 from __future__ import annotations
@@ -57,6 +77,7 @@ import time
 
 import torch
 
+from .parallel import sharding as shd
 from .sampler import ddpm_alphas_cumprod
 
 # optax.adamw's default, which the JAX trainer uses; torch's AdamW defaults to 1e-2
@@ -83,7 +104,7 @@ class DiffusionTrainer:
                  merged_forward: bool = True, generator: torch.Generator | None = None,
                  merge_mode: str = "interceptor", scale_weight_norms: float | None = None,
                  optimizer=None, lr_schedule=None, max_grad_norm: float | None = None,
-                 num_train_timesteps: int = 1000):
+                 num_train_timesteps: int = 1000, mesh=None, shard_base: bool = False):
         if merge_mode not in ("interceptor", "premerge"):
             raise ValueError(f"merge_mode must be 'interceptor' or 'premerge', not {merge_mode!r}")
         self.model = model
@@ -97,6 +118,12 @@ class DiffusionTrainer:
         model.to(dtype=weight_dtype)
         if merge_mode == "interceptor":
             net.apply_to(merged_forward=merged_forward)
+        self.mesh = mesh
+        self.base_specs = None
+        if mesh is not None:
+            shd.replicate(net, mesh)
+            if shard_base:
+                self.base_specs = shd.shard_base_params(model, mesh)
         self.alphas_cumprod = torch.from_numpy(
             ddpm_alphas_cumprod(num_train_timesteps)).to(self.device)
         self.num_train_timesteps = num_train_timesteps
@@ -134,29 +161,48 @@ class DiffusionTrainer:
 
     def train_step(self, batch: dict):
         """One AdamW step on ``batch`` (``latents``, ``context``, optionally
-        ``added_cond``), noise and timesteps drawn from the trainer's
-        generator, the adapters' dropout from the step's drop seed. Returns
-        the loss (a 0-dim tensor on the device)."""
+        ``added_cond``; under a mesh this rank's rows of the global batch),
+        noise and timesteps drawn from the trainer's generator, the
+        adapters' dropout from the step's drop seed. Returns the loss (a
+        0-dim tensor on the device; under a mesh the global batch's)."""
         latents = batch["latents"]
-        b = latents.shape[0]
-        noise = torch.randn(latents.shape, generator=self.generator, device=self.device,
-                            dtype=torch.float32)
+        b = latents.shape[0] * shd.axis_size(self.mesh, "data")  # the global batch
+        noise = torch.randn((b, *latents.shape[1:]), generator=self.generator,
+                            device=self.device, dtype=torch.float32)
         t = torch.randint(0, self.num_train_timesteps, (b,), generator=self.generator,
                           device=self.device)
         seed = int(torch.randint(0, 2**62, (), generator=self.drop_generator))
         return self._step(batch, noise, t, seed)
 
     def _step(self, batch: dict, noise, t, seed: int):
-        """The step of :meth:`train_step` on the given noise, timesteps and
-        drop seed."""
-        with self.net.training_step(seed), self.adapted():
+        """The step of :meth:`train_step` on the given noise and timesteps
+        of the global batch (this rank takes its rows) and drop seed."""
+        noise, t = shd.shard_batch((noise, t), self.mesh)
+        shard = (shd.axis_index(self.mesh, "data"), shd.axis_size(self.mesh, "data"))
+        with self.net.training_step(seed, shard), self.adapted():
             loss = self.loss_fn(batch["latents"], batch["context"], noise, t,
                                 batch.get("added_cond"))
             self.optimizer.zero_grad(set_to_none=True)
             loss.backward()
+        loss = loss.detach()
+        if self.mesh is not None:
+            loss = self._all_reduce(loss)
         self._update()
         self.step += 1
-        return loss.detach()
+        return loss
+
+    @torch.no_grad()
+    def _all_reduce(self, loss):
+        """The adapter gradients and ``loss`` averaged over the data group
+        in one flattened all-reduce (fp32); returns the averaged loss."""
+        grads = [p.grad for g in self.optimizer.param_groups for p in g["params"]
+                 if p.grad is not None]
+        flat = torch.cat([g.reshape(-1).float() for g in grads] + [loss.float().reshape(1)])
+        shd.all_reduce_sum(flat, self.mesh.get_group("data"))
+        flat /= shd.axis_size(self.mesh, "data")
+        for g, v in zip(grads, flat[:-1].split([g.numel() for g in grads])):
+            g.copy_(v.view_as(g))
+        return flat[-1].to(loss.dtype)
 
     def _update(self) -> None:
         """The optimizer's step on the gradients: the global-norm clip, the
@@ -179,7 +225,10 @@ class DiffusionTrainer:
 
     def save_checkpoint(self, path) -> None:
         """The adapter tensors (parameters and buffers), the AdamW state,
-        ``step`` and both generators' states, in one ``torch.save`` file."""
+        ``step`` and both generators' states, in one ``torch.save`` file,
+        written by global rank 0 alone (every rank holds the same)."""
+        if not shd.is_main_process():
+            return
         torch.save({
             "adapters": {f"{lyco.lora_name}.{k}": v.detach()
                          for lyco in self.net.loras for k, v in lyco.params.items()},

@@ -312,6 +312,7 @@ class LycorisNetwork(nn.Module):
         self.merged_forward = False
         self._patched: dict[str, Any] = {}
         self._drop_seed: int | None = None
+        self._batch_shard = (0, 1)  # (data rank, data ranks) of a training forward's batch
         cls = type(self)
         self.enable_conv = cls.ENABLE_CONV
         self.target_replace_module = list(cls.TARGET_REPLACE_MODULE)
@@ -561,16 +562,19 @@ class LycorisNetwork(nn.Module):
         )
 
     @contextlib.contextmanager
-    def training_step(self, seed: int):
+    def training_step(self, seed: int, batch_shard=(0, 1)):
         """Forwards inside the block are training forwards whose dropout
         draws come from ``seed`` and each adapter's ``lora_name``. Keep the
         backward inside it too: the recompute of a checkpointed block reads
-        the seed again and draws the same masks."""
-        prev, self._drop_seed = self._drop_seed, int(seed)
+        the seed again and draws the same masks. ``batch_shard = (i, n)``:
+        the batch is data rank i's rows of one split over n ranks (plain
+        dropout draws its mask for the whole batch and takes those rows)."""
+        prev = self._drop_seed, self._batch_shard
+        self._drop_seed, self._batch_shard = int(seed), tuple(batch_shard)
         try:
             yield self
         finally:
-            self._drop_seed = prev
+            self._drop_seed, self._batch_shard = prev
 
     def _adapted_forward(self, lora_name):
         lyco = self.lora_map[lora_name]
@@ -594,6 +598,7 @@ class LycorisNetwork(nn.Module):
                 x, org_weight=w, org_bias=b, multiplier=mult,
                 org_forward=lambda z: node.from_native(org_forward(z, *args, **kwargs)),
                 train=train, seed=fold_in(self._drop_seed, lora_name) if train else None,
+                shard=self._batch_shard,
             )
             return node.to_native(out)
 
@@ -667,9 +672,10 @@ class LycorisNetwork(nn.Module):
                 continue
             w, b = node.weights()
             w_m, b_m = lyco.get_merged_weight(w, b, multiplier=weight)
-            w.copy_(w_m.to(w.dtype))
+            # a leaf sharded over a model axis takes this rank's slice
+            node.write("weight", w_m.to(w.dtype))
             if b is not None and b_m is not None:
-                b.copy_(b_m.to(b.dtype))
+                node.write("bias", b_m.to(b.dtype))
         return self
 
     def onfly_merge(self, weight=1.0):
@@ -678,18 +684,16 @@ class LycorisNetwork(nn.Module):
         if self._patched:
             raise RuntimeError("onfly_merge on an applied network: call restore() first")
         self._onfly_saved = [
-            (w, w.detach().clone(), b, None if b is None else b.detach().clone())
-            for w, b in (n.weights() for n in (self.node_map[ln] for ln in self.lora_map)
-                         if not n.is_quant)]
+            (t, t.detach().clone())
+            for n in (self.node_map[ln] for ln in self.lora_map) if not n.is_quant
+            for t in n.stored() if t is not None]
         return self.merge_to(weight)
 
     @torch.no_grad()
     def onfly_restore(self):
         """Copy back the layers' weights and biases :meth:`onfly_merge` kept."""
-        for w, w0, b, b0 in self._onfly_saved:
-            w.copy_(w0)
-            if b is not None:
-                b.copy_(b0)
+        for t, t0 in self._onfly_saved:
+            t.copy_(t0)
         del self._onfly_saved
         return self
 

@@ -138,7 +138,7 @@ class FixedMasks:
         def t_rank(gen, n, p, scale, dtype, device):
             return torch.tensor(self.rank_mask(n), dtype=dtype, device=device)
 
-        def t_drop(gen, x, p):
+        def t_drop(gen, x, p, shard=(0, 1)):
             return torch.where(torch.tensor(self.drop_mask(x.shape)), x / (1.0 - p), 0.0).to(x.dtype)
 
         def t_keep(gen, p):

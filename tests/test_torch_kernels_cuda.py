@@ -942,3 +942,47 @@ def test_cuda_merge_loha_file_uses_hada_fwd(cuda):
         w = base[f"{n}.weight"]
         _check((got["lora_unet"][n]["weight"].cpu() - w), want["lora_unet"][n]["weight"] - w,
                torch.float32)
+
+
+@pytest.mark.cuda
+def test_cuda_one_rank_nccl_trainer_matches_plain(cuda, tmp_path):
+    """A one-rank NCCL world (``init_distributed`` on a ``file://``
+    rendezvous) and ``DiffusionTrainer(mesh=make_mesh())`` on the tiny UNet
+    with LoKr, 3 steps: the plain trainer's losses and adapter tensors (the
+    all-reduce over one rank is the identity)."""
+    import torch.distributed as dist
+
+    from lycoris_tpu_torch.graft_entry import _setup
+    from lycoris_tpu_torch.parallel import init_distributed
+    from lycoris_tpu_torch.parallel import sharding as shd
+    from lycoris_tpu_torch.trainer import DiffusionTrainer
+
+    def run(mesh):
+        model, net, (latents, _, ctx) = _setup(8, cuda)
+        latents = torch.randn(latents.shape, device=cuda,
+                              generator=torch.Generator(device=cuda).manual_seed(2))
+        tr = DiffusionTrainer(model, net, lr=1e-3, weight_dtype=torch.float32, mesh=mesh,
+                              generator=torch.Generator(device=cuda).manual_seed(1))
+        losses = [float(tr.train_step({"latents": latents, "context": ctx})) for _ in range(3)]
+        return losses, {k: v.detach().clone() for k, v in net.state_dict().items()}
+
+    # cuDNN's TF32 convolutions (on by default) may pick another algorithm in
+    # the second run; in fp32 both runs must take the same arithmetic
+    flags = torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic
+    torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic = False, True
+    assert init_distributed(f"file://{tmp_path / 'rdzv'}", 1, 0, device=cuda).type == "cuda"
+    try:
+        assert dist.get_backend() == "nccl"
+        shd.reset_counts()
+        got, got_sd = run(shd.make_mesh())
+        assert shd.collectives == {"all_reduce": 3}
+    finally:
+        dist.destroy_process_group()
+    try:
+        want, want_sd = run(None)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic = flags
+    for g, w in zip(got, want):
+        assert abs(g - w) <= 1e-6 * abs(w)
+    for k in want_sd:
+        torch.testing.assert_close(got_sd[k], want_sd[k], rtol=1e-6, atol=0)

@@ -215,6 +215,32 @@ def test_train_cli_file_loads_in_jax_and_resume_repeats_the_run(tmp_path):
     assert set(a) == set(b) and all(torch.equal(a[k], b[k]) for k in a)
 
 
+def test_train_cli_under_torchrun_matches_one_process(tmp_path):
+    """``torchrun --standalone --nproc_per_node 2 -m lycoris_tpu_torch.train
+    --device cpu`` (gloo, the global batch of 2 split over the data axis):
+    the one-process run's losses and file; rank 0 alone writes the files."""
+    cfg, out = _toml(tmp_path, "two")
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+    env["OMP_NUM_THREADS"] = "1"
+    res = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                          "--nproc_per_node", "2", "-m", "lycoris_tpu_torch.train",
+                          "--config", cfg, "--device", "cpu", "--max_steps", "2"],
+                         cwd=ROOT, capture_output=True, text=True, timeout=110, env=env)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.count("saved ") == 1
+    cfg1, _ = _toml(tmp_path, "one")
+    one = ttrain.main(["--config", cfg1, "--device", "cpu", "--max_steps", "2"])
+    rec = [json.loads(line) for line in (out / "metrics.jsonl").read_text().splitlines()]
+    assert [r["step"] for r in rec] == [0]
+    np.testing.assert_allclose(rec[0]["loss"], one["losses"][0], rtol=1e-5)
+    a = tl.wrapper.load_file_sd(str(out / "tiny.safetensors"))
+    b = tl.wrapper.load_file_sd(one["saved"])
+    assert set(a) == set(b)
+    for k in a:  # fp16 files: one rounding step apart at most
+        torch.testing.assert_close(a[k], b[k], rtol=1e-3, atol=1e-5)
+
+
 def test_train_needs_the_card_unless_told_cpu(tmp_path, monkeypatch):
     cfg, _ = _toml(tmp_path, "card")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
