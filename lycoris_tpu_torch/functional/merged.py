@@ -22,6 +22,8 @@ from __future__ import annotations
 
 import torch
 
+from ..observability import span
+
 applications = 0  # factored layer applications since the last reset (chip_smoke counts these)
 
 
@@ -54,7 +56,9 @@ class _FactoredMerged(torch.autograd.Function):
         theta = dict(zip(keys, thetas))
         ctx.save_for_backward(x, w, *thetas)
         ctx.fns, ctx.keys = fns, keys
-        return apply_fn(x, w + recon_fn(theta, w.dtype), b)
+        with span("lycoris.merge"):
+            w_eff = w + recon_fn(theta, w.dtype)
+        return apply_fn(x, w_eff, b)
 
     @staticmethod
     def backward(ctx, g):
@@ -65,7 +69,9 @@ class _FactoredMerged(torch.autograd.Function):
         # W-sized add against a W-sized residual kept alive until backward
         dx = None
         if ctx.needs_input_grad[0]:
-            dx = dx_fn(g, w + recon_fn(theta, w.dtype))
+            with span("lycoris.merge"):
+                w_eff = w + recon_fn(theta, w.dtype)
+            dx = dx_fn(g, w_eff)
         dtheta = dtheta_fn(x.reshape(-1, x.shape[-1]), dy2d_fn(g), theta)
         grads = [
             dtheta[k].to(t.dtype) if need and k in dtheta else None

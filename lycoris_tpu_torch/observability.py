@@ -4,6 +4,26 @@
   card only every ``sync_every`` steps, so the host runs ahead between.
 - :func:`trace`: a ``torch.profiler`` window (CPU, and the card's kernels
   where there is one) written as a Chrome trace.
+- :func:`span`: a named range of the program, a ``user_annotation`` in
+  any profiler trace that records CPU activity (:func:`trace`'s included),
+  on the same clock as the card's kernels; with no profiler running it
+  costs one check and makes nothing. The spans:
+
+  - ``lycoris.forward``: a ``DiffusionTrainer`` step's noise, timestep and
+    drop-seed draws, premerge's merges, the model's forward and the loss;
+  - ``lycoris.backward``: the step's ``loss.backward()`` and the release of
+    its graph (autograd's ops run on its own threads, inside the span's
+    time);
+  - ``lycoris.all_reduce``: the gradients' all-reduce, under a mesh;
+  - ``lycoris.clip``: the global-norm clip, with ``max_grad_norm``;
+  - ``lycoris.optimizer``: the schedule's lr and ``optimizer.step()``;
+  - ``lycoris.max_norm``: max-norm, with ``scale_weight_norms``;
+  - ``lycoris.merge``: one layer's W + dW, wherever the port forms it (the
+    merged forward, ``premerged``, ``merge_to`` and ``onfly_merge``, the
+    factored forward and its recompute in the factored backward).
+
+  The trainer's phases are siblings and cover its step; a merge nests in
+  the phase that runs it.
 - :class:`MetricLogger`: the JSONL metrics file of the JAX package (one
   record a line: ``step``, ``time`` and the metrics).
 - :func:`log_compile_time`: the first call's time (kernel builds, cuDNN
@@ -34,6 +54,18 @@ def _sync(result) -> None:
     elif isinstance(result, (list, tuple)):
         for v in result:
             _sync(v)
+
+
+_NULL_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """The context of a program span ``name``: ``record_function(name)``
+    while a profiler runs, else one shared null context (no RecordFunction
+    is made: a span costs well under a microsecond then)."""
+    if not torch._C._autograd._profiler_enabled():
+        return _NULL_SPAN
+    return torch.profiler.record_function(name)
 
 
 class StepTimer:

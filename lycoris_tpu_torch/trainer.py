@@ -77,6 +77,7 @@ import time
 
 import torch
 
+from .observability import span
 from .parallel import sharding as shd
 from .sampler import ddpm_alphas_cumprod
 
@@ -165,28 +166,42 @@ class DiffusionTrainer:
         noise and timesteps drawn from the trainer's generator, the
         adapters' dropout from the step's drop seed. Returns the loss (a
         0-dim tensor on the device; under a mesh the global batch's)."""
-        latents = batch["latents"]
+        return self._step(batch)
+
+    def _draw(self, latents):
+        """The global batch's noise and timesteps from ``generator``, and
+        the step's drop seed from ``drop_generator``."""
         b = latents.shape[0] * shd.axis_size(self.mesh, "data")  # the global batch
         noise = torch.randn((b, *latents.shape[1:]), generator=self.generator,
                             device=self.device, dtype=torch.float32)
         t = torch.randint(0, self.num_train_timesteps, (b,), generator=self.generator,
                           device=self.device)
         seed = int(torch.randint(0, 2**62, (), generator=self.drop_generator))
-        return self._step(batch, noise, t, seed)
+        return noise, t, seed
 
-    def _step(self, batch: dict, noise, t, seed: int):
+    def _step(self, batch: dict, noise=None, t=None, seed: int | None = None):
         """The step of :meth:`train_step` on the given noise and timesteps
-        of the global batch (this rank takes its rows) and drop seed."""
-        noise, t = shd.shard_batch((noise, t), self.mesh)
-        shard = (shd.axis_index(self.mesh, "data"), shd.axis_size(self.mesh, "data"))
-        with self.net.training_step(seed, shard), self.adapted():
-            loss = self.loss_fn(batch["latents"], batch["context"], noise, t,
-                                batch.get("added_cond"))
-            self.optimizer.zero_grad(set_to_none=True)
-            loss.backward()
-        loss = loss.detach()
+        of the global batch (this rank takes its rows) and drop seed, or
+        on :meth:`_draw`'s where ``noise`` is None. Its phases are sibling
+        spans (``observability``), from the draws to the end of the update."""
+        # ahead of the first span: the optimizer's own range closes before it
+        self.optimizer.zero_grad(set_to_none=True)
+        with contextlib.ExitStack() as adapted:
+            with span("lycoris.forward"):
+                if noise is None:
+                    noise, t, seed = self._draw(batch["latents"])
+                noise, t = shd.shard_batch((noise, t), self.mesh)
+                shard = (shd.axis_index(self.mesh, "data"), shd.axis_size(self.mesh, "data"))
+                adapted.enter_context(self.net.training_step(seed, shard))
+                adapted.enter_context(self.adapted())
+                loss = self.loss_fn(batch["latents"], batch["context"], noise, t,
+                                    batch.get("added_cond"))
+            with span("lycoris.backward"):
+                loss.backward()
+                loss = loss.detach()  # the last reference to the graph: freed in the span
         if self.mesh is not None:
-            loss = self._all_reduce(loss)
+            with span("lycoris.all_reduce"):
+                loss = self._all_reduce(loss)
         self._update()
         self.step += 1
         return loss
@@ -208,20 +223,23 @@ class DiffusionTrainer:
         """The optimizer's step on the gradients: the global-norm clip, the
         schedule's lr, the step, then max-norm."""
         if self.max_grad_norm:
-            clip_by_global_norm(
-                [p.grad for g in self.optimizer.param_groups for p in g["params"]
-                 if p.grad is not None], self.max_grad_norm)
-        if self.lr_schedule is not None:
-            lr = float(self.lr_schedule(self.step))
-            for g in self.optimizer.param_groups:
-                g["lr"] = lr
-        self.optimizer.step()
+            with span("lycoris.clip"):
+                clip_by_global_norm(
+                    [p.grad for g in self.optimizer.param_groups for p in g["params"]
+                     if p.grad is not None], self.max_grad_norm)
+        with span("lycoris.optimizer"):
+            if self.lr_schedule is not None:
+                lr = float(self.lr_schedule(self.step))
+                for g in self.optimizer.param_groups:
+                    g["lr"] = lr
+            self.optimizer.step()
         if self.scale_weight_norms:
-            scaled, norms = self.net.apply_max_norm_stacked(self.scale_weight_norms)
-            if norms.numel():
-                self.max_norm_stats = (scaled.sum(), norms.mean(), norms.max())
-            else:
-                self.max_norm_stats = (scaled.sum(), norms.sum(), norms.sum())
+            with span("lycoris.max_norm"):
+                scaled, norms = self.net.apply_max_norm_stacked(self.scale_weight_norms)
+                if norms.numel():
+                    self.max_norm_stats = (scaled.sum(), norms.mean(), norms.max())
+                else:
+                    self.max_norm_stats = (scaled.sum(), norms.sum(), norms.sum())
 
     def save_checkpoint(self, path) -> None:
         """The adapter tensors (parameters and buffers), the AdamW state,

@@ -66,6 +66,7 @@ from .modules import (ButterflyOFTModule, DiagOFTModule, DyLoraModule, FullModul
                       IA3Module, LoConModule, LohaModule, LokrModule, NormModule, get_module,
                       make_module)
 from .modules.base import fold_in
+from .observability import span
 from .utils import safetensors_io, str_bool
 from .utils.preset import read_preset
 from .utils.quant import log_bypass
@@ -84,6 +85,15 @@ VALID_PRESET_KEYS = [
     "text_encoder_target_name",
     "exclude_name",
 ]
+
+def _merged(lyco, w, b, multiplier, dtype):
+    """``lyco``'s merged weight for a layer of weight ``w`` and bias ``b``
+    (``get_merged_weight``), the weight cast to ``dtype``, and its bias: one
+    ``lycoris.merge`` span, the one every route that forms W + dW opens."""
+    with span("lycoris.merge"):
+        w_m, b_m = lyco.get_merged_weight(w, b, multiplier=multiplier)
+        return w_m.to(dtype), b_m
+
 
 network_module_dict = {
     "lora": LoConModule,
@@ -592,8 +602,8 @@ class LycorisNetwork(nn.Module):
                 if out is not None:
                     return out
                 # one op with W + dW, in the layer's own output layout
-                w_m, b_m = lyco.get_merged_weight(w, b, multiplier=mult)
-                return node.apply(x, w_m.to(x.dtype), None if b_m is None else b_m.to(x.dtype))
+                w_m, b_m = _merged(lyco, w, b, mult, x.dtype)
+                return node.apply(x, w_m, None if b_m is None else b_m.to(x.dtype))
             out = lyco.forward(
                 x, org_weight=w, org_bias=b, multiplier=mult,
                 org_forward=lambda z: node.from_native(org_forward(z, *args, **kwargs)),
@@ -645,8 +655,8 @@ class LycorisNetwork(nn.Module):
                 if lyco.not_supported or lyco.bypass_mode or node.is_quant:
                     continue
                 w, b = node.weights()
-                w_m, b_m = lyco.get_merged_weight(w, b, multiplier=multiplier)
-                merged = {"weight": w_m.to(w.dtype)}
+                w_m, b_m = _merged(lyco, w, b, multiplier, w.dtype)
+                merged = {"weight": w_m}
                 if b_m is not None and b_m is not b:
                     merged["bias"] = b_m.to(b.dtype)
                 # in place in the module's parameter dict, as torch.func's
@@ -671,9 +681,9 @@ class LycorisNetwork(nn.Module):
             if lyco.not_supported or node.is_quant:
                 continue
             w, b = node.weights()
-            w_m, b_m = lyco.get_merged_weight(w, b, multiplier=weight)
+            w_m, b_m = _merged(lyco, w, b, weight, w.dtype)
             # a leaf sharded over a model axis takes this rank's slice
-            node.write("weight", w_m.to(w.dtype))
+            node.write("weight", w_m)
             if b is not None and b_m is not None:
                 node.write("bias", b_m.to(b.dtype))
         return self

@@ -11,9 +11,8 @@ weights) and its seeded LoKr attn-mlp adapter, at the serving batch of 4
    (merged forward) / weights merged with ``merge_to``: 3 warm-up calls, then
    10 timed calls each, every call ending in ``torch.cuda.synchronize()``.
 2. torch.profiler over 3 calls with LoKr live: device time per call by kind
-   of kernel, kernels per call, and the device busy share (device time per
-   call over the unprofiled host time per call). The full kernel list goes
-   to ``chiprun_out/profile_serving.json``.
+   of kernel and kernels per call. The full kernel list goes to
+   ``chiprun_out/profile_serving.json``.
 """
 
 from __future__ import annotations
@@ -116,7 +115,6 @@ def main() -> int:
                     for _ in range(PROFILED_CALLS):
                         model(*args)
                     torch.cuda.synchronize()
-                live_host = statistics.median(host)
 
     kernels = []
     for evt in prof.key_averages():
@@ -141,8 +139,7 @@ def main() -> int:
     print(f"[profile] LoKr live, device ms per UNet call by kind ({card}):", flush=True)
     for kind, us in sorted(by_kind.items(), key=lambda kv: -kv[1]):
         print(f"[profile]   {kind}: {us / 1e3 / PROFILED_CALLS:.3f}")
-    print(f"[profile] all kernels {total_ms:.3f} ms per call, {n_per_call:.0f} kernels per call; "
-          f"busy share {total_ms / live_host:.3f} of the {live_host:.2f} ms host time per call")
+    print(f"[profile] all kernels {total_ms:.3f} ms per call, {n_per_call:.0f} kernels per call")
     report["profile"] = {"by_kind_ms_per_call": {k: v / 1e3 / PROFILED_CALLS
                                                  for k, v in by_kind.items()},
                          "kernels_per_call": n_per_call, "kernels": kernels}

@@ -18,9 +18,8 @@ or LoHa adapter at batch 4, 128x128 latents, context (4, 77, 2048) and
 
 1. host clock per step over 5 steps after 2 warm-up steps, every step
    ending in ``torch.cuda.synchronize()``;
-2. torch.profiler over 2 steps: device time per step by kind of kernel,
-   kernels per step, and the device busy share (device time per step over
-   the unprofiled median host time per step);
+2. torch.profiler over 2 steps: device time per step by kind of kernel and
+   kernels per step;
 3. for the dropout leg, the dropout draws per step and the host
    microseconds of one draw's generator: reseeding the device's generator
    (``modules.base.draw_generator``) beside building a fresh CUDA generator
@@ -138,8 +137,7 @@ def main() -> int:
         for kind, us in sorted(by_kind.items(), key=lambda kv: -kv[1]):
             print(f"[profile]   {kind}: {us / 1e3 / PROFILED_STEPS:.3f}")
         print(f"[profile] {leg}: all kernels {total_ms:.3f} ms per step, {n_per_step:.0f} "
-              f"kernels per step; busy share {total_ms / med:.3f} of the {med:.2f} ms host "
-              f"time per step", flush=True)
+              f"kernels per step", flush=True)
         report["steps"][leg] = {
             "host_ms": host, "peak_gib": peak,
             "by_kind_ms_per_step": {k: v / 1e3 / PROFILED_STEPS for k, v in by_kind.items()},

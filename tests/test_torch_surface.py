@@ -144,9 +144,6 @@ def test_trainer_num_train_timesteps_matches_jax():
                           torch.tensor(np.asarray(noise)), torch.tensor(np.asarray(t)).long())
     np.testing.assert_allclose(float(loss), jloss, rtol=1e-5)
 
-    drawn = []
-    tr._step = lambda batch, noise, t, seed: drawn.append(t)  # noqa: E731
-    for _ in range(20):
-        tr.train_step({"latents": torch.tensor(d["lat"]), "context": torch.tensor(d["ctx"])})
-    drawn = torch.cat(drawn)
+    # train_step's draws (``_draw``, inside its forward span), without the steps
+    drawn = torch.cat([tr._draw(torch.tensor(d["lat"]))[1] for _ in range(20)])
     assert int(drawn.max()) < 500 and int(drawn.max()) >= 250
