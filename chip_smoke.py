@@ -199,8 +199,9 @@ ends the run with a nonzero exit code, and no phase falls back to the CPU:
    at (24, T4608, D128) bf16 on the double block's layout (timed), on
    contiguous inputs and on the single block's (v a view of ``linear1``'s
    output), each read in place; the bias-free LayerNorm forward at (4096 |
-   512 | 4608, 3072) on the generic variant; LoHa's dW (fp32) at the 7
-   adapted shapes. Then, at full width and depth 1 + 1 on 512 + 1024 tokens,
+   512 | 4608, 3072) on the generic variant; LoHa's dW (fp32) and LoKr's
+   one-pass merge W + c kron(w1, w2) (bf16, factor 8; bit for bit its plain
+   version) at the 7 adapted shapes. Then, at full width and depth 1 + 1 on 512 + 1024 tokens,
    LoKr (dim 8, factor 8) and LoHa (dim 8) on the ``DoubleStreamBlock`` /
    ``SingleStreamBlock`` targets live on the card: live against
    ``merge_to`` (rel L2 1e-3) and against the port on the CPU in fp32 (3e-2).
@@ -208,8 +209,8 @@ ends the run with a nonzero exit code, and no phase falls back to the CPU:
    blocks; 11.9 B bf16 parameters drawn on the card) serves 4 adapted calls
    a leg (batch 1, 512 text + 4096 image tokens, a fresh timestep each)
    with LoKr, then LoHa: launches per call equal to the census (flash 57,
-   LayerNorm 115 all generic, hada 304 on the LoHa leg, all fast), no flash
-   pad copy, finite outputs, s/call and peak memory; the LoKr file saved
+   LayerNorm 115 all generic, hada 304 on the LoHa leg, all fast; the LoKr
+   merge kernel 304 on the LoKr leg), no flash pad copy, finite outputs, s/call and peak memory; the LoKr file saved
    and reloaded gives the live tensors bit for bit and the same output;
 32. data_loader -- 8 shards of 64 bf16 latents (4, 128, 128) written by
    ``utils/safetensors_io``, two epochs at batch 4 through ``data.py``'s
@@ -262,7 +263,9 @@ kernel was never launched there. The ``hada_fwd`` entry also has
 plain version's and bound's device ms per merge, in total and per shape. The
 ``flash_fwd``, ``layer_norm_fwd`` and ``hada_fwd`` entries also have ``flux``:
 launches per Flux call (phase 31's LoHa leg) and the kernel's, plain
-version's, library's and bound's device ms per call. Times are device ms per SDXL
+version's, library's and bound's device ms per call. The last entry,
+``kron_merge`` (LoKr's one-pass merge, no census counter), has the same
+``flux`` sums, its launches per call read on phase 31's LoKr leg. Times are device ms per SDXL
 train step (kernel, plain, library, bound; each shape's time weighted by
 its launches, or for the fused LoRA matmul and the split LoHa backward,
 which no SDXL step dispatches, its layers per step: ``per`` says which), with the
@@ -876,7 +879,7 @@ def new_results() -> dict:
 
     return {name: {"launches": 0, "max_abs_err": 0.0, "sd15": acc(), "sdxl": acc(),
                    "flux": acc()}
-            for name in KERNELS}
+            for name in (*KERNELS, "kron_merge")}
 
 
 def record(results, name, path, stats, shape_s, times=None, per_call=0):
@@ -1206,6 +1209,56 @@ class Checks:
             del copies
         record(self.results, "hada_fwd", path, compare(dtype, out, ref), f"({o_},{i_})", times,
                per_call)
+
+    def _kron_case(self, o_, i_):
+        """LoKr factor 8 on a bf16 (O, I) layer: W, w1 (8, 8), w2 (O/8, I/8)
+        fp32, and the scalar on the card."""
+        import torch
+
+        w = self.rnd((o_, i_), torch.bfloat16, 0.02)
+        return (w, self.rnd((8, 8), torch.float32),
+                self.rnd((o_ // 8, i_ // 8), torch.float32, 0.01),
+                torch.full((), 0.7, device=w.device))
+
+    def kron_merge(self, path, o_, i_, per_call, timed):
+        """LoKr's one-pass merge W + c kron(w1, w2) against its plain
+        version (bit for bit). Timed on rotating copies with the outputs
+        held, so each call reads W from HBM and writes a buffer that is not
+        in L2; bound: W read and W_eff written once, 4 bytes an element."""
+        import torch
+        from lycoris_tpu_torch.ops import kron
+
+        k = 0.3
+        case = self._kron_case(o_, i_)
+        n = kron.launches
+        out = kron.merge(*case, k, torch.bfloat16)
+        if kron.launches != n + 1:
+            fail(f"kron_merge ({o_},{i_}): the merge did not launch the kernel")
+        ref = kron.merge_plain(*case, k, torch.bfloat16)
+        torch.cuda.synchronize()
+        if not torch.equal(out, ref):
+            fail(f"kron_merge ({o_},{i_}): not bit for bit its plain version")
+        times = None
+        if timed:
+            nbytes = 4.0 * o_ * i_ + 4.0 * (64 + o_ * i_ / 64)
+            copies = [self._kron_case(o_, i_)
+                      for _ in range(max(2, math.ceil(ROTATE_BYTES / nbytes)))]
+            it = max(iters_for(nbytes), len(copies))
+            times = _times(rotating(lambda *c: kron.merge_kernel(*c, k), copies, hold=True),
+                           rotating(lambda *c: kron.merge_plain(*c, k, torch.bfloat16), copies,
+                                    hold=True),
+                           it, bound(2.0 * o_ * i_, nbytes, "bfloat16"),
+                           host=lambda: kron.merge_kernel(*case, k))
+            ms, host, plain, _, (bnd, by) = times
+            log(f"[kernels] kron_merge {path} ({o_},{i_}) rotating copies: kernel {ms:.4f} ms, "
+                f"{bnd / ms:.1%} of its bound {bnd:.4f} ms ({by}); plain {plain:.4f} ms; the "
+                f"wrapper's host-clocked {host:.4f} ms")
+            self.results["kron_merge"].setdefault("shapes", []).append(
+                {"path": path, "shape": [o_, i_], "ms": ms, "host_ms": host, "plain_ms": plain,
+                 "bound_ms": bnd, "per": per_call})
+            del copies
+        record(self.results, "kron_merge", path, compare(torch.bfloat16, out, ref),
+               f"({o_},{i_})", times, per_call)
 
     def _gn_inputs(self, n, c, s, dtype, bwd):
         """x (N, C, H, W) and gamma, beta, and with ``bwd`` a cotangent dh."""
@@ -4423,6 +4476,7 @@ def dit_serve(model, cfg, results, card, tmp) -> dict:
 
     import torch
     from lycoris_tpu_torch import create_lycoris_from_weights
+    from lycoris_tpu_torch.ops import kron
 
     dev = torch.device("cuda")
     census = dit_census(cfg, 1, FLUX_TXT, FLUX_IMG)
@@ -4446,6 +4500,7 @@ def dit_serve(model, cfg, results, card, tmp) -> dict:
         warm_s = time.perf_counter() - t0
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
+        kron_before = kron.launches
         outs, secs = [], []
         for req in reqs[1:]:
             t0 = time.perf_counter()
@@ -4455,6 +4510,12 @@ def dit_serve(model, cfg, results, card, tmp) -> dict:
             secs.append(time.perf_counter() - t0)
         counts = read_counts()
         check_dit_counts(tag, counts, census, algo, FLUX_REQUESTS)
+        kron_calls = kron.launches - kron_before
+        if kron_calls != (census["adapted"] * FLUX_REQUESTS if algo == "lokr" else 0):
+            fail(f"{tag} {kron_calls} LoKr merge kernel launches over {FLUX_REQUESTS} calls")
+        if algo == "lokr":
+            results["kron_merge"]["launches"] = results["kron_merge"]["flux_launches"] = (
+                kron_calls // FLUX_REQUESTS)
         peak = torch.cuda.max_memory_allocated() / 2**30
         for o in outs:
             if o.shape != (1, FLUX_IMG, cfg.in_channels) or not bool(torch.isfinite(o).all()):
@@ -4521,7 +4582,8 @@ def phase_dit_flux(results, card) -> dict:
         ck.layer_norm_fwd("flux", rows, c, torch.bfloat16, n, True)
     for (o_, i_), n in census["hada"].items():
         ck.hada_fwd("flux", o_, i_, torch.float32, n, True)
-    for name in ("flash_fwd", "layer_norm_fwd", "hada_fwd"):
+        ck.kron_merge("flux", o_, i_, n, True)
+    for name in ("flash_fwd", "layer_norm_fwd", "hada_fwd", "kron_merge"):
         a = results[name]["flux"]
         lib = "—" if a["library_ms"] is None else f"{a['library_ms']:.3f}"
         log(f"[dit_flux] {name} per Flux call: kernel {a['ms']:.3f} ms, plain "
@@ -5062,6 +5124,14 @@ def main() -> int:
                       "max_abs_err": r["max_abs_err"], **sums(r["sdxl"]),
                       "sd15": sums(r["sd15"]) if r["sd15"]["ms"] else None,
                       **extra})
+    r = results["kron_merge"]
+    table.append({"name": "kron_merge", "route": "cuda",
+                  "source": "lycoris_tpu_torch/csrc/kron_merge.cu",
+                  "replaces": "none: XLA fuses the JAX package's LoKr W + dW", "path": "dit_flux",
+                  "per": FLUX_PER, "launches": r["launches"], "max_abs_err": r["max_abs_err"],
+                  "shapes": r.get("shapes", []),
+                  "flux": {"launches": r.get("flux_launches", 0), "per": FLUX_PER,
+                           **sums(r["flux"])}})
     for row in table:
         if row["name"].startswith("flash"):
             for where, r in (("SDXL step", row), ("SD1.5 " + ("call" if "fwd" in row["name"]

@@ -49,6 +49,16 @@ def worth_factoring(out_dim: int, in_dim: int, threshold: int = FACTORED_MIN) ->
     return (out_dim * in_dim) // (out_dim + in_dim) >= threshold
 
 
+def _merge(recon_fn, theta, w):
+    """W + dW in ``w``'s dtype: ``recon_fn.merge(theta, w)`` where the
+    recon carries one (LoKr's one pass, ``ops.kron.merge``), else
+    ``w + recon_fn(theta, w.dtype)``."""
+    merge = getattr(recon_fn, "merge", None)
+    if merge is not None:
+        return merge(theta, w)
+    return w + recon_fn(theta, w.dtype)
+
+
 class _FactoredMerged(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, b, fns, keys, *thetas):
@@ -57,7 +67,7 @@ class _FactoredMerged(torch.autograd.Function):
         ctx.save_for_backward(x, w, *thetas)
         ctx.fns, ctx.keys = fns, keys
         with span("lycoris.merge"):
-            w_eff = w + recon_fn(theta, w.dtype)
+            w_eff = _merge(recon_fn, theta, w)
         return apply_fn(x, w_eff, b)
 
     @staticmethod
@@ -70,7 +80,7 @@ class _FactoredMerged(torch.autograd.Function):
         dx = None
         if ctx.needs_input_grad[0]:
             with span("lycoris.merge"):
-                w_eff = w + recon_fn(theta, w.dtype)
+                w_eff = _merge(recon_fn, theta, w)
             dx = dx_fn(g, w_eff)
         dtheta = dtheta_fn(x.reshape(-1, x.shape[-1]), dy2d_fn(g), theta)
         grads = [
@@ -84,7 +94,10 @@ def factored_merged_apply(x, w, b, theta: dict, *, recon_fn, dtheta_fn, apply_fn
                           dy2d_fn):
     """``apply_fn(x, w + recon_fn(theta), b)`` with a factored backward.
 
-    - ``recon_fn(theta, out_dtype) -> dW`` in ``out_dtype``;
+    - ``recon_fn(theta, out_dtype) -> dW`` in ``out_dtype``; where it has a
+      ``merge`` attribute, ``recon_fn.merge(theta, w) -> W + dW`` in ``w``'s
+      dtype forms the merged weight of the forward and the backward's
+      recompute (LoKr's one pass, ``ops.kron.merge``);
     - ``dtheta_fn(x2d, dy2d, theta) -> {key: d_key}``, the exact reordering
       of ``VJP(recon)(x^T dy)`` that never forms the dense product;
     - ``apply_fn(x, w_eff, b) -> y``, linear in x and in w_eff;

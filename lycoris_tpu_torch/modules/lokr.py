@@ -10,6 +10,13 @@ output only: the merged forward ignores it, as the JAX module does (JAX
 lokr.py:307-312, 446-447); module dropout as in ``modules/base.py``. DoRA
 (``weight_decompose``) as in ``modules/base.py``; a DoRA layer takes no
 factored backward. Max-norm scales every factor by ratio ** (1 / factors).
+
+The one LoKr merge: where no autograd graph runs through W + dW (grad off,
+or neither W nor any factor wants a gradient; the factored forward and its
+recompute, through ``recon_fn.merge``) on a linear or 1x1 layer without DoRA
+or tucker, the merge is ``ops.kron.merge`` with scale * scalar * multiplier
+folded into w1 once: the one-pass kernel on the card, its plain version
+elsewhere. Every other merge is the base class's autograd ops.
 """
 
 from __future__ import annotations
@@ -21,6 +28,7 @@ import torch
 from ..functional.general import factorization, kaiming_uniform, rebuild_tucker
 from ..functional.lokr import bypass_diff_with_scale, make_kron
 from ..functional.merged import lokr_dtheta
+from ..ops import kron
 from .base import (LayerInfo, LycorisBaseModule, as_float, infer_wd_on_out, max_norm_ratio,
                    to_tensor)
 
@@ -209,6 +217,32 @@ class LokrModule(LycorisBaseModule):
         weight = make_kron(self._rebuild_w1(), self._rebuild_w2(), self.scale).reshape(self.shape)
         return self._rank_masked(weight, train, seed)
 
+    def _one_pass(self, org_weight) -> bool:
+        """Whether W + dW is the one-pass ``ops.kron.merge``: no DoRA, no
+        tucker, a linear or 1x1 layer, and no autograd graph to run through
+        the merge (grad off, or neither W nor a factor wants a gradient)."""
+        if self.wd or self.tucker or any(k != 1 for k in self.shape[2:]):
+            return False
+        return not (torch.is_grad_enabled() and (
+            org_weight.requires_grad or any(p.requires_grad for p in self.parameters())))
+
+    def get_merged_weight(self, org_weight, org_bias=None, multiplier=1.0, out_dtype=None):
+        """W + dW * multiplier (DoRA: the rescale of W + dW) in ``out_dtype``.
+        Where :meth:`_one_pass` allows, ``ops.kron.merge`` with scale *
+        scalar * multiplier folded into w1, rounded once into ``out_dtype``
+        (default: W's dtype, so a bf16 layer's merge is the one-pass
+        kernel); else the base class's autograd ops (default: the dtype
+        W + dW promotes to), then the cast."""
+        if not self._one_pass(org_weight):
+            w, b = super().get_merged_weight(org_weight, org_bias, multiplier)
+            return (w if out_dtype is None else w.to(out_dtype)), b
+        w2 = self._rebuild_w2()
+        if w2.ndim > 2:
+            w2 = w2.reshape(w2.shape[0], -1)
+        return kron.merge(org_weight, self._rebuild_w1(), w2, self._p("scalar"),
+                          self.scale * multiplier,
+                          org_weight.dtype if out_dtype is None else out_dtype), org_bias
+
     def factored_merged_fns(self, multiplier):
         """(recon_fn, dtheta_fn) for the dense-dW-free merged backward
         (functional/merged.py), or None where this configuration needs plain
@@ -216,18 +250,28 @@ class LokrModule(LycorisBaseModule):
         module's tensors by key (:attr:`params`)."""
         if self.layer.is_conv or self.tucker or self.wd or self.rank_dropout:
             return None
+        k = self.scale * multiplier
 
         def w1_of(theta):
             if self.use_w1:
                 return theta["lokr_w1"]
             return theta["lokr_w1_a"] @ theta["lokr_w1_b"]
 
+        def w2_of(theta):
+            if self.use_w2:
+                return theta["lokr_w2"]
+            return theta["lokr_w2_a"] @ theta["lokr_w2_b"]
+
         def recon_fn(theta, out_dtype=None):
-            # scalar * multiplier folded into the small w1 factor, the cast
-            # to out_dtype before the reshape: no full-size fp32 dW pass
-            w1 = w1_of(theta) * (theta["scalar"] * multiplier)
-            w2 = theta["lokr_w2"] if self.use_w2 else theta["lokr_w2_a"] @ theta["lokr_w2_b"]
-            return make_kron(w1, w2, self.scale, out_dtype=out_dtype)
+            # scale * scalar * multiplier folded into the small w1 factor, as
+            # in get_merged_weight
+            return make_kron(w1_of(theta) * (theta["scalar"] * k), w2_of(theta),
+                             out_dtype=out_dtype)
+
+        # W + dW in W's dtype in one pass, for the factored forward and its
+        # recompute (functional/merged.py)
+        recon_fn.merge = lambda theta, w: kron.merge(w, w1_of(theta), w2_of(theta),
+                                                     theta["scalar"], k, w.dtype)
 
         want_scalar = "scalar" in self.trainable
 

@@ -49,6 +49,7 @@ _SIGNATURES = {
     "lyc_lora_fused_nn": [_P] * 5 + [_I] * 4 + [_F, _I, _I, _P],
     "lyc_lora_fused_fast": [_P] * 6 + [_I] * 4 + [_F] + [_I] * 4 + [_P],
     "lyc_hada_bwd_split": [_P] * 7 + [_I] * 5 + [_F, _I, _I, _P],
+    "lyc_kron_merge": [_P] * 4 + [_F, _P] + [_I] * 5 + [_P],
 }
 
 

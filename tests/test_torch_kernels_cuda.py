@@ -20,6 +20,7 @@ from lycoris_tpu_torch.ops import flash as tflash
 from lycoris_tpu_torch.ops import geglu as tgeglu
 from lycoris_tpu_torch.ops import group_norm as tgn
 from lycoris_tpu_torch.ops import hada as thada
+from lycoris_tpu_torch.ops import kron as tkron
 from lycoris_tpu_torch.ops import layer_norm as tln
 from lycoris_tpu_torch.ops import lora_fused as tlf
 
@@ -986,3 +987,160 @@ def test_cuda_one_rank_nccl_trainer_matches_plain(cuda, tmp_path):
         assert abs(g - w) <= 1e-6 * abs(w)
     for k in want_sd:
         torch.testing.assert_close(got_sd[k], want_sd[k], rtol=1e-6, atol=0)
+
+
+# (O, I) of Flux's adapted layers (chip_smoke.dit_census) and of two of
+# SDXL's (ff.net_0_proj, ff.net_2), merged at LoKr factor 8: w1 (8, 8), w2
+# (O/8, I/8)
+KRON_SHAPES = ((3072, 3072), (9216, 3072), (12288, 3072), (3072, 12288), (18432, 3072),
+               (21504, 3072), (3072, 15360), (10240, 1280), (1280, 5120))
+
+
+def _kron_inputs(o, i, g, dev):
+    """bf16 W (O, I), fp32 w1 (8, 8), w2 (O/8, I/8) of rank 8, a scalar."""
+    w = (torch.randn(o, i, device=dev, generator=g) * 0.02).bfloat16()
+    w1 = torch.randn(8, 8, device=dev, generator=g)
+    w2 = (torch.randn(o // 8, 8, device=dev, generator=g)
+          @ torch.randn(8, i // 8, device=dev, generator=g)) * 0.01
+    return w, w1, w2, torch.tensor(0.7, device=dev)
+
+
+def _within_a_bf16_ulp(got, exact, terms):
+    """|got - exact| within one bf16 ulp of ``exact``, beyond the fp32
+    rounding of the sum's two terms (|W| + |c w1 w2| = ``terms``), which
+    shows only where they cancel (about 1 element in 10^6 at these
+    shapes)."""
+    ulp = torch.exp2(torch.floor(torch.log2(exact.abs().clamp(min=2.0 ** -100))) - 7)
+    return bool(((got.double() - exact).abs() <= ulp + 2.0 ** -22 * terms).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("o,i", KRON_SHAPES)
+def test_cuda_kron_merge_kernel(cuda, o, i):
+    """W + c kron(w1, w2) at the Flux and SDXL shapes: within one bf16 ulp
+    of the float64 sum (beyond the fp32 rounding of its terms), bit for bit
+    the plain version on the card, one launch, W left as it was."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    w, w1, w2, s = _kron_inputs(o, i, g, cuda)
+    w0, k = w.clone(), 0.5 * 0.6
+    assert tkron.supported(w, w1, w2, s, torch.bfloat16)
+    n = tkron.launches
+    got = tkron.merge(w, w1, w2, s, k, torch.bfloat16)
+    assert tkron.launches == n + 1 and got.dtype == torch.bfloat16 and got.shape == (o, i)
+    assert torch.equal(w, w0)
+    assert torch.equal(got, tkron.merge_plain(w, w1, w2, s, k, torch.bfloat16))
+    prod = float(s) * k * w1.double()[:, None, :, None] * w2.double()[None, :, None, :]
+    exact = (w.double().reshape(8, o // 8, 8, i // 8) + prod).reshape(o, i)
+    assert _within_a_bf16_ulp(got, exact, w.double().abs() + prod.abs().reshape(o, i))
+
+
+@pytest.mark.cuda
+def test_cuda_kron_merge_outside_supported_falls_back(cuda):
+    """A LoKr layer whose w2 is 15 columns wide (no 16-byte vectors of W)
+    merges by the plain version: no launch, the same weight."""
+    from lycoris_tpu_torch.modules import LayerInfo, LokrModule
+
+    m = LokrModule("t", LayerInfo.linear(64, 60), lora_dim=2, alpha=2.0, factor=4,
+                   device=cuda, generator=torch.Generator(device=cuda).manual_seed(0))
+    w = torch.randn(64, 60, device=cuda).bfloat16()
+    with torch.no_grad():
+        for p in m.parameters():
+            p.add_(0.1 * torch.randn_like(p))
+        w2 = m._rebuild_w2()
+        assert w2.shape == (16, 15)
+        assert not tkron.supported(w, m._rebuild_w1(), w2, m._p("scalar"), torch.bfloat16)
+        n = tkron.launches
+        got, _ = m.get_merged_weight(w, multiplier=0.6, out_dtype=torch.bfloat16)
+        want = tkron.merge_plain(w, m._rebuild_w1(), w2, m._p("scalar"), m.scale * 0.6,
+                                 torch.bfloat16)
+    assert tkron.launches == n and torch.equal(got, want)
+
+
+def _dit_lokr(cfg, dev, factor):
+    from lycoris_tpu_torch import LycorisNetwork, create_lycoris
+    from lycoris_tpu_torch.models.dit import FluxTransformer2D
+
+    model = FluxTransformer2D(cfg, device=dev, param_dtype=torch.bfloat16,
+                              generator=torch.Generator(device=dev).manual_seed(0)).eval()
+    LycorisNetwork.apply_preset({"target_module": ["DoubleStreamBlock", "SingleStreamBlock"]})
+    try:
+        net = create_lycoris(model, 1.0, 8, 4.0, algo="lokr", factor=factor, device=dev)
+    finally:
+        LycorisNetwork.reset_preset()
+    g = torch.Generator(device=dev).manual_seed(1)
+    with torch.no_grad():
+        for p in net.parameters():
+            p.add_(torch.randn(p.shape, generator=g, device=dev) * 0.05)
+    return model, net.apply_to(merged_forward=True)
+
+
+def _dit_inputs(cfg, txt, img, dev):
+    g = torch.Generator(device=dev).manual_seed(2)
+    return (torch.randn(1, img, cfg.in_channels, generator=g, device=dev).bfloat16(),
+            torch.randn(1, txt, cfg.context_dim, generator=g, device=dev).bfloat16(),
+            torch.tensor([500], device=dev))
+
+
+@pytest.mark.cuda
+def test_cuda_tiny_dit_live_lokr_kernel_against_torch_route(cuda):
+    """The tiny DiT in bf16 with LoKr live: one kernel launch a layer, and
+    the output of the autograd route (today's ops, taken when the factors
+    want gradients) within bf16 noise."""
+    from lycoris_tpu_torch.models.dit import tiny_dit_config
+
+    cfg = tiny_dit_config(torch.bfloat16)
+    model, net = _dit_lokr(cfg, cuda, factor=4)
+    args = _dit_inputs(cfg, 4, 16, cuda)
+    n = tkron.launches
+    with torch.no_grad():
+        got = model(*args)
+    assert tkron.launches == n + len(net.loras)
+    want = model(*args).detach()
+    assert tkron.launches == n + len(net.loras)
+    net.restore()
+    _check(got, want, torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_cuda_kron_merge_makes_no_host_sync(cuda):
+    """A live LoKr layer's forward (the merge and its matmul) under
+    ``set_sync_debug_mode("error")``: nothing waits for the card."""
+    from lycoris_tpu_torch.models.dit import tiny_dit_config
+
+    cfg = tiny_dit_config(torch.bfloat16)
+    model, net = _dit_lokr(cfg, cuda, factor=4)
+    x = torch.randn(1, 16, cfg.hidden_size, device=cuda).bfloat16()
+    name = next(n for n, lyco in net.lora_map.items() if lyco.shape[1] == cfg.hidden_size)
+    layer = net.node_map[name].module
+    with torch.no_grad():
+        layer(x)  # the kernel library built, outside the check
+        n = tkron.launches
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            layer(x)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    assert tkron.launches == n + 1
+    net.restore()
+
+
+@pytest.mark.cuda
+def test_cuda_flux_call_launches_one_kron_merge_a_layer(cuda):
+    """One full-width, full-depth Flux call (b1, 512 + 4096 tokens) with
+    LoKr factor 8 live on the 304 layers of the double and single blocks:
+    304 launches, a finite output."""
+    from lycoris_tpu_torch.models.dit import flux_config
+
+    cfg = flux_config(torch.bfloat16)
+    model, net = _dit_lokr(cfg, cuda, factor=8)
+    assert len(net.loras) == 304
+    args = _dit_inputs(cfg, 512, 4096, cuda)
+    n = tkron.launches
+    with torch.no_grad():
+        out = model(*args)
+    torch.cuda.synchronize()
+    assert tkron.launches == n + 304
+    assert bool(torch.isfinite(out.float()).all())
+    net.restore()
+    del model, net, out
+    torch.cuda.empty_cache()
