@@ -1,6 +1,6 @@
 """Host models of the port: torch-layout layers, the SD UNet, the CLIP text
-encoder and the Flux-style DiT."""
+encoder, the Flux-style DiT and the Wan2.1 video DiT."""
 
-from . import clip, dit, layers, unet
+from . import clip, dit, layers, unet, wan
 
-__all__ = ["clip", "dit", "layers", "unet"]
+__all__ = ["clip", "dit", "layers", "unet", "wan"]

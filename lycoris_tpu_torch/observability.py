@@ -20,10 +20,13 @@
   - ``lycoris.max_norm``: max-norm, with ``scale_weight_norms``;
   - ``lycoris.merge``: one layer's W + dW, wherever the port forms it (the
     merged forward, ``premerged``, ``merge_to`` and ``onfly_merge``, the
-    factored forward and its recompute in the factored backward).
+    factored forward and its recompute in the factored backward);
+  - ``lycoris.rope``: one application of Wan's 3-D rotary positions to q
+    or k (``models/wan.rope3d``), in the forward and in a checkpointed
+    block's recompute.
 
-  The trainer's phases are siblings and cover its step; a merge nests in
-  the phase that runs it.
+  The trainer's phases are siblings and cover its step; a merge or a rope
+  nests in the phase that runs it.
 - :class:`MetricLogger`: the JSONL metrics file of the JAX package (one
   record a line: ``step``, ``time`` and the metrics).
 - :func:`log_compile_time`: the first call's time (kernel builds, cuDNN

@@ -1,10 +1,12 @@
 """Attention dispatch (counterpart of ``lycoris_tpu/ops/attention.py``).
 
-Rule: self-attention (tq == tk) with T >= 1024, T % 512 == 0 and
-head_dim <= 128 goes to the flash kernel (:mod:`.flash`); this takes every
-shape the JAX gate takes. Every other attention -- cross-attention over the
-77 context tokens, SD1.5's T256/D160 level, the T64 mid block -- runs the
-plain path: einsum, softmax in fp32, einsum.
+Rule: self-attention (tq == tk) with T >= 1024 and head_dim <= 128 goes to
+the flash kernel (:mod:`.flash`), at any T: the kernels mask keys past T and
+write no row past it, so T need not be a multiple of a tile (Wan's 14,040
+tokens). The JAX gate's T % 512 == 0 was its Pallas tiling's. Every other
+attention -- cross-attention over the 77 or 512 context tokens, SD1.5's
+T256/D160 level, the T64 mid block -- runs the plain path: einsum, softmax
+in fp32, einsum.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ from . import flash
 
 
 def use_flash(tq: int, tk: int, d: int) -> bool:
-    return tq == tk and tq >= 1024 and tq % 512 == 0 and d <= 128
+    return tq == tk and tq >= 1024 and d <= 128
 
 
 def attention_plain(q, k, v, sm_scale: float):

@@ -1,8 +1,13 @@
 """Diffusion fine-tune trainer for adapters (counterpart of
 ``lycoris_tpu/trainer.py``, the kohya train-loop equivalent).
 
-- DDPM noising with the scaled-linear schedule (``sampler.ddpm_alphas_cumprod``)
-  and an eps-prediction MSE loss in fp32;
+- ``objective="eps"`` (the default): DDPM noising with the scaled-linear
+  schedule (``sampler.ddpm_alphas_cumprod``) and an eps-prediction MSE loss
+  in fp32; ``objective="flow"``: rectified flow, as Wan and Flux train,
+  sigma ~ U(0, 1) from the trainer's generator, x_sigma = (1 - sigma) x0 +
+  sigma eps, the model called at t = num_train_timesteps * sigma, and the
+  MSE against the velocity eps - x0 in fp32. Latents may have any rank (4-D
+  images, 5-D video);
 - the base model frozen (``requires_grad_(False)``) and cast to
   ``weight_dtype``; only the adapter parameters train, with AdamW at the
   JAX package's (optax's) defaults: betas (0.9, 0.999), eps 1e-8 and
@@ -99,15 +104,19 @@ def clip_by_global_norm(grads: list, max_norm: float) -> None:
 
 class DiffusionTrainer:
     """Fine-tune the adapters of ``net`` on ``model`` with an eps-prediction
-    MSE objective."""
+    or a flow-matching MSE objective."""
 
     def __init__(self, model, net, lr: float = 1e-4, weight_dtype=torch.bfloat16,
                  merged_forward: bool = True, generator: torch.Generator | None = None,
                  merge_mode: str = "interceptor", scale_weight_norms: float | None = None,
                  optimizer=None, lr_schedule=None, max_grad_norm: float | None = None,
-                 num_train_timesteps: int = 1000, mesh=None, shard_base: bool = False):
+                 num_train_timesteps: int = 1000, mesh=None, shard_base: bool = False,
+                 objective: str = "eps"):
         if merge_mode not in ("interceptor", "premerge"):
             raise ValueError(f"merge_mode must be 'interceptor' or 'premerge', not {merge_mode!r}")
+        if objective not in ("eps", "flow"):
+            raise ValueError(f"objective must be 'eps' or 'flow', not {objective!r}")
+        self.objective = objective
         self.model = model
         self.net = net
         self.weight_dtype = weight_dtype
@@ -149,14 +158,23 @@ class DiffusionTrainer:
         return contextlib.nullcontext()
 
     def loss_fn(self, latents, context, noise, t, added_cond=None):
-        """eps-MSE of the adapted model on ``latents`` noised with the given
-        ``noise`` (fp32, latents' shape) at timesteps ``t`` (int, (B,)).
-        Under premerge, call it and run the backward inside :meth:`adapted`."""
+        """The objective's MSE of the adapted model on ``latents`` noised
+        with the given ``noise`` (fp32, latents' shape) at ``t`` (B,): eps,
+        integer timesteps; flow, sigmas in [0, 1). Under premerge, call it
+        and run the backward inside :meth:`adapted`."""
         wd = self.weight_dtype
         b = latents.shape[0]
-        a = self.alphas_cumprod[t].reshape(b, 1, 1, 1)
-        noisy = (torch.sqrt(a) * latents.float() + torch.sqrt(1 - a) * noise).to(wd)
+        bcast = (b,) + (1,) * (latents.ndim - 1)
         kwargs = {} if added_cond is None else {"added_cond": added_cond.to(wd)}
+        if self.objective == "flow":
+            x0 = latents.float()
+            s = t.float().reshape(bcast)
+            noisy = ((1 - s) * x0 + s * noise).to(wd)
+            pred = self.model(noisy, t.float() * self.num_train_timesteps, context.to(wd),
+                              **kwargs)
+            return ((pred.float() - (noise - x0)) ** 2).mean()
+        a = self.alphas_cumprod[t].reshape(bcast)
+        noisy = (torch.sqrt(a) * latents.float() + torch.sqrt(1 - a) * noise).to(wd)
         pred = self.model(noisy, t, context.to(wd), **kwargs)
         return ((pred.float() - noise) ** 2).mean()
 
@@ -169,13 +187,16 @@ class DiffusionTrainer:
         return self._step(batch)
 
     def _draw(self, latents):
-        """The global batch's noise and timesteps from ``generator``, and
-        the step's drop seed from ``drop_generator``."""
+        """The global batch's noise and timesteps (sigmas under flow) from
+        ``generator``, and the step's drop seed from ``drop_generator``."""
         b = latents.shape[0] * shd.axis_size(self.mesh, "data")  # the global batch
         noise = torch.randn((b, *latents.shape[1:]), generator=self.generator,
                             device=self.device, dtype=torch.float32)
-        t = torch.randint(0, self.num_train_timesteps, (b,), generator=self.generator,
-                          device=self.device)
+        if self.objective == "flow":
+            t = torch.rand((b,), generator=self.generator, device=self.device)
+        else:
+            t = torch.randint(0, self.num_train_timesteps, (b,), generator=self.generator,
+                              device=self.device)
         seed = int(torch.randint(0, 2**62, (), generator=self.drop_generator))
         return noise, t, seed
 

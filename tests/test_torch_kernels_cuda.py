@@ -1144,3 +1144,94 @@ def test_cuda_flux_call_launches_one_kron_merge_a_layer(cuda):
     net.restore()
     del model, net, out
     torch.cuda.empty_cache()
+
+
+def _flash_plain_blocked(q, k, v, o, lse, do, sm, block=1024):
+    """The plain forward (o, lse) and backward (dq, dk, dv) in fp32, in
+    blocks of ``block`` queries (a whole (T, T) logit matrix at T = 14,040
+    and 40 heads would take 31.5 GB): dk and dv summed over the blocks."""
+    kf, vf = k.float(), v.float()
+    outs, lses, dqs = [], [], []
+    dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
+    for lo in range(0, q.shape[2], block):
+        qb = q[:, :, lo:lo + block].float()
+        ob, lb = tflash.flash_attention_plain(qb, kf, vf, sm)
+        outs.append(ob)
+        lses.append(lb)
+        dq, dk_part, dv_part = tflash.flash_attention_bwd_plain(
+            qb, kf, vf, o[:, :, lo:lo + block].float(), lse[:, :, lo:lo + block],
+            do[:, :, lo:lo + block].float(), sm)
+        dqs.append(dq)
+        dk += dk_part
+        dv += dv_part
+    return torch.cat(outs, 2), torch.cat(lses, 2), (torch.cat(dqs, 2), dk, dv)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_wan_ragged_t(cuda):
+    """Wan's self-attention, (1, 40, 14040, 128) bf16 (480p x 33 frames; T
+    is 88 past a multiple of 128 and 24 past one of 64 and 32), forward and
+    backward against the plain versions: q and k (B, T, H, D) buffers as
+    RoPE leaves them, v and dO head-split views, read in place."""
+    g = torch.Generator(device=cuda).manual_seed(14)
+    b, h, t, d = 1, 40, 14040, 128
+    q, k, v, do = (_heads(b, h, t, d, g, torch.bfloat16, cuda) for _ in range(4))
+    assert not any(tflash.needs_pad(x) for x in (q, k, v, do))
+    sm = d**-0.5
+    n = tflash.launches, tflash.bwd_launches
+    o, lse = tflash.flash_fwd(q, k, v, sm)
+    got = tflash.flash_bwd(q, k, v, o, lse, do, sm)
+    assert (tflash.launches, tflash.bwd_launches) == (n[0] + 1, n[1] + 1)
+    o_ref, lse_ref, want = _flash_plain_blocked(q, k, v, o, lse, do, sm)
+    _check(o, o_ref, torch.bfloat16)
+    assert float((lse - lse_ref).abs().max()) < 1e-3
+    for a, w in zip(got, want):
+        assert a.shape == w.shape
+        _check(a, w, torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_cuda_wan_flow_step_against_the_cpu(cuda, monkeypatch):
+    """A small Wan (2 blocks, 2 heads of 64) with LoKr live, one flow step at
+    5 x 16 x 52 latents (1,040 tokens, ragged), block recompute, every layer
+    on the factored backward: bf16 on the card (flash forward 4, backward 2,
+    one kron merge a layer a pass) against fp32 on the CPU, on the same
+    noise and sigmas: the loss within 1e-2 and the adapter gradients within
+    5e-2 relative (bf16 noise)."""
+    from lycoris_tpu_torch import LycorisNetwork, create_lycoris
+    from lycoris_tpu_torch.functional import merged as fm
+    from lycoris_tpu_torch.models.wan import WanConfig, WanModel
+    from lycoris_tpu_torch.trainer import DiffusionTrainer
+
+    monkeypatch.setattr(fm, "FACTORED_MIN", 1)
+    cfg = WanConfig(dim=128, ffn_dim=256, freq_dim=32, text_dim=32, num_heads=2, num_layers=2,
+                    remat=True)
+    g = torch.Generator().manual_seed(3)
+    base = WanModel(cfg, device="cpu", generator=torch.Generator().manual_seed(0)).state_dict()
+    lat = torch.randn(1, 16, 5, 16, 52, generator=g)
+    ctx = torch.randn(1, 7, cfg.text_dim, generator=g)
+    noise, sigma = torch.randn(lat.shape, generator=g), torch.rand(1, generator=g)
+    out = {}
+    for dev, dtype in ((cuda, torch.bfloat16), (torch.device("cpu"), torch.float32)):
+        model = WanModel(cfg, device="meta")
+        model.load_state_dict({k: v.to(dev) for k, v in base.items()}, strict=True, assign=True)
+        LycorisNetwork.apply_preset({"target_module": ["WanAttentionBlock"]})
+        try:
+            net = create_lycoris(model, 1.0, 4, 2.0, algo="lokr", factor=4, device=dev)
+        finally:
+            LycorisNetwork.reset_preset()
+        with torch.no_grad():
+            for i, p in enumerate(net.parameters()):
+                p.copy_(torch.randn(p.shape, generator=torch.Generator().manual_seed(i)) * 0.3)
+        tr = DiffusionTrainer(model, net, weight_dtype=dtype, objective="flow")
+        n = tflash.launches, tflash.bwd_launches, tkron.launches
+        loss = tr._step({"latents": lat.to(dev), "context": ctx.to(dev)}, noise=noise.to(dev),
+                        t=sigma.to(dev), seed=0)
+        counts = (tflash.launches - n[0], tflash.bwd_launches - n[1], tkron.launches - n[2])
+        grads = torch.cat([tr.optimizer.state[p]["exp_avg"].flatten().cpu()
+                           for p in net.parameters()])
+        out[dev.type] = float(loss), grads, counts
+    (l_gpu, g_gpu, counts), (l_cpu, g_cpu, _) = out["cuda"], out["cpu"]
+    assert counts[:2] == (4, 2) and counts[2] >= 2 * 10 * cfg.num_layers
+    assert abs(l_gpu - l_cpu) <= 1e-2 * abs(l_cpu)
+    assert float((g_gpu - g_cpu).norm() / g_cpu.norm()) <= 5e-2

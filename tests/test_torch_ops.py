@@ -85,12 +85,13 @@ def test_hada_plain_matches_jax_kernel(interpret_pallas, shape):
     [
         (4096, 4096, 40, True),   # SD1.5 level 0 self-attention
         (1024, 1024, 80, True),   # SD1.5 level 1
-        (1536, 1536, 64, True),   # T % 512 == 0 is enough
+        (1536, 1536, 64, True),   # T >= 1024 is enough
         (4096, 77, 40, False),    # cross-attention
         (256, 256, 160, False),   # SD1.5 level 2 (short, D > 128)
         (64, 64, 160, False),     # mid block
         (2048, 2048, 160, False),  # D > 128
-        (1000, 1000, 64, False),  # not a multiple of 512
+        (1000, 1000, 64, False),  # under 1024
+        (14040, 14040, 128, True),  # Wan 480p x 33 frames: no multiple of any tile
     ],
 )
 def test_attention_dispatch_rule(tq, tk, d, want):
